@@ -1,0 +1,88 @@
+"""repro_torch.api — the rendering facade of the port.
+
+    from repro_torch import api
+    from repro_torch.core.config import RenderConfig, RenderRequest
+
+    renderer = api.make_renderer(RenderConfig(backend="streaming"))
+    result = renderer.render(RenderRequest(poses=tuple(traj)))
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``, or ``RenderConfig(device="cpu")``), where the kernels'
+plain PyTorch versions run; with no card and no explicit CPU they raise.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+import torch
+
+from repro_torch.core import pipeline
+from repro_torch.core.config import (  # noqa: F401 (facade re-exports)
+    RenderConfig,
+    RenderRequest,
+    RenderResult,
+    RenderStats,
+)
+from repro_torch.nerf import models, scenes
+from repro_torch.utils import DeviceLike, resolve_device
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class Renderer:
+    """The facade over one (model, params, config); ``.pipeline`` is the
+    underlying :class:`~repro_torch.core.pipeline.CiceroRenderer`."""
+
+    def __init__(self, config: RenderConfig, model: models.NerfModel,
+                 params: dict):
+        self.config = config.resolved()
+        self.model = model
+        self.pipeline = pipeline.CiceroRenderer(model, params,
+                                                config=self.config)
+        self.params = self.pipeline.params
+        self.cam = self.config.camera
+        self.device = self.pipeline.device
+
+    def render(self, request: Union[RenderRequest, Sequence[torch.Tensor]]
+               ) -> RenderResult:
+        """Render one session (a request, or a bare pose sequence)."""
+        if not isinstance(request, RenderRequest):
+            request = RenderRequest(poses=tuple(request))
+        return self.pipeline.render(request)
+
+    def render_baseline(self, poses: Sequence[torch.Tensor]
+                        ) -> List[torch.Tensor]:
+        return self.pipeline.render_baseline(list(poses))
+
+
+def make_renderer(config: RenderConfig, *,
+                  model: Optional[models.NerfModel] = None,
+                  params: Optional[dict] = None,
+                  device: DeviceLike = None) -> Renderer:
+    """Build a :class:`Renderer` for ``config`` on ``device`` (default:
+    ``config.device``, else the CUDA card).
+
+    With no ``model``/``params`` the scene is baked into a dense grid for
+    the configured backend; otherwise both are used as given (``params``
+    moved to the device), e.g. ``decoder="mlp"`` weights from
+    :func:`repro_torch.convert.params_from_numpy`.
+    """
+    config = config.resolved()
+    dev = resolve_device(device if device is not None else config.device)
+    if (model is None) != (params is None):
+        raise TypeError("make_renderer: pass model and params together "
+                        "(or neither)")
+    if model is None:
+        model, _ = models.make_model(
+            config.model_kind, grid_res=config.grid_res,
+            channels=config.channels, decoder=config.decoder,
+            num_samples=config.num_samples, backend=config.backend,
+            stream_capacity=config.stream_capacity,
+            mvoxel_layout=config.mvoxel_layout)
+        params = model.init_baked(scenes.make_scene(config.scene),
+                                  device=dev)
+    return Renderer(config, model, _to_device(params, dev))

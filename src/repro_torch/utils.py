@@ -1,0 +1,37 @@
+"""Small shared utilities: integer rounding, PSNR, device resolution."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[None, str, torch.device]
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def cdiv(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+def psnr(img: torch.Tensor, ref: torch.Tensor,
+         data_range: float = 1.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB (the paper's quality metric)."""
+    mse = torch.mean((img.float() - ref.float()) ** 2)
+    mse = torch.clamp(mse, min=1e-12)
+    return 10.0 * torch.log10(data_range**2 / mse)
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    first CUDA card. Raises when no card is visible and the caller did not
+    ask for the CPU explicitly — the port never drops to the CPU quietly."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
+                           "run the plain PyTorch path on the CPU")
+    return torch.device("cuda")
+

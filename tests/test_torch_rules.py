@@ -1,0 +1,66 @@
+"""The rules of the port: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package; entry points run on the CUDA card unless
+the caller asks for the CPU, and raise without a card; ``chip_smoke.py``
+fails (and prints no result) where there is no card or no repository."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api, convert
+from repro_torch.core.config import RenderConfig
+from repro_torch.kernels import fused_nerf_mlp, gather_trilerp
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_neither_jax_nor_reference(path):
+    for mod in _imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "flax", "repro"), (path, mod)
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RenderConfig(res=16, grid_res=16, window=2, num_samples=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.make_renderer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_numpy({"table": np.zeros((8, 4), np.float32)})
+    ren = api.make_renderer(cfg, device="cpu")
+    assert ren.params["table"].device.type == "cpu"
+    assert api.make_renderer(cfg.replace(device="cpu")).device.type == "cpu"
+
+
+def test_kernels_are_not_built_at_import():
+    assert gather_trilerp.KERNEL._lib is None
+    assert fused_nerf_mlp.KERNEL._lib is None
+
+
+def test_chip_smoke_fails_without_card_or_repository(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for script in (ROOT / "chip_smoke.py", alone):
+        proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                              capture_output=True, text=True, timeout=120,
+                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
