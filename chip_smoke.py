@@ -13,20 +13,34 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
 3. hold each kernel against its plain PyTorch version on the card, on
    inputs the main path builds, TF32 off: the Gathering Unit (B1) with
    float32 and bfloat16 tables, both MVoxel layouts, 1 and 4 segments; the
-   fused MLP (B2) at C=8, H=64. Tolerances are the reference's kernel
-   tolerances: atol 2e-5 / rtol 1e-5 (float32), 3e-2 (bfloat16);
-4. render two arms end to end through ``repro_torch.api`` with every launch
-   count set to 0 just before and read just after; each arm's frames are
-   held against the same port run on the CPU (which runs the plain
-   versions): every frame >= 40 dB PSNR, equal reference renders, sparse
-   pixels within 1%, and every kernel of the arm launched at least once.
+   fused MLP (B2) at C=8, H=64; the fused tick's dual gather (B3) on the
+   RIT blocks a fused tick builds (captured from a real tick), float32 and
+   bfloat16, both layouts, 1 and 4 segments, also against two B1 launches
+   on the same blocks. Tolerances are the reference's kernel tolerances:
+   atol 2e-5 / rtol 1e-5 (float32), 3e-2 (bfloat16);
+4. run four arms end to end through ``repro_torch.api`` with every launch
+   count set to 0 just before and read just after; each arm is held
+   against the same port run on the CPU (which runs the plain versions):
+   every frame >= 40 dB PSNR, equal reference renders and frame counts,
+   and every kernel of the arm launched.
    Arm A: ``RenderConfig(backend="streaming")`` at its defaults (res 64,
-   window 16, grid 48, 4 channels, 32 samples, baked "lego"), 32 frames.
+   window 16, grid 48, 4 channels, 32 samples, baked "lego"), 32 frames;
+   sparse pixels within 1%.
    Arm B: ``make_model("dvgo", backend="streaming", decoder="mlp")`` at
    ``NerfConfig``'s defaults (grid 64, 8 channels, hidden 64, 64 samples)
-   with random parameters from numpy seed 0, 16 frames at res 64;
-   A third, profiled render of each arm (``torch.profiler``) reports the
-   device's busy share of the wall time and the busiest kernels and ops;
+   with random parameters from numpy seed 0, 16 frames at res 64; sparse
+   pixels within 1%.
+   Arm C: arm A's config with ``fused_tick=True``, 32 frames; sparse
+   pixels within 1%, and B3 launched once per fused tick.
+   Arm D: arm B's model served (``Renderer.serve``) with
+   ``fused_tick=True`` and 4 slots: 6 sessions of 32 frames (window 16),
+   orbits 25 degrees apart in phase, so queueing and slot reuse happen;
+   equal tick counts, B1, B2 and B3 launched, B3 once per tick. The same
+   fleet is then served on the staged tick on the card, and its frames
+   must agree with the fused run's at >= 40 dB.
+   A further, profiled run of each arm (``torch.profiler``) reports the
+   device's busy share of the wall time and the busiest kernels and ops
+   (for arm D also the ops with the most device time by input shape);
 5. time each kernel and its plain version at the arms' shapes (device
    time from CUDA events, see ``time_ms``) beside the least time the card
    could take, and print them as one JSON line, then the arms' wall times;
@@ -95,10 +109,10 @@ def check_close(name: str, got, want, tol) -> float:
     return err
 
 
-def profile_render(renderer, request) -> dict:
-    """Where one warm render's time goes: wall time under the profiler,
-    the device's busy time (the sum of its kernels and copies — one
-    stream, so they do not overlap) and the busiest kernels and host ops."""
+def profile_run(fn) -> dict:
+    """Where one warm run's time goes: wall time under the profiler, the
+    device's busy time (the sum of its kernels and copies — one stream,
+    so they do not overlap) and the busiest kernels and host ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -107,7 +121,8 @@ def profile_render(renderer, request) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        renderer.render(request)
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     stats = prof.key_averages()
     dev = [e for e in stats if e.device_type == DeviceType.CUDA]
@@ -123,6 +138,60 @@ def profile_render(renderer, request) -> dict:
             "top_host_ops": top([e for e in stats
                                  if e.device_type == DeviceType.CPU],
                                 "self_cpu_time_total")}
+
+
+def profile_ops_by_shape(fn, top: int = 8) -> list:
+    """The PyTorch ops whose own kernels take the most device time in one
+    more run of ``fn``, grouped by input shape (shapes are recorded here
+    only: recording them slows the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == DeviceType.CPU]
+    return [{"name": e.key, "shapes": str(e.input_shapes)[:160],
+             "count": e.count, "self_device_us": e.self_device_time_total}
+            for e in sorted(ops, key=lambda e: -e.self_device_time_total)
+            [:top]]
+
+
+def capture_b3_inputs(engine, num_seg: int):
+    """The RIT blocks one fused tick hands to B3: ``num_seg`` sessions on
+    orbits 25 degrees apart, primed at their first pose, warped into their
+    first window, co-rendering the pose after it. Returns the arguments
+    and ``num_seg`` of the tick's ``fused_gather_dual`` call."""
+    import torch
+    from repro_torch.core.pipeline import orbit_trajectory
+    from repro_torch.kernels import streaming_pipeline as sp_k
+
+    n = engine.window
+    trajs = [orbit_trajectory(n + 1, phase_deg=25.0 * i)
+             for i in range(num_seg)]
+    ref = torch.stack([t[0] for t in trajs])
+    tgt = torch.stack([torch.stack(t[:n]) for t in trajs])
+    nxt = torch.stack([t[n] for t in trajs])
+    rgb, dep = engine.prime_reference(ref)
+    seen = []
+    real = sp_k.fused_gather_dual
+
+    def spy(*args, **kw):
+        seen.append((args, kw["num_seg"]))
+        return real(*args, **kw)
+
+    sp_k.fused_gather_dual = spy
+    try:
+        engine.render_windows_streaming(rgb, dep, ref, tgt, nxt)
+    finally:
+        sp_k.fused_gather_dual = real
+    if len(seen) != 1:
+        fail(f"a fused tick called fused_gather_dual {len(seen)} times")
+    return seen[0]
 
 
 def arm_b_params(seed: int = 0) -> dict:
@@ -143,6 +212,8 @@ def arm_b_params(seed: int = 0) -> dict:
 
 
 def main() -> int:
+    import math
+
     import torch
 
     if not torch.cuda.is_available():
@@ -151,17 +222,19 @@ def main() -> int:
     from repro_torch import api
     from repro_torch.convert import params_from_numpy
     from repro_torch.core.config import RenderConfig, RenderRequest
+    from repro_torch.core.engine import DeviceSparwEngine
     from repro_torch.core.pipeline import orbit_trajectory
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fused_nerf_mlp as mlp_k
     from repro_torch.kernels import gather_trilerp as gt_k
+    from repro_torch.kernels import streaming_pipeline as sp_k
     from repro_torch.nerf import mlp, models, rays
     from repro_torch.utils import psnr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = [gt_k.KERNEL, mlp_k.KERNEL]
+    kernels = [gt_k.KERNEL, mlp_k.KERNEL, sp_k.KERNEL]
 
     # 1. the card ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -196,13 +269,19 @@ def main() -> int:
         return pts.reshape(-1, 3), d.repeat_interleave(num_samples, dim=0)
 
     cfg_a = RenderConfig(backend="streaming")
+    cfg_c = cfg_a.replace(fused_tick=True)
     model_b, cfg_b_model = models.make_model("dvgo", backend="streaming",
                                              decoder="mlp")
     np_params_b = arm_b_params(0)
     params_b = params_from_numpy(np_params_b, dev)
+    cfg_b = RenderConfig(backend="streaming", decoder="mlp", grid_res=64,
+                         channels=8, num_samples=64)
+    cfg_d = cfg_b.replace(fused_tick=True, num_slots=4)
 
     # 3. kernels against their plain versions -----------------------------
-    errs = {"B1": 0.0, "B1_bf16": 0.0, "B2": 0.0}
+    errs = {"B1": 0.0, "B1_bf16": 0.0, "B2": 0.0, "B3": 0.0, "B3_bf16": 0.0,
+            "B3_vs_B1": 0.0}
+    b3_bit_equal = True
     shapes = {}
     for layout in ("identity", "bank_interleaved"):
         ren = api.make_renderer(cfg_a.replace(mvoxel_layout=layout))
@@ -226,6 +305,32 @@ def main() -> int:
                     got, want, BF16_TOL if tag == "bf16" else F32_TOL))
                 if layout == "identity" and num_seg == 1 and tag == "f32":
                     shapes["B1_A"] = args
+        # B3 on the blocks a fused tick of arm C's config builds
+        eng_c = DeviceSparwEngine(ren.model, ren.params,
+                                  config=cfg_c.replace(mvoxel_layout=layout))
+        for num_seg in (1, 4):
+            (tbl, ih, wh, ir, wr), ns = capture_b3_inputs(eng_c, num_seg)
+            for tag, t in (("f32", tbl), ("bf16", tbl.to(torch.bfloat16))):
+                tol = BF16_TOL if tag == "bf16" else F32_TOL
+                name = (f"B3 {layout} {tag} num_seg={ns} table "
+                        f"{tuple(t.shape)} holes {tuple(ih.shape)} "
+                        f"refs {tuple(ir.shape)}")
+                got = sp_k.fused_gather_dual(t, ih, wh, ir, wr, num_seg=ns)
+                want = sp_k.fused_gather_dual_plain(t, ih, wh, ir, wr, ns)
+                b1 = (gt_k.gather_trilerp_mvoxels_segmented(t, ih, wh,
+                                                            num_seg=ns),
+                      gt_k.gather_trilerp_mvoxels_segmented(t, ir, wr,
+                                                            num_seg=ns))
+                key = "B3_bf16" if tag == "bf16" else "B3"
+                for part, g, w, o in zip(("holes", "refs"), got, want, b1):
+                    errs[key] = max(errs[key], check_close(
+                        f"{name} {part}", g, w, tol))
+                    errs["B3_vs_B1"] = max(errs["B3_vs_B1"], check_close(
+                        f"{name} {part} vs B1", g, o, tol))
+                    b3_bit_equal &= bool(torch.equal(g, o))
+                if layout == "identity" and num_seg == 1 and tag == "f32":
+                    shapes["B3_C"] = ((t, ih, wh, ir, wr), ns)
+    print(f"B3 bit-equal to B1 on every captured block: {b3_bit_equal}")
     pts_b, dirs_b = chunk_points(poses[:1], cfg_b_model.num_samples)
     scfg_b = model_b.streaming_cfg
     prepared_b = model_b.prepare_streaming(params_b)
@@ -245,19 +350,37 @@ def main() -> int:
     errs["B2"] = check_close(
         f"B2 C=8 H=64 S={feats_b.shape[0]}", mlp_k.fused_nerf_mlp(*mlp_args),
         mlp_k.fused_nerf_mlp_plain(*mlp_args), F32_TOL)
+    # B3 at arm D's shape: a 4-session fused tick of arm B's model
+    eng_d = DeviceSparwEngine(model_b, params_b, config=cfg_d)
+    (tbl, ih, wh, ir, wr), ns = capture_b3_inputs(eng_d, 4)
+    shapes["B3_D"] = ((tbl, ih, wh, ir, wr), ns)
+    for part, g, w in zip(("holes", "refs"),
+                          sp_k.fused_gather_dual(tbl, ih, wh, ir, wr,
+                                                 num_seg=ns),
+                          sp_k.fused_gather_dual_plain(tbl, ih, wh, ir, wr,
+                                                       ns)):
+        errs["B3"] = max(errs["B3"], check_close(
+            f"B3 arm-D identity f32 num_seg={ns} table {tuple(tbl.shape)} "
+            f"{part}", g, w, F32_TOL))
     torch.cuda.synchronize()
 
     # 4. the arms, end to end ---------------------------------------------
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
     def run_arm(name, cfg, n_frames, model=None, np_params=None):
         arm_poses = orbit_trajectory(n_frames)
         req = RenderRequest(poses=tuple(arm_poses))
         extra = ({} if model is None else
                  dict(model=model, params=params_from_numpy(np_params, dev)))
         gpu = api.make_renderer(cfg, **extra)
-        for k in kernels:
-            k.launches = 0
+        reset()
         cold = gpu.render(req)
-        launches = {k.name: k.launches for k in kernels}
+        launches = counts()
         warm = gpu.render(req)
         extra_cpu = ({} if model is None else
                      dict(model=model,
@@ -278,8 +401,9 @@ def main() -> int:
                 0.01 * max(sc.sparse_pixels, 1):
             fail(f"arm {name}: sparse pixels {sg.sparse_pixels} vs CPU "
                  f"{sc.sparse_pixels}")
-        return {"frames": n_frames, "launches": launches,
-                "profile": profile_render(gpu, req),
+        return {"frames": n_frames, "ticks": math.ceil(n_frames / cfg.window),
+                "launches": launches,
+                "profile": profile_run(lambda: gpu.render(req)),
                 "min_psnr_vs_cpu_db": worst,
                 "reference_renders": sg.reference_renders,
                 "sparse_pixels": sg.sparse_pixels,
@@ -289,16 +413,103 @@ def main() -> int:
                 "cold_wall_s": cold.wall_s, "warm_wall_s": warm.wall_s,
                 "warm_fps": warm.fps, "cpu_wall_s": cpu.wall_s}
 
+    def serve_fleet(renderer, fleet):
+        reset()
+        torch.cuda.synchronize()
+        results, m = renderer.serve(fleet)
+        return results, m, counts()
+
+    def run_serving_arm(name, cfg, n_sessions, n_frames):
+        fleet = [RenderRequest(poses=tuple(orbit_trajectory(
+            n_frames, phase_deg=25.0 * i))) for i in range(n_sessions)]
+        gpu = api.make_renderer(cfg, model=model_b,
+                                params=params_from_numpy(np_params_b, dev))
+        cold, m_cold, launches = serve_fleet(gpu, fleet)
+        _, m_warm, _ = serve_fleet(gpu, fleet)
+        t_cpu = time.perf_counter()
+        cpu, m_cpu = api.make_renderer(
+            cfg, model=model_b, params=params_from_numpy(np_params_b, "cpu"),
+            device="cpu").serve(fleet)
+        cpu_s = time.perf_counter() - t_cpu
+        if not (m_cold["complete"] and m_cpu["complete"]):
+            fail(f"arm {name}: a session did not complete")
+        if m_cold["ticks"] != m_cpu["ticks"]:
+            fail(f"arm {name}: {m_cold['ticks']} ticks vs CPU "
+                 f"{m_cpu['ticks']}")
+        worst = math.inf
+        for rg, rc in zip(cold, cpu):
+            if rg.stats.reference_renders != rc.stats.reference_renders \
+                    or rg.stats.frames != rc.stats.frames \
+                    or rc.stats.frames != n_frames:
+                fail(f"arm {name}: session {rg.sid} stats differ from the "
+                     f"CPU run ({rg.stats} vs {rc.stats})")
+            for f, c in zip(rg.frames, rc.frames):
+                f = f.cpu()
+                if f.shape != (cfg.res, cfg.res, 3) \
+                        or not torch.isfinite(f).all():
+                    fail(f"arm {name}: a frame is not finite")
+                worst = min(worst, float(psnr(f, c)))
+        if worst < 40.0:
+            fail(f"arm {name}: a frame is {worst:.2f} dB from the CPU run")
+        sparse = [r.stats.sparse_pixels for r in cold]
+        return cold, {
+            "sessions": n_sessions, "frames": n_sessions * n_frames,
+            "slots": cfg.num_slots, "ticks": m_cold["ticks"],
+            "launches": launches,
+            "profile": profile_run(lambda: gpu.serve(fleet)),
+            "top_ops_by_shape": profile_ops_by_shape(lambda: gpu.serve(fleet)),
+            "min_psnr_vs_cpu_db": worst,
+            "reference_renders": [r.stats.reference_renders for r in cold],
+            "sparse_pixels": sparse,
+            "sparse_pixels_cpu": [r.stats.sparse_pixels for r in cpu],
+            "fallback_pixels": [r.stats.fallback_pixels for r in cold],
+            "memory": m_cold["memory"], "queue": m_cold["queue"],
+            "cold_wall_s": m_cold["wall_s"], "warm_wall_s": m_warm["wall_s"],
+            "warm_fps": m_warm["aggregate_fps"], "cpu_wall_s": cpu_s}, fleet
+
     arms = {"A": run_arm("A", cfg_a, 32)}
-    cfg_b = RenderConfig(backend="streaming", decoder="mlp", grid_res=64,
-                         channels=8, num_samples=64)
     arms["B"] = run_arm("B", cfg_b, 16, model_b, np_params_b)
+    arms["C"] = run_arm("C", cfg_c, 32)
+    fused_frames, arms["D"], fleet = run_serving_arm("D", cfg_d, 6, 32)
     if arms["A"]["launches"]["gather_trilerp"] == 0:
         fail("arm A never launched the Gathering Unit kernel")
-    if min(arms["B"]["launches"].values()) == 0:
+    if min(arms["B"]["launches"][k.name]
+           for k in (gt_k.KERNEL, mlp_k.KERNEL)) == 0:
         fail(f"arm B left a kernel unlaunched: {arms['B']['launches']}")
+    for name in ("C", "D"):
+        arm = arms[name]
+        if arm["launches"]["gather_trilerp"] == 0 \
+                or arm["launches"]["fused_gather_dual"] != arm["ticks"]:
+            fail(f"arm {name}: B3 launched {arm['launches']} times for "
+                 f"{arm['ticks']} fused ticks (B1 must run too)")
+    if arms["D"]["launches"]["fused_nerf_mlp"] == 0:
+        fail(f"arm D never launched B2: {arms['D']['launches']}")
+    # the same fleet on the staged serving tick, on the card
+    gpu_s = api.make_renderer(cfg_d.replace(fused_tick=False), model=model_b,
+                              params=params_from_numpy(np_params_b, dev))
+    staged, m_staged, launches_staged = serve_fleet(gpu_s, fleet)
+    _, m_staged_warm, _ = serve_fleet(gpu_s, fleet)
+    if m_staged["ticks"] != arms["D"]["ticks"] or not m_staged["complete"]:
+        fail(f"arm D: staged serving ran {m_staged['ticks']} ticks, fused "
+             f"{arms['D']['ticks']}")
+    worst = min(float(psnr(a, b)) for ra, rb in zip(fused_frames, staged)
+                for a, b in zip(ra.frames, rb.frames))
+    if worst < 40.0:
+        fail(f"arm D: staged and fused serving frames differ ({worst:.2f} "
+             "dB)")
+    arms["D"]["staged"] = {
+        "ticks": m_staged["ticks"], "launches": launches_staged,
+        "min_psnr_vs_fused_db": worst, "cold_wall_s": m_staged["wall_s"],
+        "warm_wall_s": m_staged_warm["wall_s"],
+        "warm_fps": m_staged_warm["aggregate_fps"]}
     for name, arm in arms.items():
         print(f"arm {name}: {json.dumps(arm)}")
+    print(f"B1 launches: arm A {arms['A']['launches']['gather_trilerp']} "
+          f"(staged), arm C {arms['C']['launches']['gather_trilerp']} "
+          f"(fused); arm D fused {arms['D']['launches']} vs staged "
+          f"{launches_staged}")
+    print(f"arm D serving: fused warm {m_warm_line(arms['D'])}; staged warm "
+          f"{m_warm_line(arms['D']['staged'])}")
 
     # 5. timings beside the bounds ----------------------------------------
     def b1_cost(tbl, ids, w):
@@ -316,6 +527,12 @@ def main() -> int:
         dcfg = mlp.DecoderCfg(in_channels=c, hidden=h)
         nbytes = 4 * (sum(t.numel() for t in args) + 4 * s)
         return nbytes, s * mlp.decoder_flops(dcfg)
+
+    def b3_cost(tbl, ih, wh, ir, wr):
+        bh, fh = b1_cost(tbl, ih, wh)
+        br, fr = b1_cost(tbl, ir, wr)
+        table_bytes = tbl.numel() * tbl.element_size()
+        return bh + br - table_bytes, fh + fr  # the table is read once
 
     def timed(kernel_fn, plain_fn, nbytes, flops, shape):
         bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
@@ -336,30 +553,39 @@ def main() -> int:
                   lambda a=a: mlp_k.fused_nerf_mlp_plain(*a), *b2_cost(a),
                   f"S={a[0].shape[0]} C=8 H=64")
             for a in (mlp_args, fill_args)]
+    t_b3 = [timed(lambda a=a, n=n: sp_k.fused_gather_dual(*a, num_seg=n),
+                  lambda a=a, n=n: sp_k.fused_gather_dual_plain(*a, n),
+                  *b3_cost(*a),
+                  f"table {list(a[0].shape)} holes {list(a[1].shape)} "
+                  f"refs {list(a[3].shape)} num_seg {n}")
+            for a, n in (shapes["B3_C"], shapes["B3_D"])]
     card = f"{smi} (torch.cuda: {kind})"
+
+    def entry(name, kernel, source, replaces, err, t, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=sum(a["launches"][kernel.name]
+                                 for a in arms.values()),
+                    launches_per_arm={n: a["launches"][kernel.name]
+                                      for n, a in arms.items()},
+                    max_abs_err=err,
+                    **{k: t[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "shape")},
+                    library_ms=None, other_shapes=t[1:], card=card, **extra)
+
     line = {"kernels": [
-        dict(name="gather_trilerp_mvoxels_segmented (B1, Gathering Unit)",
-             route="cuda", source="src/repro_torch/csrc/gather_trilerp.cu",
-             replaces="src/repro/kernels/gather_trilerp.py:95",
-             launches=sum(a["launches"]["gather_trilerp"]
-                          for a in arms.values()),
-             launches_per_arm={n: a["launches"]["gather_trilerp"]
-                               for n, a in arms.items()},
-             max_abs_err=errs["B1"], max_abs_err_bf16=errs["B1_bf16"],
-             **{k: t_b1[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "shape")},
-             library_ms=None, other_shapes=t_b1[1:], card=card),
-        dict(name="fused_nerf_mlp (B2, fused radiance MLP)",
-             route="cuda", source="src/repro_torch/csrc/fused_nerf_mlp.cu",
-             replaces="src/repro/kernels/fused_nerf_mlp.py:54",
-             launches=sum(a["launches"]["fused_nerf_mlp"]
-                          for a in arms.values()),
-             launches_per_arm={n: a["launches"]["fused_nerf_mlp"]
-                               for n, a in arms.items()},
-             max_abs_err=errs["B2"],
-             **{k: t_b2[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "shape")},
-             library_ms=None, other_shapes=t_b2[1:], card=card),
+        entry("gather_trilerp_mvoxels_segmented (B1, Gathering Unit)",
+              gt_k.KERNEL, "src/repro_torch/csrc/gather_trilerp.cu",
+              "src/repro/kernels/gather_trilerp.py:95", errs["B1"], t_b1,
+              max_abs_err_bf16=errs["B1_bf16"]),
+        entry("fused_nerf_mlp (B2, fused radiance MLP)", mlp_k.KERNEL,
+              "src/repro_torch/csrc/fused_nerf_mlp.cu",
+              "src/repro/kernels/fused_nerf_mlp.py:54", errs["B2"], t_b2),
+        entry("fused_gather_dual (B3, fused tick dual gather)", sp_k.KERNEL,
+              "src/repro_torch/csrc/fused_gather_dual.cu",
+              "src/repro/kernels/streaming_pipeline.py:80", errs["B3"], t_b3,
+              max_abs_err_bf16=errs["B3_bf16"],
+              max_abs_err_vs_b1=errs["B3_vs_B1"],
+              bit_equal_to_b1=b3_bit_equal),
     ]}
     print(json.dumps(line))
     print(json.dumps({"arms_wall": {
@@ -370,6 +596,11 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def m_warm_line(arm: dict) -> str:
+    return (f"{arm['warm_wall_s']:.3f} s, {arm['warm_fps']:.1f} frames/s, "
+            f"cold {arm['cold_wall_s']:.3f} s")
 
 
 if __name__ == "__main__":

@@ -5,6 +5,8 @@
 
     renderer = api.make_renderer(RenderConfig(backend="streaming"))
     result = renderer.render(RenderRequest(poses=tuple(traj)))
+    results, metrics = renderer.serve([RenderRequest(poses=tuple(t))
+                                       for t in trajs], policy="priority")
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, or ``RenderConfig(device="cpu")``), where the kernels'
@@ -12,7 +14,7 @@ plain PyTorch versions run; with no card and no explicit CPU they raise.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -24,6 +26,11 @@ from repro_torch.core.config import (  # noqa: F401 (facade re-exports)
     RenderStats,
 )
 from repro_torch.nerf import models, scenes
+from repro_torch.serve.policies import (  # noqa: F401 (facade re-exports)
+    FifoPolicy,
+    PriorityPolicy,
+    SchedulingPolicy,
+)
 from repro_torch.utils import DeviceLike, resolve_device
 
 
@@ -53,6 +60,18 @@ class Renderer:
         if not isinstance(request, RenderRequest):
             request = RenderRequest(poses=tuple(request))
         return self.pipeline.render(request)
+
+    def serve(self, requests: Sequence[Union[RenderRequest,
+                                             Sequence[torch.Tensor]]],
+              policy: Union[None, str, SchedulingPolicy] = None,
+              num_slots: Optional[int] = None
+              ) -> Tuple[List[RenderResult], Dict[str, object]]:
+        """Serve concurrent sessions through one batched device call per
+        tick; ``policy`` picks the admission policy ("fifo" default,
+        "priority", or any :class:`SchedulingPolicy`), ``num_slots``
+        overrides ``config.num_slots``. Returns (results, metrics)."""
+        return self.pipeline.serve(requests, policy=policy,
+                                   num_slots=num_slots)
 
     def render_baseline(self, poses: Sequence[torch.Tensor]
                         ) -> List[torch.Tensor]:

@@ -1,12 +1,12 @@
 """The declarative rendering surface: config / request / result, and the
-pooled hole-capacity controller (port of the slice-1 parts of
-``repro.core.config``).
+pooled hole-capacity controller (port of ``repro.core.config``).
 
-:class:`RenderConfig` holds the knobs the staged single-session path
-reads; ``device`` takes the place of the reference's Pallas interpret
-flag (None = the CUDA card, which must exist; "cpu" runs the plain
-PyTorch versions of the kernels). The reference's legacy-kwarg shims, the
-serving, sharding, adaptive-sampling and fused-tick knobs are not ported.
+:class:`RenderConfig` holds the knobs of the staged and fused render paths
+and of the single-scene serving engine; ``device`` takes the place of the
+reference's Pallas interpret flag (None = the CUDA card, which must exist;
+"cpu" runs the plain PyTorch versions of the kernels). The reference's
+legacy-kwarg shims and its multi-scene, sharding and adaptive-sampling
+knobs are not ported.
 """
 from __future__ import annotations
 
@@ -90,6 +90,13 @@ class HoleCapController:
                      else self.alpha * t + (1.0 - self.alpha) * self.ewma)
 
     @property
+    def ladder_size(self) -> int:
+        """Distinct buckets the controller can emit."""
+        if self.fixed is not None:
+            return 1
+        return int(np.log2(self.max_bucket // self.min_bucket)) + 1
+
+    @property
     def bucket(self) -> int:
         if self.fixed is not None:
             return self.fixed
@@ -110,6 +117,7 @@ class RenderConfig:
     res: int = 64  # used only when camera is None
     # --- SpaRW schedule ---------------------------------------------------
     window: int = 16  # warp window N (targets per reference)
+    num_slots: int = 4  # serving: concurrent session slots
     phi_deg: Optional[float] = None  # warp angular threshold (Eq. 4)
     hole_cap: Optional[int] = None  # per-frame sparse-ray capacity
     # rays per NeRF call of a flat stage; each stage chunks at
@@ -123,6 +131,11 @@ class RenderConfig:
     pool_safety: float = 1.25
     pool_ewma_alpha: float = 0.4
     mvoxel_layout: str = "identity"  # identity | bank_interleaved
+    # --- unified streaming tick -------------------------------------------
+    # fused_tick=True renders each window's pooled holes and the NEXT
+    # window's reference through one dual-RIT MVoxel sweep (kernel B3),
+    # for trajectories and for the serving engine
+    fused_tick: bool = False
     # --- model shape (what make_renderer builds) ---------------------------
     model_kind: str = "dvgo"
     backend: str = "reference"  # reference | streaming (kernel hot path)
@@ -137,6 +150,8 @@ class RenderConfig:
     def __post_init__(self) -> None:
         if self.window < 1:
             raise ValueError(f"window must be >= 1, got {self.window}")
+        if self.num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {self.num_slots}")
         if self.hole_cap is not None and self.hole_cap < 1:
             raise ValueError(f"hole_cap must be >= 1 (or None), got "
                              f"{self.hole_cap}")
@@ -160,6 +175,12 @@ class RenderConfig:
         if self.mvoxel_layout not in ("identity", "bank_interleaved"):
             raise ValueError(f"mvoxel_layout must be identity|"
                              f"bank_interleaved, got {self.mvoxel_layout!r}")
+        if self.fused_tick and self.backend != "streaming":
+            raise ValueError("fused_tick=True requires backend='streaming' "
+                             "(the fused tick streams the MVoxel table)")
+        if self.fused_tick and not self.pool_holes:
+            raise ValueError("fused_tick=True requires pool_holes=True (the "
+                             "fused tick renders the pooled hole batch)")
 
     def resolved(self) -> "RenderConfig":
         """A config whose ``camera`` is a concrete :class:`Camera`."""
@@ -187,6 +208,8 @@ class RenderRequest:
     window: Optional[int] = None
     hole_cap: Optional[int] = None
     pool_bucket: Optional[int] = None
+    priority: int = 0  # serving admission (PriorityPolicy)
+    deadline_ms: Optional[float] = None
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "poses", tuple(self.poses))

@@ -1,21 +1,27 @@
-"""SpaRW render engine, staged path (port of the staged parts of
-``repro.core.engine.DeviceSparwEngine``).
+"""SpaRW render engine (port of ``repro.core.engine.DeviceSparwEngine``).
 
-One warp window per call: (1) render the reference frame through the flat
-ray batch, (2) warp it into every target of the window in one scatter pass
-(:func:`sparw.warp_frames_flat`), (3) compact the window's holes into one
-pooled ``[bucket]`` batch (:func:`sparw.compact_holes_pooled`), (4) render
-that batch and segment-scatter it back, with a dense re-render of the
-window when it overflows its capacity. The NeRF calls chunk exactly as the
-reference's ``lax.map`` does, so every chunk's RIT — and its overflow set —
-is the one the reference builds.
+Staged path, one warp window per call: (1) render the reference frame
+through the flat ray batch, (2) warp it into every target of the window in
+one scatter pass (:func:`sparw.warp_frames_flat`), (3) compact the
+window's holes into one pooled ``[bucket]`` batch
+(:func:`sparw.compact_holes_pooled`), (4) render that batch and
+segment-scatter it back, with a dense re-render of the window when it
+overflows its capacity. The NeRF calls chunk exactly as the reference's
+``lax.map`` does, so every chunk's RIT — and its overflow set — is the one
+the reference builds.
 
-Not ported yet: the fused streaming tick, adaptive sampling, session
-sharding and the serving-engine entry points.
+Fused path (``RenderConfig.fused_tick``): after one staged priming
+reference render, each window is one unified streaming tick
+(:func:`raybatch.render_tick_streaming`) that fills this window's holes
+and renders the next window's reference through one MVoxel-table sweep.
+Both paths serve :class:`repro_torch.serve.render_engine.RenderServeEngine`.
+
+Not ported yet: adaptive sampling, session sharding and the autotune
+cache (``ref_cap_factor`` is the reference's default, 2).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,7 +69,22 @@ class DeviceSparwEngine:
             worst=self.window * self.hole_cap, min_bucket=self.pool_min_bucket,
             safety=config.pool_safety, alpha=config.pool_ewma_alpha,
             fixed=config.pool_bucket)
+        # every pool bucket this engine has run at (the reference counts
+        # them as compile targets; serving reports the per-run delta)
+        self.pool_buckets_used: set = set()
         self.num_window_calls = 0
+        # the fused tick's reference-set RIT capacity factor; the reference
+        # may override it from an autotune cache, which the port never reads
+        self.ref_cap_factor = 2
+        self.fused_tick = bool(config.fused_tick)
+        if self.fused_tick and not self._seg_aware:
+            raise ValueError(
+                "fused_tick requires a dvgo model on the streaming backend")
+
+    @property
+    def pool_ladder_size(self) -> int:
+        """Bound on the distinct pool buckets this engine can run at."""
+        return self.pool_ctl.ladder_size
 
     def _render_rays_flat(self, params: dict, o: torch.Tensor,
                           d: torch.Tensor, seg: Optional[torch.Tensor],
@@ -185,19 +206,34 @@ class DeviceSparwEngine:
     def _bucket(self) -> int:
         return self.pool_ctl.bucket if self.pool_holes else 0
 
-    def render_windows(self, ref_poses: torch.Tensor, tgt_poses: torch.Tensor
-                       ) -> BatchedWindowResult:
-        """S sessions' full windows ([S,4,4] references vs [S,N,4,4]
-        targets) at the engine's capacities."""
+    def _full(self, s: int, value: int) -> torch.Tensor:
+        return torch.full((s,), value, device=self.device)
+
+    def render_windows(self, ref_poses: torch.Tensor, tgt_poses: torch.Tensor,
+                       win_lens: Optional[torch.Tensor] = None,
+                       caps: Optional[torch.Tensor] = None,
+                       pool_caps: Optional[torch.Tensor] = None,
+                       bucket: Optional[int] = None) -> BatchedWindowResult:
+        """S sessions' windows ([S,4,4] references vs [S,N,4,4] targets).
+
+        ``win_lens``/``caps``/``pool_caps`` [S] are the per-session window
+        lengths, hole capacities and pool capacities (the serving engine's
+        per-slot masks); omitted, they default to the full window and the
+        engine's capacities. ``bucket`` defaults to the pool controller's.
+        """
         s, n = tgt_poses.shape[:2]
-        bucket = self._bucket()
-        full = lambda v: torch.full((s,), v, device=self.device)
+        if bucket is None:
+            bucket = self._bucket()
+        win_lens = self._full(s, n) if win_lens is None else win_lens
+        caps = self._full(s, self.hole_cap) if caps is None else caps
+        pool_caps = self._full(s, bucket) if pool_caps is None else pool_caps
+        self.pool_buckets_used.add(bucket)
         self.num_window_calls += 1
         with torch.no_grad():
             return self._render_windows(
                 self.params, ref_poses.to(self.device),
-                tgt_poses.to(self.device), full(n), full(self.hole_cap),
-                full(bucket), bucket)
+                tgt_poses.to(self.device), win_lens.to(self.device),
+                caps.to(self.device), pool_caps.to(self.device), bucket)
 
     def render_window(self, ref_pose: torch.Tensor, tgt_poses: torch.Tensor
                       ) -> WindowResult:
@@ -211,6 +247,146 @@ class DeviceSparwEngine:
         if self.pool_holes:
             self.pool_ctl.observe(int(res.hole_counts.sum()))
 
+    # ------------------------------------------------------------------
+    # unified streaming tick (fused reference -> warp -> hole fill)
+    # ------------------------------------------------------------------
+    def _prime_reference(self, params: dict, ref_poses: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The staged flat reference render of ``[S,4,4]`` poses ->
+        ([S,H,W,3], [S,H,W]): run once per trajectory (or per admission)
+        before the fused ticks take over."""
+        s = ref_poses.shape[0]
+        h, w = self.cam.height, self.cam.width
+        ref = raybatch.pack_reference_rays(self.cam, ref_poses)
+        col, dep = self._render_rays_flat(params, ref.origins, ref.dirs,
+                                          ref.seg, s, quantum=h * w)
+        return col.reshape(s, h, w, 3), dep.reshape(s, h, w)
+
+    def prime_reference(self, ref_poses: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with torch.no_grad():
+            return self._prime_reference(self.params,
+                                         ref_poses.to(self.device))
+
+    def _prime_select(self, params: dict, prime_poses: torch.Tensor,
+                      mask: torch.Tensor, rgb_ref: torch.Tensor,
+                      dep_ref: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        rgb_p, dep_p = self._prime_reference(params, prime_poses)
+        return raybatch.substitute_reference_rows(mask, rgb_p, dep_p,
+                                                  rgb_ref, dep_ref)
+
+    def prime_reference_select(self, prime_poses: torch.Tensor,
+                               mask: torch.Tensor, rgb_ref: torch.Tensor,
+                               dep_ref: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Serving admission: render the full ``[S,4,4]`` slot batch of
+        poses through the staged reference stage and substitute only the
+        rows where ``mask`` is True into the running recurrence; the other
+        rows pass through bitwise."""
+        with torch.no_grad():
+            return self._prime_select(self.params, prime_poses.to(self.device),
+                                      mask.to(self.device), rgb_ref, dep_ref)
+
+    def _tick_streaming(self, params: dict, rgb_ref: torch.Tensor,
+                        dep_ref: torch.Tensor, ref_poses: torch.Tensor,
+                        tgt_poses: torch.Tensor, next_ref_poses: torch.Tensor,
+                        win_lens: torch.Tensor, caps: torch.Tensor,
+                        pool_caps: torch.Tensor, bucket: int
+                        ) -> raybatch.StreamingTickResult:
+        return raybatch.render_tick_streaming(
+            self.model, params, self.cam, phi_deg=self.phi_deg,
+            rgb_ref=rgb_ref, dep_ref=dep_ref, ref_poses=ref_poses,
+            tgt_poses=tgt_poses, next_ref_poses=next_ref_poses,
+            win_lens=win_lens, caps=caps, pool_caps=pool_caps,
+            bucket=bucket, ref_cap_factor=self.ref_cap_factor,
+            dense_fill=lambda tp: self._dense_fill_flat(params, tp))
+
+    def render_windows_streaming(self, rgb_ref: torch.Tensor,
+                                 dep_ref: torch.Tensor,
+                                 ref_poses: torch.Tensor,
+                                 tgt_poses: torch.Tensor,
+                                 next_ref_poses: torch.Tensor,
+                                 win_lens: Optional[torch.Tensor] = None,
+                                 caps: Optional[torch.Tensor] = None,
+                                 pool_caps: Optional[torch.Tensor] = None,
+                                 bucket: Optional[int] = None
+                                 ) -> raybatch.StreamingTickResult:
+        """One unified streaming tick for S sessions: warp the references
+        rendered last tick (``rgb_ref``/``dep_ref`` at ``ref_poses``) into
+        ``tgt_poses``, fill the pooled holes AND render ``next_ref_poses``
+        through one fused MVoxel sweep; the result's ``next_rgb_ref`` /
+        ``next_dep_ref`` feed the next call. Defaults as in
+        :meth:`render_windows`."""
+        s, n = tgt_poses.shape[:2]
+        if bucket is None:
+            bucket = self._bucket()
+        if bucket == 0:
+            raise ValueError("the fused streaming tick requires a pooled "
+                             "hole bucket (pool_holes=True)")
+        win_lens = self._full(s, n) if win_lens is None else win_lens
+        caps = self._full(s, self.hole_cap) if caps is None else caps
+        pool_caps = self._full(s, bucket) if pool_caps is None else pool_caps
+        self.pool_buckets_used.add(bucket)
+        self.num_window_calls += 1
+        dev = self.device
+        with torch.no_grad():
+            return self._tick_streaming(
+                self.params, rgb_ref, dep_ref, ref_poses.to(dev),
+                tgt_poses.to(dev), next_ref_poses.to(dev), win_lens.to(dev),
+                caps.to(dev), pool_caps.to(dev), bucket)
+
+    # ------------------------------------------------------------------
+    # per-tick bytes-moved accounting (staged vs fused MVoxel traffic)
+    # ------------------------------------------------------------------
+    def _staged_chunk_sweeps(self, n_rays: int, quantum: int) -> int:
+        """Chunks one staged flat stage runs (each one full MVoxel-table
+        sweep); the chunk math of :meth:`_render_rays_flat`."""
+        if n_rays == 0:
+            return 0
+        c = min(self.ray_chunk, max(-(-quantum // 2), 1), n_rays)
+        return round_up(n_rays, c) // c
+
+    def tick_memory_stats(self, sessions: int, window: Optional[int] = None,
+                          bucket: Optional[int] = None) -> Dict[str, float]:
+        """Analytic per-tick MVoxel-table traffic, staged vs fused: the
+        staged tick re-streams the whole halo table once per chunk of each
+        stage, the fused tick once."""
+        n = int(window) if window is not None else self.window
+        s = int(sessions)
+        hw = self.cam.height * self.cam.width
+        if bucket is None:
+            bucket = self._bucket()
+        scfg = self.model.streaming_cfg
+        table_bytes = scfg.num_mvoxels * scfg.halo_rows \
+            * self.model.cfg.channels * 4
+        ref_sweeps = self._staged_chunk_sweeps(s * hw, hw)
+        if bucket > 0:
+            fill_sweeps = self._staged_chunk_sweeps(s * bucket,
+                                                    self.pool_min_bucket)
+        else:
+            fill_sweeps = self._staged_chunk_sweeps(
+                s * n * self.hole_cap, n * self.hole_cap)
+        staged_sweeps = ref_sweeps + fill_sweeps
+        frames = s * n
+        return {
+            "sessions": float(s),
+            "window": float(n),
+            "pool_bucket": float(bucket),
+            "mvoxel_table_bytes": float(table_bytes),
+            "staged_table_sweeps_per_tick": float(staged_sweeps),
+            "staged_ref_sweeps": float(ref_sweeps),
+            "staged_fill_sweeps": float(fill_sweeps),
+            "staged_mvoxel_bytes_per_tick": float(staged_sweeps
+                                                  * table_bytes),
+            "staged_mvoxel_bytes_per_frame": staged_sweeps * table_bytes
+            / frames,
+            "fused_table_sweeps_per_tick": 1.0,
+            "fused_mvoxel_bytes_per_tick": float(table_bytes),
+            "fused_mvoxel_bytes_per_frame": table_bytes / frames,
+            "bytes_reduction_staged_over_fused": float(staged_sweeps),
+        }
+
     def render_trajectory(self, poses: List[torch.Tensor]
                           ) -> Tuple[List[torch.Tensor], RenderStats]:
         """SpaRW over a pose trajectory (off-trajectory schedule).
@@ -219,7 +395,10 @@ class DeviceSparwEngine:
         ``i-2`` — the reference's two-window pipeline delay, kept so the
         bucket ladder (and so every overflow decision) matches. The
         controller resets at entry, so a cached engine acts like a new one.
+        With ``fused_tick`` the windows run as fused streaming ticks.
         """
+        if self.fused_tick:
+            return self._render_trajectory_fused(poses)
         plan = schedule.WarpSchedule(self.window, "offtraj").windows(poses)
         hw = self.cam.height * self.cam.width
         frames: List[Optional[torch.Tensor]] = [None] * len(poses)
@@ -240,5 +419,44 @@ class DeviceSparwEngine:
             ovf = bool(res.overflowed)
             for j, f in enumerate(idxs):
                 frames[f] = res.frames[j]
+                stats.record_frame(int(counts[j]), ovf, hw)
+        return [f for f in frames if f is not None], stats
+
+    def _render_trajectory_fused(self, poses: List[torch.Tensor]
+                                 ) -> Tuple[List[torch.Tensor], RenderStats]:
+        """Trajectory rendering through the unified streaming tick: the
+        staged loop's schedule and controller cadence, but tick ``i`` warps
+        the reference tick ``i-1``'s sweep rendered and co-renders tick
+        ``i+1``'s (the first is primed by the staged reference stage). The
+        last tick re-renders its own reference as the next-reference
+        placeholder; that output is discarded, as in the reference."""
+        plan = schedule.WarpSchedule(self.window, "offtraj").windows(poses)
+        hw = self.cam.height * self.cam.width
+        frames: List[Optional[torch.Tensor]] = [None] * len(poses)
+        stats = RenderStats()
+        results = []
+        self.pool_ctl.reset()
+        pending: List[raybatch.StreamingTickResult] = []
+        ref_pose = plan[0]["ref_pose"][None]
+        rgb_ref, dep_ref = self.prime_reference(ref_pose)
+        stats.reference_renders += 1  # the priming render
+        for i, win in enumerate(plan):
+            if self.pool_holes and len(pending) >= 2:
+                self._observe_window(pending.pop(0))
+            tgt = torch.stack([poses[j] for j in win["frames"]])[None]
+            next_pose = (plan[i + 1]["ref_pose"][None]
+                         if i + 1 < len(plan) else ref_pose)
+            res = self.render_windows_streaming(rgb_ref, dep_ref, ref_pose,
+                                                tgt, next_pose)
+            rgb_ref, dep_ref = res.next_rgb_ref, res.next_dep_ref
+            ref_pose = next_pose
+            results.append((win["frames"], res))
+            pending.append(res)
+            stats.reference_renders += 1
+        for idxs, res in results:
+            counts = res.hole_counts[0].tolist()
+            ovf = bool(res.overflowed[0])
+            for j, f in enumerate(idxs):
+                frames[f] = res.frames[0, j]
                 stats.record_frame(int(counts[j]), ovf, hw)
         return [f for f in frames if f is not None], stats

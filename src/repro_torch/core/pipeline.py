@@ -1,15 +1,16 @@
 """CiceroRenderer — the end-to-end SpaRW pipeline (paper Fig. 10; port of
 the device-engine parts of ``repro.core.pipeline``).
 
-Renders a trajectory through the staged :class:`DeviceSparwEngine` and
+Renders a trajectory through :class:`DeviceSparwEngine` (staged or fused
+tick), serves concurrent sessions through :class:`RenderServeEngine` and
 provides the full-NeRF-every-frame baseline. Not ported yet: the host
-frame loop (TEMP-N), DS-2 and multi-session serving.
+frame loop (TEMP-N) and DS-2.
 """
 from __future__ import annotations
 
 import math
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -18,6 +19,8 @@ from repro_torch.core.config import RenderConfig, RenderRequest, \
     RenderResult, RenderStats
 from repro_torch.core.engine import DeviceSparwEngine
 from repro_torch.nerf import models, rays
+from repro_torch.serve.policies import resolve_policy
+from repro_torch.serve.render_engine import RenderServeEngine, RenderSession
 from repro_torch.utils import psnr
 
 
@@ -33,6 +36,7 @@ class CiceroRenderer:
         self.cam = self.config.camera
         self.device = self.params["table"].device
         self._engines: Dict[RenderConfig, DeviceSparwEngine] = {}
+        self._serve_engines: Dict[RenderConfig, RenderServeEngine] = {}
 
     def device_engine_for(self, config: RenderConfig) -> DeviceSparwEngine:
         eng = self._engines.get(config)
@@ -64,6 +68,50 @@ class CiceroRenderer:
             torch.cuda.synchronize(self.device)
         return RenderResult(frames=tuple(frames), stats=stats,
                             wall_s=time.perf_counter() - t0, sid=request.sid)
+
+    def serve_engine_for(self, config: RenderConfig) -> RenderServeEngine:
+        """The cached serving engine for ``config`` (keyed on the whole
+        config, slots included)."""
+        eng = self._serve_engines.get(config)
+        if eng is None:
+            eng = RenderServeEngine(self.model, self.params, config=config)
+            self._serve_engines[config] = eng
+        return eng
+
+    def serve(self, requests: Sequence[Union[RenderRequest,
+                                             Sequence[torch.Tensor]]],
+              policy=None, num_slots: Optional[int] = None
+              ) -> Tuple[List[RenderResult], Dict[str, object]]:
+        """Serve several sessions through one batched device call per tick
+        (see :mod:`repro_torch.serve.render_engine`) with an admission
+        ``policy`` (default FIFO). Returns (per-request results, serve
+        metrics); a result's ``wall_s`` is the sum of its frame
+        latencies."""
+        reqs = [r if isinstance(r, RenderRequest)
+                else RenderRequest(poses=tuple(r)) for r in requests]
+        slots = num_slots or self.config.num_slots
+        serve = self.serve_engine_for(self.config.replace(num_slots=slots))
+        serve.policy = resolve_policy(policy)
+        sessions = [RenderSession.from_request(req, sid=i)
+                    for i, req in enumerate(reqs)]
+        metrics = serve.run(sessions)
+        results = [RenderResult(frames=tuple(s.frames), stats=s.stats,
+                                wall_s=float(sum(s.frame_latencies_s)),
+                                sid=s.sid)
+                   for s in sessions]
+        return results, metrics
+
+    def render_trajectories(self, trajectories: List[List[torch.Tensor]],
+                            num_slots: Optional[int] = None
+                            ) -> Tuple[List[List[torch.Tensor]],
+                                       List[RenderStats], Dict[str, object]]:
+        """Multi-session SpaRW over bare pose lists: :meth:`serve` with FIFO
+        admission and (by default) one slot per trajectory."""
+        results, metrics = self.serve(
+            [RenderRequest(poses=tuple(t)) for t in trajectories],
+            policy="fifo", num_slots=num_slots or len(trajectories))
+        return ([list(r.frames) for r in results],
+                [r.stats for r in results], metrics)
 
     def render_baseline(self, poses: List[torch.Tensor]
                         ) -> List[torch.Tensor]:

@@ -1,4 +1,5 @@
-"""Flat ray batches (port of the staged parts of ``repro.core.raybatch``).
+"""Flat ray batches and the unified streaming tick (port of
+``repro.core.raybatch``; session sharding is not ported).
 
 A tick's work becomes flat, session-major ray batches: every session's
 reference rays ``[S * HW, 3]`` and the compacted hole rays, each row tagged
@@ -7,11 +8,13 @@ capacity; results segment-scatter back to frames.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.nerf import rays
+from repro_torch.core import sparw
+from repro_torch.kernels import streaming_pipeline
+from repro_torch.nerf import rays, volrend
 
 
 class FlatRays(NamedTuple):
@@ -78,3 +81,108 @@ def scatter_segments(values: torch.Tensor, addr: torch.Tensor,
     out = values.new_zeros((size + 1, values.shape[-1]))
     out[torch.where(valid, addr, size)] = values
     return out[:size]
+
+
+# ---------------------------------------------------------------------------
+# unified streaming tick (fused reference -> warp -> hole fill)
+# ---------------------------------------------------------------------------
+
+
+class StreamingTickResult(NamedTuple):
+    """One fused tick's outputs plus the reference it hands to the next
+    tick (tick ``t`` warps the reference tick ``t-1``'s sweep rendered and
+    renders tick ``t+1``'s in its own sweep)."""
+
+    frames: torch.Tensor  # [S, N, H, W, 3]
+    hole_counts: torch.Tensor  # [S, N] true (uncapped) hole counts
+    overflowed: torch.Tensor  # [S] bool — per-session dense-fallback flag
+    next_rgb_ref: torch.Tensor  # [S, H, W, 3] — tick t+1's references
+    next_dep_ref: torch.Tensor  # [S, H, W]
+
+
+def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
+                          phi_deg: Optional[float],
+                          rgb_ref: torch.Tensor, dep_ref: torch.Tensor,
+                          ref_poses: torch.Tensor, tgt_poses: torch.Tensor,
+                          next_ref_poses: torch.Tensor,
+                          win_lens: torch.Tensor, caps: torch.Tensor,
+                          pool_caps: torch.Tensor, bucket: int,
+                          ref_cap_factor: int = 2,
+                          dense_fill: Optional[Callable] = None
+                          ) -> StreamingTickResult:
+    """The unified streaming tick: warp -> pooled compaction -> ONE fused
+    gather (kernel B3) serving both this tick's hole fill and the next
+    tick's reference render -> decode -> composite -> segment scatter.
+
+    ``rgb_ref``/``dep_ref`` (posed at ``ref_poses``) were rendered by the
+    previous tick or by ``DeviceSparwEngine.prime_reference``. ``bucket``
+    is the pooled hole capacity; ``win_lens``/``caps``/``pool_caps`` [S]
+    mean what they mean on the staged path. ``dense_fill`` (``tgt_poses
+    -> [S, N, HW, 3]``) is the per-session overflow fallback; it runs only
+    when a session overflowed (one host sync per tick).
+    """
+    if params.get("scene_of_seg") is not None:
+        raise NotImplementedError(
+            "mixed-scene fused ticks (scene_of_seg) belong to the "
+            "multi-scene slice of the port and are not ported yet")
+    s, n = tgt_poses.shape[:2]
+    h, w = cam.height, cam.width
+    hw = h * w
+    c = model.cfg
+    ns = c.num_samples
+    dev = tgt_poses.device
+    # warp LAST tick's reference into this tick's targets + pool holes
+    warped = sparw.warp_frames_flat(rgb_ref, dep_ref, ref_poses, tgt_poses,
+                                    cam, phi_deg=phi_deg)
+    holes = warped.holes.reshape(s, n, hw)
+    live = torch.arange(n, device=dev)[None, :] < win_lens[:, None]
+    counts = torch.sum(holes & live[:, :, None], dim=2)
+    frame_over = torch.amax(torch.where(live, counts, 0), dim=1) > caps
+    addr, totals = sparw.compact_holes_pooled(holes, bucket, live)
+    hole_batch, flat_addr = pack_hole_rays_pooled(cam, tgt_poses, addr)
+    ref_batch = pack_reference_rays(cam, next_ref_poses)
+    # both ray sets sampled, gathered through ONE table sweep
+    pts_h, t_h = rays.sample_along_rays(hole_batch.origins, hole_batch.dirs,
+                                        c.near, c.far, ns)
+    pts_r, t_r = rays.sample_along_rays(ref_batch.origins, ref_batch.dirs,
+                                        c.near, c.far, ns)
+    feats_h, feats_r = streaming_pipeline.gather_features_tick(
+        params["table"], params["mv_table"], model.streaming_cfg,
+        pts_h.reshape(-1, 3), hole_batch.seg.repeat_interleave(ns),
+        pts_r.reshape(-1, 3), ref_batch.seg.repeat_interleave(ns),
+        num_seg=s, ref_cap_factor=ref_cap_factor)
+    sig_h, rgb_h = model.decode_features(
+        params, feats_h, hole_batch.dirs.repeat_interleave(ns, dim=0))
+    sig_r, rgb_r = model.decode_features(
+        params, feats_r, ref_batch.dirs.repeat_interleave(ns, dim=0))
+    fill_col, _, _ = volrend.composite(sig_h.reshape(-1, ns),
+                                       rgb_h.reshape(-1, ns, 3), t_h,
+                                       c.far, c.white_bkgd)
+    ref_col, ref_dep, _ = volrend.composite(sig_r.reshape(-1, ns),
+                                            rgb_r.reshape(-1, ns, 3), t_r,
+                                            c.far, c.white_bkgd)
+    valid = (torch.arange(bucket, device=dev)[None, :]
+             < totals[:, None]).reshape(-1)
+    fill = scatter_segments(fill_col, flat_addr, valid,
+                            s * n * hw).reshape(s, n, hw, 3)
+    overflowed = frame_over | (totals > pool_caps)
+    if dense_fill is not None and bool(overflowed.any()):
+        fill = torch.where(overflowed[:, None, None, None],
+                           dense_fill(tgt_poses), fill)
+    frames = torch.where(holes[..., None], fill,
+                         warped.rgb.reshape(s, n, hw, 3))
+    return StreamingTickResult(frames.reshape(s, n, h, w, 3), counts,
+                               overflowed, ref_col.reshape(s, h, w, 3),
+                               ref_dep.reshape(s, h, w))
+
+
+def substitute_reference_rows(mask: torch.Tensor, rgb_new: torch.Tensor,
+                              dep_new: torch.Tensor, rgb_ref: torch.Tensor,
+                              dep_ref: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows with ``mask`` [S] True take the freshly primed reference; every
+    other row keeps the running cross-tick reference bitwise (an
+    elementwise select). ``rgb`` [S, H, W, 3], ``dep`` [S, H, W]."""
+    m = mask[:, None, None]
+    return (torch.where(m[..., None], rgb_new, rgb_ref),
+            torch.where(m, dep_new, dep_ref))

@@ -1,0 +1,541 @@
+"""Multi-session SpaRW render serving engine: continuous batching of warp
+windows (port of ``repro.serve.render_engine``, single scene, one device).
+
+A *session* is one client's camera trajectory. The engine admits sessions
+into a fixed number of **slots**, aligns their warp **windows** into one
+device batch and renders every active session's next window in one call
+per **tick**; a session that finishes frees its slot for the next queued
+session (chosen by a :mod:`~repro_torch.serve.policies` policy).
+
+* **Staged tick** — :meth:`~repro_torch.core.engine.DeviceSparwEngine.
+  render_windows` with per-slot window lengths and capacities: ragged
+  sessions batch into one fixed ``[num_slots, window]`` shape by pose
+  padding and masking.
+* **Fused tick** (``RenderConfig.fused_tick``) — :meth:`~repro_torch.core.
+  engine.DeviceSparwEngine.render_windows_streaming`: the engine threads a
+  ``[num_slots, H, W]`` cross-tick reference recurrence from tick to tick
+  (tick t co-renders tick t+1's references in its sweep), and a tick that
+  admits sessions first primes their rows with one masked staged render
+  (``prime_reference_select``), so a reused slot never warps the previous
+  occupant's reference.
+
+:meth:`RenderServeEngine.step` dispatches; frames and hole statistics are
+read back in :meth:`RenderServeEngine.finalize`. Unlike the reference's
+XLA program, a tick here syncs the host once, to decide whether any
+session overflowed into the dense fallback. Not ported: multi-scene paging
+(``scene_loader``) and session sharding.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import schedule
+from repro_torch.core.config import HoleCapController, RenderConfig, \
+    RenderRequest, RenderStats
+from repro_torch.core.engine import DeviceSparwEngine
+from repro_torch.kernels import streaming_pipeline
+from repro_torch.serve.policies import SchedulingPolicy, resolve_policy
+
+
+@dataclass
+class RenderSession:
+    """One client trajectory moving through the serving engine.
+
+    ``window``/``hole_cap``/``pool_bucket`` override the engine config
+    (bounded by its static capacities, validated at submit);
+    ``priority``/``deadline_ms`` feed the admission policy. ``scene`` must
+    stay None: multi-scene serving is not ported. ``arrival`` and
+    ``submitted_s`` are stamped by :meth:`RenderServeEngine.submit`,
+    ``admitted_s`` when the session takes a slot; ``shed=True`` marks a
+    session the policy dropped from the queue.
+    """
+
+    sid: int
+    poses: List[torch.Tensor]
+    frames: List[Optional[torch.Tensor]] = field(default_factory=list)
+    stats: RenderStats = field(default_factory=RenderStats)
+    frame_latencies_s: List[float] = field(default_factory=list)
+    done: bool = False
+    window: Optional[int] = None
+    hole_cap: Optional[int] = None
+    pool_bucket: Optional[int] = None
+    priority: int = 0
+    deadline_ms: Optional[float] = None
+    scene: Optional[str] = None
+    arrival: int = -1
+    submitted_s: Optional[float] = None
+    admitted_s: Optional[float] = None
+    shed: bool = False
+
+    def __post_init__(self) -> None:
+        if not self.poses:
+            raise ValueError(f"session {self.sid}: empty trajectory")
+        self.frames = [None] * len(self.poses)
+
+    @classmethod
+    def from_request(cls, request: RenderRequest, sid: int
+                     ) -> "RenderSession":
+        return cls(sid=request.sid if request.sid is not None else sid,
+                   poses=list(request.poses), window=request.window,
+                   hole_cap=request.hole_cap,
+                   pool_bucket=request.pool_bucket,
+                   priority=request.priority,
+                   deadline_ms=request.deadline_ms)
+
+
+@dataclass
+class _Slot:
+    """Engine-side state of an occupied slot."""
+
+    session: RenderSession
+    window: int  # effective warp window
+    cap: int  # effective hole capacity
+    cursor: int = 0  # next un-rendered pose index
+    extrapolator: Optional[schedule.RefPoseExtrapolator] = None
+    ctl: Optional[HoleCapController] = None  # fresh at admit
+    # fused tick: pose of the reference held in this slot's recurrence row
+    ref_pose: Optional[torch.Tensor] = None
+
+
+class RenderServeEngine:
+    """Fixed-slot continuous batching of SpaRW warp windows.
+
+    ``config.num_slots`` sessions render per tick; further sessions queue
+    and take over slots as earlier trajectories finish, the ``policy``
+    choosing which. Sessions may override ``window`` (<= ``config.window``)
+    and ``hole_cap`` (<= the engine's capacity).
+    """
+
+    def __init__(self, model, params: dict, *, config: RenderConfig,
+                 policy: Union[None, str, SchedulingPolicy] = None):
+        config = config.resolved()
+        self.config = config
+        self.policy = resolve_policy(policy)
+        self.num_slots = config.num_slots
+        self.window = config.window
+        self.engine = DeviceSparwEngine(model, params, config=config)
+        self.device = self.engine.device
+        self.slots: List[Optional[_Slot]] = [None] * self.num_slots
+        self.queue: List[RenderSession] = []
+        self.num_ticks = 0
+        self._num_submitted = 0  # arrival stamp for policy tie-breaking
+        self._num_shed = 0
+        self._queue_depth_log: List[int] = []
+        self._occupancy_log: List[int] = []
+        # idle slots render a self-warp (reference == target: no holes)
+        self._idle_pose = torch.eye(4)
+        # per-slot (window, cap, pool cap) signature and its device arrays,
+        # rebuilt only when admission, draining or a ladder step changes it
+        self._slot_sig: Optional[Tuple[Tuple[int, int, int], ...]] = None
+        self._win_lens: Optional[torch.Tensor] = None
+        self._caps: Optional[torch.Tensor] = None
+        self._pool_caps: Optional[torch.Tensor] = None
+        self._tick_bucket = 0
+        # deferred readback: (assignments, result, bucket) per tick, where
+        # assignments[s] = (session, [frame indices], ctl) or None
+        self._pending: List[tuple] = []
+        self._last_result = None
+        self._last_event = None  # marks the end of the last tick's work
+        self._pool_log: List[dict] = []
+        # fused tick: row s of _rgb_ref/_dep_ref is the reference the next
+        # tick warps for slot s
+        self.fused = self.engine.fused_tick
+        self._rgb_ref: Optional[torch.Tensor] = None
+        self._dep_ref: Optional[torch.Tensor] = None
+        self._num_admission_ticks = 0
+
+    # ------------------------------------------------------------------
+    def _effective(self, sess: RenderSession) -> Tuple[int, int]:
+        """Validate and resolve a session's (window, hole_cap) overrides
+        against the engine's static capacities."""
+        win = sess.window if sess.window is not None else self.window
+        if not 1 <= win <= self.window:
+            raise ValueError(
+                f"session {sess.sid}: window override {win} outside "
+                f"[1, {self.window}] (the engine's batch shape)")
+        cap = (sess.hole_cap if sess.hole_cap is not None
+               else self.engine.hole_cap)
+        if not 1 <= cap <= self.engine.hole_cap:
+            raise ValueError(
+                f"session {sess.sid}: hole_cap override {cap} outside "
+                f"[1, {self.engine.hole_cap}] (the engine's compaction "
+                f"capacity)")
+        if sess.pool_bucket is not None:
+            if not self.engine.pool_holes:
+                raise ValueError(
+                    f"session {sess.sid}: pool_bucket override set but "
+                    f"the engine has pool_holes disabled")
+            if sess.pool_bucket > self.engine.pool_ctl.max_bucket:
+                raise ValueError(
+                    f"session {sess.sid}: pool_bucket override "
+                    f"{sess.pool_bucket} exceeds the engine's worst-case "
+                    f"bucket {self.engine.pool_ctl.max_bucket}")
+        return win, cap
+
+    def _live_sids(self) -> set:
+        return ({s.sid for s in self.queue}
+                | {slot.session.sid for slot in self.slots
+                   if slot is not None})
+
+    def submit(self, sessions: List[RenderSession]) -> None:
+        """Queue sessions for admission. The whole batch is validated
+        before any state changes; duplicate sids (within the batch or
+        against a queued or in-slot session) are rejected."""
+        live = self._live_sids()
+        batch_sids = set()
+        for sess in sessions:
+            self._effective(sess)
+            if sess.scene is not None:
+                raise ValueError(
+                    f"session {sess.sid}: scene={sess.scene!r} but the "
+                    f"engine has no scene_loader (multi-scene serving is "
+                    f"not ported)")
+            if sess.sid in live or sess.sid in batch_sids:
+                raise ValueError(
+                    f"session sid {sess.sid} duplicates a live session "
+                    f"(sids must be unique among queued/in-flight "
+                    f"sessions — per-session metrics are keyed on sid)")
+            batch_sids.add(sess.sid)
+        now = time.time()
+        for sess in sessions:
+            sess.arrival = self._num_submitted
+            self._num_submitted += 1
+            if sess.submitted_s is None:
+                sess.submitted_s = now
+        self.queue.extend(sessions)
+
+    def _admit(self) -> List[int]:
+        """Shed what the policy drops, then fill free slots from the queue;
+        returns the slots filled this tick. In fused mode a new slot's
+        first reference pose is extrapolated here."""
+        now = time.time()
+        shed_fn = getattr(self.policy, "shed", None)
+        if shed_fn is not None and self.queue:
+            for i in sorted(shed_fn(self.queue, now), reverse=True):
+                sess = self.queue.pop(i)
+                sess.shed = True
+                sess.done = True
+                self._num_shed += 1
+        newly: List[int] = []
+        for s in range(self.num_slots):
+            if self.slots[s] is None and self.queue:
+                sess = self.queue.pop(self.policy.select(self.queue, now))
+                sess.admitted_s = now
+                win, cap = self._effective(sess)
+                cfg = self.engine.config
+                slot = _Slot(
+                    session=sess, window=win, cap=cap,
+                    extrapolator=schedule.RefPoseExtrapolator(window=win),
+                    ctl=HoleCapController(
+                        worst=win * cap,
+                        min_bucket=self.engine.pool_min_bucket,
+                        safety=cfg.pool_safety, alpha=cfg.pool_ewma_alpha,
+                        fixed=(sess.pool_bucket
+                               if sess.pool_bucket is not None
+                               else cfg.pool_bucket)))
+                if self.fused:
+                    slot.ref_pose = slot.extrapolator.next_reference(
+                        sess.poses[:win])
+                self.slots[s] = slot
+                newly.append(s)
+        return newly
+
+    def _prime_admitted(self, newly: List[int]) -> None:
+        """Prime the recurrence rows of the slots admitted this tick: one
+        staged reference render over the full slot batch (new rows at
+        their first reference pose, the others at the idle pose, their
+        output discarded), substituted row by row. The first call primes
+        every row over a zero recurrence."""
+        first = self._rgb_ref is None
+        if not newly and not first:
+            return
+        if first:
+            h, w = self.engine.cam.height, self.engine.cam.width
+            self._rgb_ref = torch.zeros((self.num_slots, h, w, 3),
+                                        device=self.device)
+            self._dep_ref = torch.zeros((self.num_slots, h, w),
+                                        device=self.device)
+            mask = [True] * self.num_slots
+        else:
+            mask = [s in newly for s in range(self.num_slots)]
+        poses = [self.slots[s].ref_pose
+                 if mask[s] and self.slots[s] is not None
+                 else self._idle_pose for s in range(self.num_slots)]
+        self._rgb_ref, self._dep_ref = self.engine.prime_reference_select(
+            torch.stack(poses), torch.tensor(mask), self._rgb_ref,
+            self._dep_ref)
+        self._num_admission_ticks += 1
+
+    def _stage_slot_masks(self) -> None:
+        """Refresh the per-slot win_lens/caps/pool-caps device arrays iff
+        the slot signature changed. Idle slots take the engine defaults
+        and the minimum pool bucket (their self-warp has no holes)."""
+        engine = self.engine
+        sig = []
+        for slot in self.slots:
+            if slot is None:
+                sig.append((self.window, engine.hole_cap,
+                            engine.pool_min_bucket if engine.pool_holes
+                            else 0))
+            elif not engine.pool_holes:
+                sig.append((slot.window, slot.cap, 0))
+            else:
+                sig.append((slot.window, slot.cap, slot.ctl.bucket))
+        sig = tuple(sig)
+        if sig != self._slot_sig:
+            self._slot_sig = sig
+            dev = self.device
+            self._win_lens = torch.tensor([e[0] for e in sig], device=dev)
+            self._caps = torch.tensor([e[1] for e in sig], device=dev)
+            self._pool_caps = torch.tensor([e[2] for e in sig], device=dev)
+            self._tick_bucket = max(e[2] for e in sig)
+
+    def _stack(self, poses: List[torch.Tensor]) -> torch.Tensor:
+        """Host-side pose batch (the engine moves it to the device)."""
+        return torch.stack([p.to(self._idle_pose.device) for p in poses])
+
+    def step(self) -> bool:
+        """One tick: admit queued sessions into free slots, then one
+        batched device call rendering every active session's next window.
+        Frames and statistics stay on the device until :meth:`finalize`.
+        Returns False when no work remains.
+
+        On the fused tick the sweep warps the references co-rendered by
+        the previous tick (newly admitted slots primed this tick) and
+        co-renders the next tick's; a draining slot's last sweep
+        co-renders the idle reference into its row."""
+        newly = self._admit()
+        occupied = sum(s is not None for s in self.slots)
+        if occupied == 0:
+            return False
+        self._queue_depth_log.append(len(self.queue))
+        self._occupancy_log.append(occupied)
+        self._stage_slot_masks()
+        if self.fused:
+            self._prime_admitted(newly)
+
+        ref_poses, tgt_poses, next_refs, assignments = [], [], [], []
+        for s in range(self.num_slots):
+            slot = self.slots[s]
+            if slot is None:
+                ref_poses.append(self._idle_pose)
+                tgt_poses.append([self._idle_pose] * self.window)
+                next_refs.append(self._idle_pose)
+                assignments.append(None)
+                continue
+            sess = slot.session
+            idxs = list(range(slot.cursor,
+                              min(slot.cursor + slot.window,
+                                  len(sess.poses))))
+            win = [sess.poses[i] for i in idxs]
+            if self.fused:
+                ref_poses.append(slot.ref_pose)
+            else:
+                ref_poses.append(slot.extrapolator.next_reference(win))
+            # pad short windows with the last real pose; win_lens keeps the
+            # pads out of the overflow decision, finalize drops them
+            tgt_poses.append(win + [win[-1]] * (self.window - len(win)))
+            assignments.append((sess, idxs, slot.ctl))
+            sess.stats.reference_renders += 1
+            slot.cursor += len(idxs)
+            if slot.cursor >= len(sess.poses):
+                next_refs.append(self._idle_pose)
+                self.slots[s] = None
+            elif self.fused:
+                nxt = range(slot.cursor,
+                            min(slot.cursor + slot.window, len(sess.poses)))
+                slot.ref_pose = slot.extrapolator.next_reference(
+                    [sess.poses[i] for i in nxt])
+                next_refs.append(slot.ref_pose)
+            else:
+                next_refs.append(self._idle_pose)
+
+        tgt = torch.stack([self._stack(t) for t in tgt_poses])
+        if self.fused:
+            result = self.engine.render_windows_streaming(
+                self._rgb_ref, self._dep_ref, self._stack(ref_poses), tgt,
+                self._stack(next_refs), self._win_lens, self._caps,
+                pool_caps=self._pool_caps, bucket=self._tick_bucket)
+            self._rgb_ref = result.next_rgb_ref
+            self._dep_ref = result.next_dep_ref
+        else:
+            result = self.engine.render_windows(
+                self._stack(ref_poses), tgt, self._win_lens, self._caps,
+                pool_caps=self._pool_caps, bucket=self._tick_bucket)
+        self._pending.append((assignments, result, self._tick_bucket))
+        self._last_result = result
+        if self.device.type == "cuda":
+            self._last_event = torch.cuda.Event()
+            self._last_event.record()
+        self.num_ticks += 1
+        return True
+
+    # ------------------------------------------------------------------
+    def finalize(self, keep: int = 0) -> None:
+        """Read pending ticks' hole statistics back to the host and hand
+        their frames to the sessions; ``keep`` leaves that many of the
+        newest ticks pending."""
+        hw = self.engine.cam.height * self.engine.cam.width
+        pool = self.engine.pool_holes
+        split = max(len(self._pending) - keep, 0)
+        done, self._pending = self._pending[:split], self._pending[split:]
+        for assignments, res, bucket in done:
+            counts = res.hole_counts.cpu().numpy()
+            overflowed = res.overflowed.cpu().numpy()
+            tick_holes = active = 0
+            for s, assign in enumerate(assignments):
+                if assign is None:
+                    continue
+                sess, idxs, ctl = assign
+                ovf = bool(overflowed[s])
+                for j, f in enumerate(idxs):
+                    sess.frames[f] = res.frames[s, j]
+                    sess.stats.record_frame(int(counts[s, j]), ovf, hw)
+                if sess.frames.count(None) == 0:
+                    sess.done = True
+                # no adaptive split here: the reference's fine counts are
+                # the hole counts
+                win_total = int(counts[s, :len(idxs)].sum())
+                tick_holes += win_total
+                active += 1
+                if pool and ctl is not None:
+                    ctl.observe(win_total)
+            if pool:
+                self._pool_log.append(dict(
+                    bucket=bucket, bucket_coarse=0, hole_total=tick_holes,
+                    fine_total=tick_holes, active_slots=active))
+
+    def _observe_tick(self, tick_t0: float, assignments: List[tuple],
+                      done_event) -> None:
+        """Wait for a dispatched tick's device work and attribute its wall
+        time to the sessions it served."""
+        if done_event is not None:
+            done_event.synchronize()
+        tick_s = time.time() - tick_t0
+        for assign in assignments:
+            if assign is not None:
+                sess, idxs = assign[0], assign[1]
+                sess.frame_latencies_s.extend([tick_s / len(idxs)]
+                                              * len(idxs))
+
+    def run(self, sessions: List[RenderSession], max_ticks: int = 10_000
+            ) -> Dict[str, object]:
+        """Serve ``sessions`` to completion; returns aggregate metrics
+        (the reference's keys; ``scene_cache`` is None and ``devices`` 1).
+
+        The loop dispatches tick t+1 before waiting for tick t, and drains
+        completed ticks as it goes."""
+        self.submit(sessions)
+        start_ticks = self.num_ticks
+        log_start = len(self._pool_log)
+        buckets_start = len(self.engine.pool_buckets_used)
+        adm_start = self._num_admission_ticks
+        qd_start = len(self._queue_depth_log)
+        shed_start = self._num_shed
+        t0 = time.time()
+        in_flight = None  # (dispatch_t0, assignments, done event)
+        while self.num_ticks - start_ticks < max_ticks:
+            tick_t0 = time.time()
+            if not self.step():
+                break
+            dispatched = (tick_t0, self._pending[-1][0], self._last_event)
+            if in_flight is not None:
+                self._observe_tick(*in_flight)
+                self.finalize(keep=1)
+            in_flight = dispatched
+        if in_flight is not None:
+            self._observe_tick(*in_flight)
+        wall_s = time.time() - t0
+        self.finalize()
+        total_frames = sum(len(s.poses) for s in sessions if not s.shed)
+        per_session = {
+            s.sid: {
+                "frames": len(s.poses),
+                "p50_latency_s": float(np.percentile(s.frame_latencies_s, 50))
+                if s.frame_latencies_s else float("nan"),
+                "p95_latency_s": float(np.percentile(s.frame_latencies_s, 95))
+                if s.frame_latencies_s else float("nan"),
+                "hole_fraction": s.stats.mean_hole_fraction,
+                "scene": s.scene,
+                "shed": s.shed,
+            } for s in sessions
+        }
+        depths = self._queue_depth_log[qd_start:]
+        occs = self._occupancy_log[qd_start:]
+        waits = [s.admitted_s - s.submitted_s for s in sessions
+                 if s.admitted_s is not None and s.submitted_s is not None]
+        queue_metrics = {
+            "depth_mean": float(np.mean(depths)) if depths else 0.0,
+            "depth_max": int(max(depths)) if depths else 0,
+            "wait_p50_s": float(np.percentile(waits, 50)) if waits else 0.0,
+            "wait_p95_s": float(np.percentile(waits, 95)) if waits else 0.0,
+            "shed": self._num_shed - shed_start,
+        }
+        slot_metrics = {
+            "num_slots": self.num_slots,
+            "occupancy_mean": (float(np.mean(occs)) / self.num_slots
+                               if occs else 0.0),
+            "active_slot_ticks": int(sum(occs)),
+        }
+        engine = self.engine
+        ns = engine.model.cfg.num_samples
+        fixed_spt = self.num_slots * self.window * engine.hole_cap * ns
+        entries = self._pool_log[log_start:]
+        if engine.pool_holes and entries:
+            spt = [self.num_slots * e["bucket"] * ns for e in entries]
+            samples_last = spt[-1]
+            samples_mean = float(np.mean(spt))
+            pool_slots = sum(self.num_slots * e["bucket"] for e in entries)
+            util = float(sum(e["hole_total"] for e in entries)
+                         / max(pool_slots, 1))
+        else:
+            samples_last, samples_mean, util = (fixed_spt, float(fixed_spt),
+                                                float("nan"))
+        pool_metrics = {
+            "enabled": engine.pool_holes,
+            "adaptive_sampling": False,
+            "samples_per_tick": samples_last,
+            "samples_per_tick_mean": samples_mean,
+            "samples_per_tick_fixed_cap": fixed_spt,
+            "work_reduction_vs_fixed_cap": fixed_spt / max(samples_last, 1),
+            "utilization": util,
+            "recompiles": len(engine.pool_buckets_used) - buckets_start,
+            "ladder_size": engine.pool_ladder_size,
+        }
+        memory_metrics = (engine.tick_memory_stats(
+            self.num_slots, self.window,
+            bucket=self._tick_bucket if self._tick_bucket else None)
+            if engine._seg_aware else None)
+        if memory_metrics is not None:
+            ticks_run = self.num_ticks - start_ticks
+            adm_ticks = self._num_admission_ticks - adm_start
+            staged = memory_metrics["staged_table_sweeps_per_tick"]
+            memory_metrics["serving_path"] = ("fused" if self.fused
+                                              else "staged")
+            memory_metrics["admission_ticks"] = adm_ticks
+            memory_metrics["serving_table_sweeps_per_tick_steady"] = (
+                1.0 if self.fused else staged)
+            memory_metrics["serving_table_sweeps_per_tick_amortized"] = (
+                streaming_pipeline.serving_sweeps_per_tick(
+                    ticks_run, adm_ticks, memory_metrics["staged_ref_sweeps"])
+                if self.fused else staged)
+        return {
+            "ticks": self.num_ticks - start_ticks,
+            "wall_s": wall_s,
+            "aggregate_fps": total_frames / max(wall_s, 1e-9),
+            "total_frames": total_frames,
+            "per_session": per_session,
+            "complete": all(s.done for s in sessions),
+            "policy": self.policy.name,
+            "pool": pool_metrics,
+            "memory": memory_metrics,
+            "queue": queue_metrics,
+            "slots": slot_metrics,
+            "scene_cache": None,
+            "devices": 1,
+        }
