@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    fused MLP (B2) at C=8, H=64; the fused tick's dual gather (B3) on the
    RIT blocks a fused tick builds (captured from a real tick), float32 and
    bfloat16, both layouts, 1 and 4 segments, also against two B1 launches
-   on the same blocks. Tolerances are the reference's kernel tolerances:
+   on the same blocks; the mixed-scene kernels B4 (Gathering Unit per
+   segment's page) and B5 (dual gather per segment's page) on the blocks
+   the first tick of arm E's mixed-scene serving run builds (captured from
+   its admission priming and its fused sweep), float32 and bfloat16, both
+   layouts, also bit for bit against B1 (B4) and B3 (B5) run on each
+   segment's page. Tolerances are the reference's kernel tolerances:
    atol 2e-5 / rtol 1e-5 (float32), 3e-2 (bfloat16);
 4. run four arms end to end through ``repro_torch.api`` with every launch
    count set to 0 just before and read just after; each arm is held
@@ -38,9 +43,23 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    equal tick counts, B1, B2 and B3 launched, B3 once per tick. The same
    fleet is then served on the staged tick on the card, and its frames
    must agree with the fused run's at >= 40 dB.
+   Arm E: multi-scene serving, ``RenderServeEngine(model, params,
+   config=RenderConfig(backend="streaming", fused_tick=True,
+   num_slots=4), scene_loader=...)`` at arm A's widths, the loader baking
+   each named scene: 12 sessions x 32 frames over 6 of the 8 scene names
+   on 4 pages, orbits 30 degrees apart. The run must show a cache hit, an
+   eviction and the repaging of an evicted scene, mix at least 2 scenes
+   in every tick, launch B5 once per tick and B4 (admission priming) and
+   never B1 or B3; it is held against the port's CPU run of the fleet
+   (frames >= 40 dB, equal ticks, per-session stats and scene-cache
+   counters), two of its sessions against their scenes served alone on
+   the card (>= 60 dB, equal hole fractions), and a shorter fleet (the
+   first 4 sessions, 16 frames) is served staged and fused on the card
+   (>= 40 dB, equal ticks; the staged run launches B4 in its pooled fill).
    A further, profiled run of each arm (``torch.profiler``) reports the
    device's busy share of the wall time and the busiest kernels and ops
-   (for arm D also the ops with the most device time by input shape);
+   (for arms D and E also the ops with the most device time by input
+   shape);
 5. time each kernel and its plain version at the arms' shapes (device
    time from CUDA events, see ``time_ms``) beside the least time the card
    could take, and print them as one JSON line, then the arms' wall times;
@@ -194,6 +213,58 @@ def capture_b3_inputs(engine, num_seg: int):
     return seen[0]
 
 
+def capture_scened_inputs(engine, sessions):
+    """The blocks the first tick of a mixed-scene fused serving run hands
+    to B4 (the first chunk of its admission priming) and B5 (its fused
+    sweep): ``((pages, scene_of_seg, ids, weights), num_seg)`` and
+    ``((pages, scene_of_seg, ids_h, w_h, ids_r, w_r), num_seg)``."""
+    from repro_torch.kernels import gather_trilerp as gt_k
+    from repro_torch.kernels import streaming_pipeline as sp_k
+
+    seen = {"b4": [], "b5": []}
+    real_b4 = gt_k.gather_trilerp_mvoxels_per_seg
+    real_b5 = sp_k.fused_gather_dual_per_seg
+
+    def spy_b4(*args, **kw):
+        seen["b4"].append((args, kw["num_seg"]))
+        return real_b4(*args, **kw)
+
+    def spy_b5(*args, **kw):
+        seen["b5"].append((args, kw["num_seg"]))
+        return real_b5(*args, **kw)
+
+    gt_k.gather_trilerp_mvoxels_per_seg = spy_b4
+    sp_k.fused_gather_dual_per_seg = spy_b5
+    try:
+        engine.submit(sessions)
+        engine.step()
+    finally:
+        gt_k.gather_trilerp_mvoxels_per_seg = real_b4
+        sp_k.fused_gather_dual_per_seg = real_b5
+    if len(seen["b5"]) != 1 or not seen["b4"]:
+        fail(f"a mixed-scene tick called B5 {len(seen['b5'])} and B4 "
+             f"{len(seen['b4'])} times")
+    return seen["b4"][0], seen["b5"][0]
+
+
+# Arm E's fleet: session i views ARM_E_SCENES[i]. 4 pages: the first wave
+# (sessions 0-3) hits on its second "chair"; the second evicts three
+# scenes and repages "drums"; the third repages "chair", "ficus" and
+# "materials" and hits on "lego". Every tick mixes 3-4 scenes.
+ARM_E_SCENES = ["chair", "drums", "chair", "ficus",
+                "hotdog", "lego", "materials", "drums",
+                "chair", "lego", "ficus", "materials"]
+
+
+def arm_e_sessions(n_sessions: int, n_frames: int) -> list:
+    from repro_torch.core.pipeline import orbit_trajectory
+    from repro_torch.serve.render_engine import RenderSession
+
+    return [RenderSession(sid=i, poses=orbit_trajectory(
+        n_frames, phase_deg=30.0 * i), scene=ARM_E_SCENES[i])
+        for i in range(n_sessions)]
+
+
 def arm_b_params(seed: int = 0) -> dict:
     """Random (untrained) parameters at NerfConfig's defaults, with the
     reference initializer's scales, drawn from numpy."""
@@ -228,13 +299,15 @@ def main() -> int:
     from repro_torch.kernels import fused_nerf_mlp as mlp_k
     from repro_torch.kernels import gather_trilerp as gt_k
     from repro_torch.kernels import streaming_pipeline as sp_k
-    from repro_torch.nerf import mlp, models, rays
+    from repro_torch.nerf import mlp, models, rays, scenes
+    from repro_torch.serve.render_engine import RenderServeEngine
     from repro_torch.utils import psnr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = [gt_k.KERNEL, mlp_k.KERNEL, sp_k.KERNEL]
+    kernels = [gt_k.KERNEL, mlp_k.KERNEL, sp_k.KERNEL, gt_k.KERNEL_PER_SEG,
+               sp_k.KERNEL_PER_SEG]
 
     # 1. the card ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -277,10 +350,23 @@ def main() -> int:
     cfg_b = RenderConfig(backend="streaming", decoder="mlp", grid_res=64,
                          channels=8, num_samples=64)
     cfg_d = cfg_b.replace(fused_tick=True, num_slots=4)
+    cfg_e = cfg_c.replace(num_slots=4)
+
+    def scene_loader(device):
+        return lambda name: scenes.bake_dense_table(
+            scenes.make_scene(name), cfg_e.grid_res, cfg_e.channels,
+            device=device)
+
+    def scene_engine(renderer, **cfg_kw):
+        return RenderServeEngine(
+            renderer.model, renderer.params,
+            config=renderer.config.replace(**cfg_kw),
+            scene_loader=scene_loader(renderer.device))
 
     # 3. kernels against their plain versions -----------------------------
     errs = {"B1": 0.0, "B1_bf16": 0.0, "B2": 0.0, "B3": 0.0, "B3_bf16": 0.0,
-            "B3_vs_B1": 0.0}
+            "B3_vs_B1": 0.0, "B4": 0.0, "B4_bf16": 0.0, "B5": 0.0,
+            "B5_bf16": 0.0}
     b3_bit_equal = True
     shapes = {}
     for layout in ("identity", "bank_interleaved"):
@@ -362,6 +448,58 @@ def main() -> int:
         errs["B3"] = max(errs["B3"], check_close(
             f"B3 arm-D identity f32 num_seg={ns} table {tuple(tbl.shape)} "
             f"{part}", g, w, F32_TOL))
+    # B4 and B5 on the blocks arm E's first mixed-scene tick builds; each
+    # segment's rows also against B1 / B3 run on that segment's page
+    per_seg_bit_equal = True
+    for layout in ("identity", "bank_interleaved"):
+        eng = scene_engine(api.make_renderer(
+            cfg_e.replace(mvoxel_layout=layout)))
+        (b4_args, ns4), (b5_args, ns5) = capture_scened_inputs(
+            eng, arm_e_sessions(4, cfg_e.window))
+        pages, scn = b4_args[0], b4_args[1]
+        num_mv = pages.shape[1]
+        page_of = scn.tolist()  # read here, for the check; a tick never does
+        seg_rows = [slice(s * num_mv, (s + 1) * num_mv) for s in range(ns4)]
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tol = BF16_TOL if tag == "bf16" else F32_TOL
+            key = "B4_bf16" if tag == "bf16" else "B4"
+            tbl = pages.to(dt)
+            ids, w = b4_args[2], b4_args[3]
+            name = (f"B4 {layout} {tag} num_seg={ns4} pages "
+                    f"{tuple(tbl.shape)} map {page_of} ids {tuple(ids.shape)}")
+            got = gt_k.gather_trilerp_mvoxels_per_seg(tbl, scn, ids, w,
+                                                      num_seg=ns4)
+            errs[key] = max(errs[key], check_close(
+                name, got, gt_k.gather_trilerp_per_seg_plain(
+                    tbl, scn, ids, w, ns4), tol))
+            for rows, page in zip(seg_rows, page_of):
+                per_seg_bit_equal &= bool(torch.equal(
+                    got[rows], gt_k.gather_trilerp_mvoxels_segmented(
+                        tbl[page], ids[rows], w[rows], num_seg=1)))
+            key = "B5_bf16" if tag == "bf16" else "B5"
+            ih, wh, ir, wr = b5_args[2:]
+            name = (f"B5 {layout} {tag} num_seg={ns5} pages "
+                    f"{tuple(tbl.shape)} map {page_of} holes "
+                    f"{tuple(ih.shape)} refs {tuple(ir.shape)}")
+            got = sp_k.fused_gather_dual_per_seg(tbl, scn, ih, wh, ir, wr,
+                                                 num_seg=ns5)
+            want = sp_k.fused_gather_dual_per_seg_plain(tbl, scn, ih, wh, ir,
+                                                        wr, ns5)
+            for part, g, wt in zip(("holes", "refs"), got, want):
+                errs[key] = max(errs[key], check_close(
+                    f"{name} {part}", g, wt, tol))
+            for rows, page in zip(seg_rows, page_of):
+                b3 = sp_k.fused_gather_dual(tbl[page], ih[rows], wh[rows],
+                                            ir[rows], wr[rows], num_seg=1)
+                per_seg_bit_equal &= all(bool(torch.equal(g[rows], o))
+                                         for g, o in zip(got, b3))
+            if layout == "identity" and tag == "f32":
+                shapes["B4_E"] = (b4_args, ns4)
+                shapes["B5_E"] = (b5_args, ns5)
+    print(f"B4 / B5 bit-equal to B1 / B3 on each segment's page: "
+          f"{per_seg_bit_equal}")
+    if not per_seg_bit_equal:
+        fail("B4 or B5 differs from B1 / B3 run on a segment's page")
     torch.cuda.synchronize()
 
     # 4. the arms, end to end ---------------------------------------------
@@ -467,6 +605,125 @@ def main() -> int:
             "cold_wall_s": m_cold["wall_s"], "warm_wall_s": m_warm["wall_s"],
             "warm_fps": m_warm["aggregate_fps"], "cpu_wall_s": cpu_s}, fleet
 
+    def stats_of(sess):
+        return {k: getattr(sess.stats, k) for k in (
+            "frames", "reference_renders", "warped_pixels", "sparse_pixels",
+            "fallback_pixels", "total_pixels")}
+
+    def run_scenes_arm(cfg, n_sessions, n_frames):
+        """Arm E: mixed-scene serving through RenderServeEngine with a
+        scene_loader, held against the CPU run, exclusive runs and the
+        staged tick (see the module docstring)."""
+        ren = api.make_renderer(cfg)
+        eng = scene_engine(ren)
+        mixes = []  # the scenes each tick serves, read at its staging
+        stage = eng._stage_scene_map
+
+        def watched_stage():
+            mixes.append(sorted({slot.scene_key for slot in eng.slots
+                                 if slot is not None}))
+            stage()
+
+        eng._stage_scene_map = watched_stage
+        reset()
+        torch.cuda.synchronize()
+        cold = arm_e_sessions(n_sessions, n_frames)
+        m_cold = eng.run(cold)
+        launches = counts()
+        del eng._stage_scene_map
+        m_warm = eng.run(arm_e_sessions(n_sessions, n_frames))
+        t_cpu = time.perf_counter()
+        cpu = arm_e_sessions(n_sessions, n_frames)
+        m_cpu = scene_engine(api.make_renderer(cfg, device="cpu")).run(cpu)
+        cpu_s = time.perf_counter() - t_cpu
+        sc = m_cold["scene_cache"]
+        if not (m_cold["complete"] and m_cpu["complete"]):
+            fail("arm E: a session did not complete")
+        if m_cold["ticks"] != m_cpu["ticks"] or sc != m_cpu["scene_cache"]:
+            fail(f"arm E: {m_cold['ticks']} ticks and scene cache {sc} vs "
+                 f"CPU {m_cpu['ticks']} and {m_cpu['scene_cache']}")
+        distinct = len(set(ARM_E_SCENES[:n_sessions]))
+        if sc["hits"] < 1 or sc["evictions"] < 1 or sc["uploads"] <= distinct:
+            fail(f"arm E: the scene cache saw no hit, eviction or repage: "
+                 f"{sc}")
+        if len(mixes) != m_cold["ticks"] or min(map(len, mixes)) < 2:
+            fail(f"arm E: a tick served fewer than 2 scenes: {mixes}")
+        if launches["fused_gather_dual_per_seg"] != m_cold["ticks"] \
+                or launches["gather_trilerp_per_seg"] \
+                < m_cold["memory"]["admission_ticks"] \
+                or launches["gather_trilerp"] or launches["fused_gather_dual"]:
+            fail(f"arm E: launches {launches} for {m_cold['ticks']} ticks "
+                 "(B5 once per tick, B4 on admission, no B1 or B3)")
+        worst = math.inf
+        for sg, scpu in zip(cold, cpu):
+            if stats_of(sg) != stats_of(scpu) \
+                    or sg.stats.frames != n_frames:
+                fail(f"arm E: session {sg.sid} stats {stats_of(sg)} vs CPU "
+                     f"{stats_of(scpu)}")
+            for f, c in zip(sg.frames, scpu.frames):
+                f = f.cpu()
+                if f.shape != (cfg.res, cfg.res, 3) \
+                        or not torch.isfinite(f).all():
+                    fail("arm E: a frame is not finite")
+                worst = min(worst, float(psnr(f, c)))
+        if worst < 40.0:
+            fail(f"arm E: a frame is {worst:.2f} dB from the CPU run")
+        # two sessions on different scenes against their scene alone
+        alone_db = math.inf
+        for sid in (0, 1):
+            solo = api.make_renderer(cfg.replace(scene=ARM_E_SCENES[sid]))
+            (res,), _ = solo.serve([RenderRequest(
+                poses=tuple(cold[sid].poses))])
+            if res.stats.hole_fractions != cold[sid].stats.hole_fractions:
+                fail(f"arm E: session {sid} hole fractions differ from its "
+                     "scene served alone")
+            alone_db = min(alone_db, min(
+                float(psnr(a, b)) for a, b in zip(cold[sid].frames,
+                                                  res.frames)))
+        if alone_db < 60.0:
+            fail(f"arm E: mixed and exclusive frames differ ({alone_db:.2f}"
+                 " dB)")
+        # a shorter fleet staged and fused on the card
+        short = {}
+        for fused in (True, False):
+            e = scene_engine(ren, fused_tick=fused)
+            reset()
+            torch.cuda.synchronize()
+            sess = arm_e_sessions(4, n_frames // 2)
+            m = e.run(sess)
+            short[fused] = (sess, m, counts())
+        (s_f, m_f, l_f), (s_s, m_s, l_s) = short[True], short[False]
+        if m_f["ticks"] != m_s["ticks"] or not m_s["complete"] \
+                or l_s["gather_trilerp_per_seg"] == 0 \
+                or l_s["gather_trilerp"] or l_s["fused_gather_dual_per_seg"]:
+            fail(f"arm E: staged ticks {m_s['ticks']} vs fused {m_f['ticks']}"
+                 f", staged launches {l_s}")
+        staged_db = min(float(psnr(a, b)) for x, y in zip(s_f, s_s)
+                        for a, b in zip(x.frames, y.frames))
+        if staged_db < 40.0:
+            fail(f"arm E: staged and fused frames differ ({staged_db:.2f} dB)")
+        fleet = lambda: eng.run(arm_e_sessions(n_sessions, n_frames))
+        return {
+            "sessions": n_sessions, "frames": n_sessions * n_frames,
+            "slots": cfg.num_slots, "ticks": m_cold["ticks"],
+            "launches": launches, "scene_mix_per_tick": mixes,
+            "scene_cache": sc, "scene_cache_warm": m_warm["scene_cache"],
+            "profile": profile_run(fleet),
+            "top_ops_by_shape": profile_ops_by_shape(fleet),
+            "min_psnr_vs_cpu_db": worst,
+            "min_psnr_vs_alone_db": alone_db,
+            "reference_renders": [x.stats.reference_renders for x in cold],
+            "sparse_pixels": [x.stats.sparse_pixels for x in cold],
+            "fallback_pixels": [x.stats.fallback_pixels for x in cold],
+            "memory": m_cold["memory"], "queue": m_cold["queue"],
+            "cold_wall_s": m_cold["wall_s"], "warm_wall_s": m_warm["wall_s"],
+            "warm_fps": m_warm["aggregate_fps"], "cpu_wall_s": cpu_s,
+            "short_fleet": {
+                "sessions": 4, "frames_each": n_frames // 2,
+                "ticks": m_f["ticks"], "min_psnr_staged_vs_fused_db":
+                staged_db, "launches_fused": l_f, "launches_staged": l_s,
+                "fused_wall_s": m_f["wall_s"], "staged_wall_s": m_s["wall_s"]}}
+
     arms = {"A": run_arm("A", cfg_a, 32)}
     arms["B"] = run_arm("B", cfg_b, 16, model_b, np_params_b)
     arms["C"] = run_arm("C", cfg_c, 32)
@@ -502,6 +759,7 @@ def main() -> int:
         "min_psnr_vs_fused_db": worst, "cold_wall_s": m_staged["wall_s"],
         "warm_wall_s": m_staged_warm["wall_s"],
         "warm_fps": m_staged_warm["aggregate_fps"]}
+    arms["E"] = run_scenes_arm(cfg_e, 12, 32)
     for name, arm in arms.items():
         print(f"arm {name}: {json.dumps(arm)}")
     print(f"B1 launches: arm A {arms['A']['launches']['gather_trilerp']} "
@@ -510,6 +768,9 @@ def main() -> int:
           f"{launches_staged}")
     print(f"arm D serving: fused warm {m_warm_line(arms['D'])}; staged warm "
           f"{m_warm_line(arms['D']['staged'])}")
+    print(f"arm E multi-scene serving: warm {m_warm_line(arms['E'])}; "
+          f"scene cache {arms['E']['scene_cache']}; launches "
+          f"{arms['E']['launches']}")
 
     # 5. timings beside the bounds ----------------------------------------
     def b1_cost(tbl, ids, w):
@@ -533,6 +794,25 @@ def main() -> int:
         br, fr = b1_cost(tbl, ir, wr)
         table_bytes = tbl.numel() * tbl.element_size()
         return bh + br - table_bytes, fh + fr  # the table is read once
+
+    def b4_cost(pages, scn, ids, w):
+        # each distinct page's halo tables are read once: what this run's
+        # map needs, not all K pages
+        distinct = len(set(scn.tolist()))
+        table_bytes = distinct * pages[0].numel() * pages.element_size()
+        out_bytes = ids.shape[0] * ids.shape[1] * pages.shape[3] \
+            * pages.element_size()
+        nbytes = (table_bytes + scn.numel() * 4 + ids.numel() * 4
+                  + w.numel() * 4 + out_bytes)
+        flops = 2 * 8 * ids.shape[0] * ids.shape[1] * pages.shape[3]
+        return nbytes, flops
+
+    def b5_cost(pages, scn, ih, wh, ir, wr):
+        bh, fh = b4_cost(pages, scn, ih, wh)
+        br, fr = b4_cost(pages, scn, ir, wr)
+        shared = (len(set(scn.tolist())) * pages[0].numel()
+                  * pages.element_size() + scn.numel() * 4)
+        return bh + br - shared, fh + fr  # pages and map read once
 
     def timed(kernel_fn, plain_fn, nbytes, flops, shape):
         bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
@@ -559,14 +839,51 @@ def main() -> int:
                   f"table {list(a[0].shape)} holes {list(a[1].shape)} "
                   f"refs {list(a[3].shape)} num_seg {n}")
             for a, n in (shapes["B3_C"], shapes["B3_D"])]
+    (b4_args, ns4), (b5_args, ns5) = shapes["B4_E"], shapes["B5_E"]
+
+    def per_seg_timings(kernel_fn, plain_fn, cost, single_fn, single_plain,
+                        single_cost, args, ns, label):
+        """The captured tick's map, then the same rows with every segment
+        on page 0 (no restage), then the single-scene kernel on page 0
+        with the same rows: what the page steering costs."""
+        one = (args[0], torch.zeros_like(args[1])) + tuple(args[2:])
+        page0 = (args[0][0],) + tuple(args[2:])
+        return [timed(lambda: kernel_fn(*args, num_seg=ns),
+                      lambda: plain_fn(*args, ns), *cost(*args),
+                      f"pages {list(args[0].shape)} map {args[1].tolist()} "
+                      f"{label}"),
+                timed(lambda: kernel_fn(*one, num_seg=ns),
+                      lambda: plain_fn(*one, ns), *cost(*one),
+                      f"the same, map {one[1].tolist()} (no restage)"),
+                timed(lambda: single_fn(*page0, num_seg=ns),
+                      lambda: single_plain(*page0, ns), *single_cost(*page0),
+                      "the single-scene kernel on page 0, same rows")]
+
+    t_b4 = per_seg_timings(
+        gt_k.gather_trilerp_mvoxels_per_seg, gt_k.gather_trilerp_per_seg_plain,
+        b4_cost, gt_k.gather_trilerp_mvoxels_segmented,
+        gt_k.gather_trilerp_plain, b1_cost, b4_args, ns4,
+        f"ids {list(b4_args[2].shape)}")
+    t_b5 = per_seg_timings(
+        sp_k.fused_gather_dual_per_seg, sp_k.fused_gather_dual_per_seg_plain,
+        b5_cost, sp_k.fused_gather_dual, sp_k.fused_gather_dual_plain,
+        b3_cost, b5_args, ns5,
+        f"holes {list(b5_args[2].shape)} refs {list(b5_args[4].shape)}")
     card = f"{smi} (torch.cuda: {kind})"
+    # every path's launches: each arm's measured run, plus the staged
+    # comparison runs of arms D and E (counts reset before each)
+    path_launches = {n: a["launches"] for n, a in arms.items()}
+    path_launches["D_staged"] = arms["D"]["staged"]["launches"]
+    path_launches["E_short_fused"] = arms["E"]["short_fleet"]["launches_fused"]
+    path_launches["E_short_staged"] = \
+        arms["E"]["short_fleet"]["launches_staged"]
 
     def entry(name, kernel, source, replaces, err, t, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=sum(a["launches"][kernel.name]
-                                 for a in arms.values()),
-                    launches_per_arm={n: a["launches"][kernel.name]
-                                      for n, a in arms.items()},
+                    launches=sum(c[kernel.name]
+                                 for c in path_launches.values()),
+                    launches_per_arm={n: c[kernel.name]
+                                      for n, c in path_launches.items()},
                     max_abs_err=err,
                     **{k: t[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "shape")},
@@ -586,6 +903,18 @@ def main() -> int:
               max_abs_err_bf16=errs["B3_bf16"],
               max_abs_err_vs_b1=errs["B3_vs_B1"],
               bit_equal_to_b1=b3_bit_equal),
+        entry("gather_trilerp_mvoxels_per_seg (B4, mixed-scene Gathering "
+              "Unit)", gt_k.KERNEL_PER_SEG,
+              "src/repro_torch/csrc/gather_trilerp_per_seg.cu",
+              "src/repro/kernels/gather_trilerp.py:143", errs["B4"], t_b4,
+              max_abs_err_bf16=errs["B4_bf16"],
+              bit_equal_to_b1_per_page=per_seg_bit_equal),
+        entry("fused_gather_dual_per_seg (B5, mixed-scene fused tick dual "
+              "gather)", sp_k.KERNEL_PER_SEG,
+              "src/repro_torch/csrc/fused_gather_dual_per_seg.cu",
+              "src/repro/kernels/streaming_pipeline.py:138", errs["B5"],
+              t_b5, max_abs_err_bf16=errs["B5_bf16"],
+              bit_equal_to_b3_per_page=per_seg_bit_equal),
     ]}
     print(json.dumps(line))
     print(json.dumps({"arms_wall": {

@@ -2,10 +2,10 @@
 pooled hole-capacity controller (port of ``repro.core.config``).
 
 :class:`RenderConfig` holds the knobs of the staged and fused render paths
-and of the single-scene serving engine; ``device`` takes the place of the
-reference's Pallas interpret flag (None = the CUDA card, which must exist;
-"cpu" runs the plain PyTorch versions of the kernels). The reference's
-legacy-kwarg shims and its multi-scene, sharding and adaptive-sampling
+and of the serving engine (multi-scene paging included); ``device`` takes
+the place of the reference's Pallas interpret flag (None = the CUDA card,
+which must exist; "cpu" runs the plain PyTorch versions of the kernels).
+The reference's legacy-kwarg shims and its sharding and adaptive-sampling
 knobs are not ported.
 """
 from __future__ import annotations
@@ -144,6 +144,12 @@ class RenderConfig:
     decoder: str = "direct"
     num_samples: int = 32
     stream_capacity: int = 512
+    # --- multi-scene serving ----------------------------------------------
+    # byte budget of the serving engine's device-resident scene pages
+    # (SceneCache): unpinned scenes are evicted LRU once resident dense +
+    # MVoxel tables exceed it; 0 = no byte budget (num_slots pages bound
+    # residency)
+    scene_cache_bytes: int = 0
     # --- where it runs ----------------------------------------------------
     device: Optional[str] = None  # None: the CUDA card; "cpu": plain path
 
@@ -181,6 +187,10 @@ class RenderConfig:
         if self.fused_tick and not self.pool_holes:
             raise ValueError("fused_tick=True requires pool_holes=True (the "
                              "fused tick renders the pooled hole batch)")
+        if self.scene_cache_bytes < 0:
+            raise ValueError(
+                f"scene_cache_bytes must be >= 0 (0 disables the byte "
+                f"budget), got {self.scene_cache_bytes}")
 
     def resolved(self) -> "RenderConfig":
         """A config whose ``camera`` is a concrete :class:`Camera`."""
@@ -201,10 +211,13 @@ class RenderConfig:
 
 @dataclass(frozen=True, eq=False)  # eq=False: hash by identity (holds poses)
 class RenderRequest:
-    """One client session: a pose trajectory + per-session overrides."""
+    """One client session: a pose trajectory + per-session overrides.
+    ``scene`` names the scene a multi-scene serving engine pages in for
+    it (None: the engine's own scene)."""
 
     poses: Tuple[object, ...]  # [4,4] c2w pose per frame
     sid: Optional[int] = None
+    scene: Optional[str] = None
     window: Optional[int] = None
     hole_cap: Optional[int] = None
     pool_bucket: Optional[int] = None
@@ -215,6 +228,11 @@ class RenderRequest:
         object.__setattr__(self, "poses", tuple(self.poses))
         if not self.poses:
             raise ValueError("RenderRequest needs at least one pose")
+        if self.scene is not None and (
+                not isinstance(self.scene, str) or not self.scene):
+            raise ValueError(
+                f"scene must be a non-empty scene name or None (engine's "
+                f"configured scene), got {self.scene!r}")
         if self.window is not None and self.window < 1:
             raise ValueError(f"window override must be >= 1, got "
                              f"{self.window}")

@@ -14,7 +14,10 @@ Fused path (``RenderConfig.fused_tick``): after one staged priming
 reference render, each window is one unified streaming tick
 (:func:`raybatch.render_tick_streaming`) that fills this window's holes
 and renders the next window's reference through one MVoxel-table sweep.
-Both paths serve :class:`repro_torch.serve.render_engine.RenderServeEngine`.
+Both paths serve :class:`repro_torch.serve.render_engine.RenderServeEngine`;
+in its multi-scene mode ``params`` hold the stacked scene pages and a
+``scene_of_seg`` map, which every flat stage carries to the gathers with
+the rays' segment ids (kernels B4 and B5).
 
 Not ported yet: adaptive sampling, session sharding and the autotune
 cache (``ref_cap_factor`` is the reference's default, 2).

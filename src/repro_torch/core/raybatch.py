@@ -111,8 +111,9 @@ def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
                           dense_fill: Optional[Callable] = None
                           ) -> StreamingTickResult:
     """The unified streaming tick: warp -> pooled compaction -> ONE fused
-    gather (kernel B3) serving both this tick's hole fill and the next
-    tick's reference render -> decode -> composite -> segment scatter.
+    gather (kernel B3; B5 when ``params`` carry a ``scene_of_seg`` map
+    over stacked scene pages) serving both this tick's hole fill and the
+    next tick's reference render -> decode -> composite -> segment scatter.
 
     ``rgb_ref``/``dep_ref`` (posed at ``ref_poses``) were rendered by the
     previous tick or by ``DeviceSparwEngine.prime_reference``. ``bucket``
@@ -121,10 +122,6 @@ def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
     -> [S, N, HW, 3]``) is the per-session overflow fallback; it runs only
     when a session overflowed (one host sync per tick).
     """
-    if params.get("scene_of_seg") is not None:
-        raise NotImplementedError(
-            "mixed-scene fused ticks (scene_of_seg) belong to the "
-            "multi-scene slice of the port and are not ported yet")
     s, n = tgt_poses.shape[:2]
     h, w = cam.height, cam.width
     hw = h * w
@@ -146,11 +143,20 @@ def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
                                         c.near, c.far, ns)
     pts_r, t_r = rays.sample_along_rays(ref_batch.origins, ref_batch.dirs,
                                         c.near, c.far, ns)
-    feats_h, feats_r = streaming_pipeline.gather_features_tick(
-        params["table"], params["mv_table"], model.streaming_cfg,
-        pts_h.reshape(-1, 3), hole_batch.seg.repeat_interleave(ns),
-        pts_r.reshape(-1, 3), ref_batch.seg.repeat_interleave(ns),
-        num_seg=s, ref_cap_factor=ref_cap_factor)
+    scene_of_seg = params.get("scene_of_seg")
+    sample_sets = (pts_h.reshape(-1, 3), hole_batch.seg.repeat_interleave(ns),
+                   pts_r.reshape(-1, 3), ref_batch.seg.repeat_interleave(ns))
+    if scene_of_seg is not None:
+        # mixed-scene slot batch: each segment gathers from its own
+        # scene's page of the stacked resident set (kernel B5)
+        feats_h, feats_r = streaming_pipeline.gather_features_tick_scenes(
+            params["table"], params["mv_table"], scene_of_seg,
+            model.streaming_cfg, *sample_sets, num_seg=s,
+            ref_cap_factor=ref_cap_factor)
+    else:
+        feats_h, feats_r = streaming_pipeline.gather_features_tick(
+            params["table"], params["mv_table"], model.streaming_cfg,
+            *sample_sets, num_seg=s, ref_cap_factor=ref_cap_factor)
     sig_h, rgb_h = model.decode_features(
         params, feats_h, hole_batch.dirs.repeat_interleave(ns, dim=0))
     sig_r, rgb_r = model.decode_features(

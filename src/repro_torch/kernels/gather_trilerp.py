@@ -1,10 +1,16 @@
-"""The Gathering Unit (B1): per-MVoxel gather + trilinear interpolation.
+"""The Gathering Unit: per-MVoxel gather + trilinear interpolation.
 
-Port of ``repro.kernels.gather_trilerp.gather_trilerp_mvoxels_segmented``
-(a Pallas TPU kernel) as a hand-written CUDA kernel,
-``csrc/gather_trilerp.cu``; see the note there for its bound and design.
+Ports of two Pallas TPU kernels of ``repro.kernels.gather_trilerp`` as
+hand-written CUDA kernels (see the note in each source for its bound and
+design):
 
-Shapes: ``mv_table [num_mv, P, C]`` (float32 or bfloat16),
+* B1, ``gather_trilerp_mvoxels_segmented`` -> ``csrc/gather_trilerp.cu``;
+* B4, ``gather_trilerp_mvoxels_per_seg`` (mixed-scene: each segment reads
+  its own scene's tables) -> ``csrc/gather_trilerp_per_seg.cu``.
+
+Shapes: ``mv_table [num_mv, P, C]`` (float32 or bfloat16) or, for B4, the
+resident pages ``[K, num_mv, P, C]`` with the segment->page map
+``scene_of_seg [num_seg]`` (int32, on the tables' device);
 ``ids [num_seg * num_mv, cap, 8]`` int32 local row ids (pad: 0),
 ``weights`` the same shape in float32 (pad: 0) ->
 ``out [num_seg * num_mv, cap, C]`` in the table's dtype, segment-major.
@@ -19,6 +25,11 @@ KERNEL = CudaKernel("gather_trilerp", {"gather_trilerp_f32": "ppppiiiiip",
                                        "gather_trilerp_bf16": "ppppiiiiip"})
 _ENTRY = {torch.float32: "gather_trilerp_f32",
           torch.bfloat16: "gather_trilerp_bf16"}
+KERNEL_PER_SEG = CudaKernel(
+    "gather_trilerp_per_seg", {"gather_trilerp_per_seg_f32": "pppppiiiiiip",
+                               "gather_trilerp_per_seg_bf16": "pppppiiiiiip"})
+_ENTRY_PER_SEG = {torch.float32: "gather_trilerp_per_seg_f32",
+                  torch.bfloat16: "gather_trilerp_per_seg_bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 
@@ -85,3 +96,79 @@ def gather_trilerp_mvoxels(mv_table: torch.Tensor, ids: torch.Tensor,
     """The ``num_seg = 1`` case: [num_mv, cap, C]."""
     return gather_trilerp_mvoxels_segmented(mv_table, ids, weights,
                                             num_seg=1)
+
+
+def gather_trilerp_per_seg_plain(pages: torch.Tensor,
+                                 scene_of_seg: torch.Tensor,
+                                 ids: torch.Tensor, weights: torch.Tensor,
+                                 num_seg: int) -> torch.Tensor:
+    """Plain PyTorch version of B4: segment ``s`` gathers from page
+    ``scene_of_seg[s]`` with :func:`gather_trilerp_plain`'s arithmetic, so
+    it is bit-equal to that function on the page. A page outside ``[0,
+    K)`` gives NaN rows, as the kernel does."""
+    k, num_mv, _, c = pages.shape
+    cap = ids.shape[1]
+    tbl = pages.float()
+    scn = scene_of_seg.long()
+    valid = (scn >= 0) & (scn < k)
+    page = torch.where(valid, scn, 0)[:, None, None]
+    ids4 = ids.reshape(num_seg, num_mv, cap, 8).long()
+    w4 = weights.reshape(num_seg, num_mv, cap, 8).float()
+    mv = torch.arange(num_mv, device=pages.device)[None, :, None]
+    acc = torch.zeros((num_seg, num_mv, cap, c), device=pages.device)
+    for v in range(8):
+        acc = acc + w4[..., v:v + 1] * tbl[page, mv, ids4[..., v]]
+    acc = torch.where(valid[:, None, None, None], acc, float("nan"))
+    return acc.to(pages.dtype).reshape(num_seg * num_mv, cap, c)
+
+
+def gather_trilerp_mvoxels_per_seg(pages: torch.Tensor,
+                                   scene_of_seg: torch.Tensor,
+                                   ids: torch.Tensor, weights: torch.Tensor,
+                                   *, num_seg: int) -> torch.Tensor:
+    """Mixed-scene GU (B4): segment ``s`` gathers from the halo tables of
+    page ``scene_of_seg[s]`` of the resident set ``pages [K, num_mv, P,
+    C]``. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (anything else raises). The map stays on the device."""
+    if pages.device.type == "cpu":
+        return gather_trilerp_per_seg_plain(pages, scene_of_seg, ids,
+                                            weights, num_seg)
+    if pages.device.type != "cuda":
+        raise ValueError(f"gather_trilerp_per_seg: no kernel for device "
+                         f"{pages.device}")
+    k, num_mv, p, c = pages.shape
+    rows = num_seg * num_mv
+    cap = ids.shape[1]
+    if pages.dtype not in _ENTRY_PER_SEG:
+        raise TypeError(f"gather_trilerp_per_seg: table dtype {pages.dtype}")
+    if ids.dtype != torch.int32 or weights.dtype != torch.float32 \
+            or scene_of_seg.dtype != torch.int32:
+        raise TypeError("gather_trilerp_per_seg: ids and scene_of_seg must "
+                        "be int32 and weights float32, got "
+                        f"{ids.dtype} / {scene_of_seg.dtype} / "
+                        f"{weights.dtype}")
+    if ids.shape != (rows, cap, 8) or weights.shape != ids.shape \
+            or scene_of_seg.shape != (num_seg,):
+        raise ValueError(f"gather_trilerp_per_seg: ids {tuple(ids.shape)} / "
+                         f"weights {tuple(weights.shape)} / scene_of_seg "
+                         f"{tuple(scene_of_seg.shape)} do not match "
+                         f"({rows}, cap, 8) / ({num_seg},)")
+    for t in (ids, weights, scene_of_seg):
+        if t.device != pages.device:
+            raise ValueError("gather_trilerp_per_seg: inputs on different "
+                             "devices")
+    if p * c * 4 > _SMEM_LIMIT:
+        raise ValueError(f"gather_trilerp_per_seg: halo block [{p}, {c}] "
+                         "exceeds shared memory")
+    pages, scene_of_seg, ids, weights = (
+        t.contiguous() for t in (pages, scene_of_seg, ids, weights))
+    out = torch.empty((rows, cap, c), dtype=pages.dtype, device=pages.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(pages.device):
+        KERNEL_PER_SEG.call(
+            _ENTRY_PER_SEG[pages.dtype], pages.data_ptr(),
+            scene_of_seg.data_ptr(), ids.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), k, num_mv, num_seg, p, c, cap,
+            torch.cuda.current_stream().cuda_stream)
+    return out

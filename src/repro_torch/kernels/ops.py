@@ -1,6 +1,6 @@
 """Kernel entry points: arrange host-visible shapes into kernel geometry
-(port of ``repro.kernels.ops``; the mixed-scene ``scene_of_seg`` path and
-attention are not ported yet)."""
+(port of ``repro.kernels.ops``, with its mixed-scene ``scene_of_seg`` path;
+attention is not ported yet)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -10,6 +10,7 @@ import torch
 from repro_torch.core import streaming
 from repro_torch.kernels import fused_nerf_mlp as _mlp
 from repro_torch.kernels import gather_trilerp as _gt
+from repro_torch.kernels import streaming_pipeline as _sp
 from repro_torch.nerf import grids
 
 
@@ -23,19 +24,20 @@ class RitBlocks(NamedTuple):
 
 
 def rit_blocks(points: torch.Tensor, cfg: streaming.StreamingCfg, *,
-               seg: Optional[torch.Tensor] = None,
-               num_seg: int = 1) -> RitBlocks:
+               seg: Optional[torch.Tensor] = None, num_seg: int = 1,
+               scened: bool = False) -> RitBlocks:
     """Build the RIT and the per-bucket id/weight blocks for ``points``.
 
-    With ``seg`` and ``num_seg > 1`` buckets are combined ``(segment,
-    MVoxel)`` ids, segment-major, and samples with ``seg >= num_seg``
-    (chunk padding) drop out of the table. With ``num_seg == 1`` the
-    buckets are plain MVoxel ids, so padding samples DO take capacity —
-    the reference's rule, kept so overflow sets match.
+    With ``seg`` and ``num_seg > 1`` (or ``scened``, the mixed-scene path,
+    at any ``num_seg``) buckets are combined ``(segment, MVoxel)`` ids,
+    segment-major, and samples with ``seg >= num_seg`` (chunk padding)
+    drop out of the table. Otherwise the buckets are plain MVoxel ids, so
+    at ``num_seg == 1`` padding samples DO take capacity — the reference's
+    rule, kept so overflow sets match.
     """
     mv = streaming.mvoxel_ids(points, cfg)
     num_mv = cfg.num_mvoxels
-    if seg is not None and num_seg > 1:
+    if seg is not None and (num_seg > 1 or scened):
         bucket = torch.where(seg < num_seg, seg * num_mv + mv,
                              num_seg * num_mv)
         num_slots, kernel_seg = num_seg * num_mv, num_seg
@@ -55,7 +57,9 @@ def gather_features_streaming(table: torch.Tensor, points: torch.Tensor,
                               cfg: streaming.StreamingCfg, *,
                               mv_table: Optional[torch.Tensor] = None,
                               seg: Optional[torch.Tensor] = None,
-                              num_seg: int = 1) -> torch.Tensor:
+                              num_seg: int = 1,
+                              scene_of_seg: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Memory-centric feature gather of ``points`` from a dense vertex
     table: build the RIT, run the GU kernel per MVoxel, scatter back to
     sample order; samples past RIT capacity take the reference gather (the
@@ -65,14 +69,32 @@ def gather_features_streaming(table: torch.Tensor, points: torch.Tensor,
     (``NerfModel.prepare_streaming`` caches it); built here when omitted.
     ``seg``/``num_seg`` bucket the RIT per (segment, MVoxel) — see
     :func:`rit_blocks`.
+
+    ``scene_of_seg`` ([num_seg] int32, needs ``seg``) selects the
+    mixed-scene path: ``table`` is the stacked resident set ``[K, res^3,
+    C]``, ``mv_table`` the stacked halo tables ``[K, num_mv, P, C]`` (both
+    required), and each segment gathers from its own scene's page (kernel
+    B4); the overflow fallback reads each sample's own scene's table.
     """
+    scened = scene_of_seg is not None
+    if scened and seg is None:
+        raise ValueError("scene_of_seg requires the seg array (the segment"
+                         "->scene map is indexed by segment id)")
     s = points.shape[0]
     c = table.shape[-1]
     if mv_table is None:
+        if scened:
+            raise ValueError("mixed-scene gather needs the prebuilt stacked "
+                             "mv_table [K, num_mv, P, C]")
         mv_table = streaming.build_mvoxel_table(table, cfg)
-    blocks = rit_blocks(points, cfg, seg=seg, num_seg=num_seg)
-    out_mv = _gt.gather_trilerp_mvoxels_segmented(
-        mv_table, blocks.ids, blocks.weights, num_seg=blocks.num_seg)
+    blocks = rit_blocks(points, cfg, seg=seg, num_seg=num_seg, scened=scened)
+    if scened:
+        out_mv = _gt.gather_trilerp_mvoxels_per_seg(
+            mv_table, scene_of_seg, blocks.ids, blocks.weights,
+            num_seg=num_seg)
+    else:
+        out_mv = _gt.gather_trilerp_mvoxels_segmented(
+            mv_table, blocks.ids, blocks.weights, num_seg=blocks.num_seg)
     # scatter back to sample order; pad rows land in the dump row s
     samples = blocks.rit.samples
     dst = torch.where(samples >= 0, samples, s).reshape(-1)
@@ -80,7 +102,11 @@ def gather_features_streaming(table: torch.Tensor, points: torch.Tensor,
     feats[dst] = out_mv.reshape(-1, c)
     # overflow fallback: the pixel-centric gather for the spilled samples
     gids, gw = grids.corner_ids_weights(points, cfg.grid_res)
-    fallback = grids.gather_trilerp_ref(table, gids, gw)
+    if scened:
+        scn = scene_of_seg[torch.clamp(seg, 0, num_seg - 1)]
+        fallback = _sp.gather_trilerp_ref_scened(table, scn, gids, gw)
+    else:
+        fallback = grids.gather_trilerp_ref(table, gids, gw)
     return torch.where(blocks.rit.overflow[:, None], fallback, feats[:s])
 
 

@@ -1,5 +1,5 @@
-"""The fused streaming tick's gather stage (port of the single-scene parts
-of ``repro.kernels.streaming_pipeline``).
+"""The fused streaming tick's gather stage (port of
+``repro.kernels.streaming_pipeline``).
 
 The staged tick renders the reference and the pooled hole fill as separate
 chunked stages, each chunk re-streaming the whole MVoxel halo table. The
@@ -9,21 +9,26 @@ one kernel (B3, ``csrc/fused_gather_dual.cu``; see the note there for its
 bound and design) gathers both sets from each halo block while it is
 resident: one table sweep per tick.
 
+Mixed-scene ticks (multi-scene serving) take the K resident scene pages
+``[K, num_mv, P, C]`` and a segment->page map ``scene_of_seg`` on the
+device: kernel B5 (``csrc/fused_gather_dual_per_seg.cu``) steers each
+segment to its own scene's page, and the overflow fallback reads each
+sample's own scene's dense table (:func:`gather_features_tick_scenes`).
+
 ``tick_traffic`` and ``serving_sweeps_per_tick`` are the analytic
-bytes-moved accounting of this pipeline. The multi-scene variants
-(``fused_gather_dual_per_seg``, ``gather_features_tick_scenes``) are not
-ported yet.
+bytes-moved accounting of this pipeline.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import streaming
 from repro_torch.kernels._build import CudaKernel
-from repro_torch.kernels.gather_trilerp import gather_trilerp_plain
+from repro_torch.kernels.gather_trilerp import gather_trilerp_per_seg_plain, \
+    gather_trilerp_plain
 from repro_torch.nerf import grids
 
 KERNEL = CudaKernel("fused_gather_dual",
@@ -31,6 +36,12 @@ KERNEL = CudaKernel("fused_gather_dual",
                      "fused_gather_dual_bf16": "pppppppiiiiiip"})
 _ENTRY = {torch.float32: "fused_gather_dual_f32",
           torch.bfloat16: "fused_gather_dual_bf16"}
+KERNEL_PER_SEG = CudaKernel(
+    "fused_gather_dual_per_seg",
+    {"fused_gather_dual_per_seg_f32": "ppppppppiiiiiiip",
+     "fused_gather_dual_per_seg_bf16": "ppppppppiiiiiiip"})
+_ENTRY_PER_SEG = {torch.float32: "fused_gather_dual_per_seg_f32",
+                  torch.bfloat16: "fused_gather_dual_per_seg_bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 
@@ -100,6 +111,85 @@ def fused_gather_dual(mv_table: torch.Tensor, ids_h: torch.Tensor,
     return out_h, out_r
 
 
+def fused_gather_dual_per_seg_plain(pages: torch.Tensor,
+                                    scene_of_seg: torch.Tensor,
+                                    ids_h: torch.Tensor, w_h: torch.Tensor,
+                                    ids_r: torch.Tensor, w_r: torch.Tensor,
+                                    num_seg: int
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of B5: B4's plain version on each set, so
+    segment ``s`` is bit-equal to :func:`fused_gather_dual_plain` on page
+    ``scene_of_seg[s]``."""
+    return (gather_trilerp_per_seg_plain(pages, scene_of_seg, ids_h, w_h,
+                                         num_seg),
+            gather_trilerp_per_seg_plain(pages, scene_of_seg, ids_r, w_r,
+                                         num_seg))
+
+
+def fused_gather_dual_per_seg(pages: torch.Tensor, scene_of_seg: torch.Tensor,
+                              ids_h: torch.Tensor, w_h: torch.Tensor,
+                              ids_r: torch.Tensor, w_r: torch.Tensor, *,
+                              num_seg: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixed-scene :func:`fused_gather_dual` (B5): segment ``s`` gathers
+    both sets from page ``scene_of_seg[s]`` of the resident set ``pages
+    [K, num_mv, P, C]`` (``scene_of_seg [num_seg]`` int32, on the pages'
+    device). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (anything else raises)."""
+    if pages.device.type == "cpu":
+        return fused_gather_dual_per_seg_plain(pages, scene_of_seg, ids_h,
+                                               w_h, ids_r, w_r, num_seg)
+    if pages.device.type != "cuda":
+        raise ValueError(f"fused_gather_dual_per_seg: no kernel for device "
+                         f"{pages.device}")
+    k, num_mv, p, c = pages.shape
+    rows = num_seg * num_mv
+    cap_h, cap_r = ids_h.shape[1], ids_r.shape[1]
+    if pages.dtype not in _ENTRY_PER_SEG:
+        raise TypeError(f"fused_gather_dual_per_seg: table dtype "
+                        f"{pages.dtype}")
+    if scene_of_seg.dtype != torch.int32 \
+            or scene_of_seg.shape != (num_seg,) \
+            or scene_of_seg.device != pages.device:
+        raise ValueError("fused_gather_dual_per_seg: scene_of_seg must be "
+                         f"int32 [{num_seg}] on {pages.device}, got "
+                         f"{scene_of_seg.dtype} {tuple(scene_of_seg.shape)} "
+                         f"on {scene_of_seg.device}")
+    for ids, w, cap in ((ids_h, w_h, cap_h), (ids_r, w_r, cap_r)):
+        if ids.dtype != torch.int32 or w.dtype != torch.float32:
+            raise TypeError("fused_gather_dual_per_seg: ids must be int32 "
+                            f"and weights float32, got {ids.dtype} / "
+                            f"{w.dtype}")
+        if ids.shape != (rows, cap, 8) or w.shape != ids.shape:
+            raise ValueError(f"fused_gather_dual_per_seg: ids "
+                             f"{tuple(ids.shape)} / weights "
+                             f"{tuple(w.shape)} do not match "
+                             f"({rows}, cap, 8)")
+        if ids.device != pages.device or w.device != pages.device:
+            raise ValueError("fused_gather_dual_per_seg: inputs on "
+                             "different devices")
+    if p * c * 4 > _SMEM_LIMIT:
+        raise ValueError(f"fused_gather_dual_per_seg: halo block [{p}, {c}] "
+                         "exceeds shared memory")
+    pages, scene_of_seg, ids_h, w_h, ids_r, w_r = (
+        t.contiguous() for t in (pages, scene_of_seg, ids_h, w_h, ids_r,
+                                 w_r))
+    out_h = torch.empty((rows, cap_h, c), dtype=pages.dtype,
+                        device=pages.device)
+    out_r = torch.empty((rows, cap_r, c), dtype=pages.dtype,
+                        device=pages.device)
+    if rows == 0 or (cap_h == 0 and cap_r == 0):
+        return out_h, out_r
+    with torch.cuda.device(pages.device):
+        KERNEL_PER_SEG.call(
+            _ENTRY_PER_SEG[pages.dtype], pages.data_ptr(),
+            scene_of_seg.data_ptr(), ids_h.data_ptr(), w_h.data_ptr(),
+            ids_r.data_ptr(), w_r.data_ptr(), out_h.data_ptr(),
+            out_r.data_ptr(), k, num_mv, num_seg, p, c, cap_h, cap_r,
+            torch.cuda.current_stream().cuda_stream)
+    return out_h, out_r
+
+
 class _RitBlocks(NamedTuple):
     ids_mv: torch.Tensor  # [num_slots, cap, 8] int32 layout-remapped ids
     w_mv: torch.Tensor  # [num_slots, cap, 8] float32
@@ -132,9 +222,14 @@ def _rit_blocks(points: torch.Tensor, seg: torch.Tensor, num_seg: int,
 
 def _scatter_with_fallback(out_mv: torch.Tensor, blocks: _RitBlocks,
                            table: torch.Tensor, points: torch.Tensor,
-                           cfg: streaming.StreamingCfg) -> torch.Tensor:
+                           cfg: streaming.StreamingCfg,
+                           scene: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """RIT-order kernel output back to sample order; RIT-overflow samples
-    take the reference (pixel-centric) gather on the original table."""
+    take the reference (pixel-centric) gather on the original table. With
+    ``scene`` [T] (the mixed-scene tick) ``table`` is the stacked dense
+    pages ``[K, res^3, C]`` and each sample's fallback reads its own
+    scene's page."""
     t = points.shape[0]
     c = out_mv.shape[-1]
     samples = blocks.samples
@@ -142,8 +237,48 @@ def _scatter_with_fallback(out_mv: torch.Tensor, blocks: _RitBlocks,
     feats = table.new_zeros((t + 1, c))
     feats[dst] = out_mv.reshape(-1, c)
     gids, gw = grids.corner_ids_weights(points, cfg.grid_res)
-    fallback = grids.gather_trilerp_ref(table, gids, gw)
+    fallback = (grids.gather_trilerp_ref(table, gids, gw) if scene is None
+                else gather_trilerp_ref_scened(table, scene, gids, gw))
     return torch.where(blocks.overflow[:, None], fallback, feats[:t])
+
+
+def gather_trilerp_ref_scened(tables: torch.Tensor, scene: torch.Tensor,
+                              ids: torch.Tensor, weights: torch.Tensor
+                              ) -> torch.Tensor:
+    """Per-sample-scene reference gather over stacked dense tables ``[K,
+    res^3, C]``: ``grids.gather_trilerp_ref``'s rows and einsum on each
+    sample's own scene's table (``scene`` [S])."""
+    feats = tables[scene[:, None], ids].float()  # [S, 8, C]
+    return torch.einsum("svc,sv->sc", feats, weights)
+
+
+def gather_features_tick_scenes(tables: torch.Tensor, mv_tables: torch.Tensor,
+                                scene_of_seg: torch.Tensor,
+                                cfg: streaming.StreamingCfg,
+                                pts_hole: torch.Tensor,
+                                seg_hole: torch.Tensor,
+                                pts_ref: torch.Tensor, seg_ref: torch.Tensor,
+                                *, num_seg: int, ref_cap_factor: int = 2
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixed-scene :func:`gather_features_tick`: one fused sweep (B5) over
+    the resident scene pages.
+
+    ``tables [K, res^3, C]`` / ``mv_tables [K, num_mv, P, C]`` are the K
+    resident pages and ``scene_of_seg [num_seg]`` (int32, on their device)
+    the segment->page map. RIT bucketing stays per (segment, MVoxel); each
+    segment's gather and overflow fallback read only its own scene's
+    rows."""
+    cfg_ref = dataclasses.replace(cfg,
+                                  capacity=cfg.capacity * ref_cap_factor)
+    bh = _rit_blocks(pts_hole, seg_hole, num_seg, cfg)
+    br = _rit_blocks(pts_ref, seg_ref, num_seg, cfg_ref)
+    out_h, out_r = fused_gather_dual_per_seg(
+        mv_tables, scene_of_seg, bh.ids_mv, bh.w_mv, br.ids_mv, br.w_mv,
+        num_seg=num_seg)
+    scn_h = scene_of_seg[torch.clamp(seg_hole, 0, num_seg - 1)]
+    scn_r = scene_of_seg[torch.clamp(seg_ref, 0, num_seg - 1)]
+    return (_scatter_with_fallback(out_h, bh, tables, pts_hole, cfg, scn_h),
+            _scatter_with_fallback(out_r, br, tables, pts_ref, cfg, scn_r))
 
 
 def gather_features_tick(table: torch.Tensor, mv_table: torch.Tensor,

@@ -10,16 +10,21 @@ Two execution backends (``NerfConfig.backend``):
   halo blocks) and, for ``decoder="mlp"``, ``kernels.ops.nerf_mlp``.
   The halo re-layout of the feature table is built once per table by
   :meth:`NerfModel.prepare_streaming` and travels in ``params``.
+
+Multi-scene serving rides the same calls: params holding the stacked
+resident pages (``table [K, res^3, C]``, ``mv_table [K, num_mv, P, C]``)
+and a ``scene_of_seg [num_seg]`` map make each segment gather from its own
+scene's page.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import streaming
+from repro_torch.core.scene_cache import ParamsToken, SceneCache
 from repro_torch.kernels import ops
 from repro_torch.nerf import grids, mlp, rays, scenes, volrend
 
@@ -65,13 +70,13 @@ class NerfModel:
     """Stateless apart from the halo-table cache: params (tensors on one
     device) are passed to every call."""
 
-    _CACHE_ENTRIES = 8
-
     def __init__(self, cfg: NerfConfig):
         self.cfg = cfg
-        # (id(table), StreamingCfg) -> (table, mv_table); the table itself
-        # is kept so its id cannot be recycled while the entry lives
-        self._mv_tables: "OrderedDict[tuple, tuple]" = OrderedDict()
+        # (table identity, StreamingCfg) -> halo table. An LRU, so a model
+        # serving alternating scenes rebuilds no table once both are
+        # resident; the token keeps the table alive, so an identity hit
+        # can never alias a recycled id
+        self._mv_table_cache = SceneCache(max_entries=8)
 
     def init_baked(self, scene: scenes.Scene, device=None) -> dict:
         """Dense grid baked from the analytic scene; decoder = direct."""
@@ -93,36 +98,41 @@ class NerfModel:
     def prepare_streaming(self, params: dict) -> dict:
         """Attach the MVoxel halo table (``"mv_table"``) for the streaming
         backend, built once per (table, streaming geometry) and cached in a
-        small LRU. A table staged under another layout is rebuilt. No-op on
-        the reference backend."""
+        small LRU. A table staged under another layout is rebuilt; a
+        stacked multi-scene page set ``[K, num_mv, P, C]`` (owned by the
+        serving engine's scene pager) passes through. No-op on the
+        reference backend."""
         if self.cfg.backend != "streaming":
             return params
         scfg = self.streaming_cfg
         mv_table = params.get("mv_table")
-        if mv_table is not None and mv_table.shape[1] == scfg.halo_rows:
+        if mv_table is not None and (mv_table.ndim == 4
+                                     or mv_table.shape[1] == scfg.halo_rows):
             return params
         table = params["table"]
-        key = (id(table), scfg)
-        hit = self._mv_tables.get(key)
-        if hit is not None and hit[0] is table:
-            self._mv_tables.move_to_end(key)
-            mv_table = hit[1]
-        else:
-            mv_table = streaming.build_mvoxel_table(table, scfg)
-            self._mv_tables[key] = (table, mv_table)
-            while len(self._mv_tables) > self._CACHE_ENTRIES:
-                self._mv_tables.popitem(last=False)
+        mv_table = self._mv_table_cache.get_or_build(
+            (ParamsToken(table), scfg),
+            lambda: ((built := streaming.build_mvoxel_table(table, scfg)),
+                     built.numel() * built.element_size()))
         return {**params, "mv_table": mv_table}
 
     def query_features(self, params: dict, points: torch.Tensor,
                        seg: Optional[torch.Tensor] = None,
                        num_seg: int = 1) -> torch.Tensor:
         """Features at ``points`` [S, 3]; ``seg``/``num_seg`` bucket the
-        streaming gather's RIT per (segment, MVoxel)."""
+        streaming gather's RIT per (segment, MVoxel). Params carrying a
+        ``scene_of_seg`` map (the stacked multi-scene pages) need ``seg``:
+        each segment gathers from its own scene's page."""
         if self.cfg.backend == "streaming":
+            scene_of_seg = params.get("scene_of_seg")
+            if scene_of_seg is not None and seg is None:
+                raise ValueError(
+                    "multi-scene params (scene_of_seg present) need the "
+                    "segment axis: render through the flat ray-batch core")
             return ops.gather_features_streaming(
                 params["table"], points, self.streaming_cfg,
-                mv_table=params.get("mv_table"), seg=seg, num_seg=num_seg)
+                mv_table=params.get("mv_table"), seg=seg, num_seg=num_seg,
+                scene_of_seg=scene_of_seg)
         return grids.dense_query(params, points, self.cfg.dense_cfg)
 
     def decode_features(self, params: dict, feats: torch.Tensor,

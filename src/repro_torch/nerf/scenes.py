@@ -16,6 +16,10 @@ import torch
 
 _LIGHT = (0.35, 0.8, 0.49)  # directional light (normalized where used)
 
+# Eight scenes mirroring Synthetic-NeRF's eight
+SCENE_NAMES = ["chair", "drums", "ficus", "hotdog", "lego", "materials", "mic",
+               "ship"]
+
 
 @dataclass(frozen=True)
 class Scene:

@@ -1,5 +1,5 @@
 """Multi-session SpaRW render serving engine: continuous batching of warp
-windows (port of ``repro.serve.render_engine``, single scene, one device).
+windows (port of ``repro.serve.render_engine``, one device).
 
 A *session* is one client's camera trajectory. The engine admits sessions
 into a fixed number of **slots**, aligns their warp **windows** into one
@@ -18,26 +18,41 @@ session (chosen by a :mod:`~repro_torch.serve.policies` policy).
   admits sessions first primes their rows with one masked staged render
   (``prime_reference_select``), so a reused slot never warps the previous
   occupant's reference.
+* **Multi-scene serving** (``scene_loader=...``) — each slot's occupant
+  may view a different scene. Per-scene tables are paged through a
+  device-resident LRU (:class:`~repro_torch.core.scene_cache.SceneCache`,
+  byte budget ``RenderConfig.scene_cache_bytes``): ``K = num_slots``
+  pages stored as one stacked ``table [K, res^3, C]`` and one stacked
+  halo table ``mv_table [K, num_mv, P, C]``. Admitting a cached scene
+  uploads nothing; a miss uploads one dense table into the LRU-evicted
+  page (its halo re-layout is built on the device). The slot->page map
+  rides into every gather as ``scene_of_seg`` (int32, on the device,
+  re-staged only when slot composition changes), where kernels B4
+  (staged) and B5 (fused) steer each segment to its page. Live slots pin
+  their pages. Pages are written in place, on the current stream: a page
+  recycled while the previous tick is still in flight (``run`` dispatches
+  one tick ahead) is overwritten only after that tick's kernels, in
+  stream order, so this engine must not move work to a second stream.
 
 :meth:`RenderServeEngine.step` dispatches; frames and hole statistics are
 read back in :meth:`RenderServeEngine.finalize`. Unlike the reference's
 XLA program, a tick here syncs the host once, to decide whether any
-session overflowed into the dense fallback. Not ported: multi-scene paging
-(``scene_loader``) and session sharding.
+session overflowed into the dense fallback. Not ported: session sharding.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core import schedule
+from repro_torch.core import schedule, streaming
 from repro_torch.core.config import HoleCapController, RenderConfig, \
     RenderRequest, RenderStats
 from repro_torch.core.engine import DeviceSparwEngine
+from repro_torch.core.scene_cache import SceneCache
 from repro_torch.kernels import streaming_pipeline
 from repro_torch.serve.policies import SchedulingPolicy, resolve_policy
 
@@ -48,8 +63,9 @@ class RenderSession:
 
     ``window``/``hole_cap``/``pool_bucket`` override the engine config
     (bounded by its static capacities, validated at submit);
-    ``priority``/``deadline_ms`` feed the admission policy. ``scene`` must
-    stay None: multi-scene serving is not ported. ``arrival`` and
+    ``priority``/``deadline_ms`` feed the admission policy. ``scene``
+    names the scene this client views (None: the engine's own params;
+    a name needs a multi-scene engine). ``arrival`` and
     ``submitted_s`` are stamped by :meth:`RenderServeEngine.submit`,
     ``admitted_s`` when the session takes a slot; ``shed=True`` marks a
     session the policy dropped from the queue.
@@ -85,7 +101,7 @@ class RenderSession:
                    hole_cap=request.hole_cap,
                    pool_bucket=request.pool_bucket,
                    priority=request.priority,
-                   deadline_ms=request.deadline_ms)
+                   deadline_ms=request.deadline_ms, scene=request.scene)
 
 
 @dataclass
@@ -100,6 +116,10 @@ class _Slot:
     ctl: Optional[HoleCapController] = None  # fresh at admit
     # fused tick: pose of the reference held in this slot's recurrence row
     ref_pose: Optional[torch.Tensor] = None
+    # multi-scene: the occupant's scene key (pins its page while the slot
+    # is occupied) and the page index
+    scene_key: Optional[str] = None
+    page: int = 0
 
 
 class RenderServeEngine:
@@ -108,11 +128,14 @@ class RenderServeEngine:
     ``config.num_slots`` sessions render per tick; further sessions queue
     and take over slots as earlier trajectories finish, the ``policy``
     choosing which. Sessions may override ``window`` (<= ``config.window``)
-    and ``hole_cap`` (<= the engine's capacity).
+    and ``hole_cap`` (<= the engine's capacity). With ``scene_loader``
+    (scene name -> dense table ``[res^3, C]``, or a dict holding it under
+    ``"table"``) sessions may name their scene (see the module docstring).
     """
 
     def __init__(self, model, params: dict, *, config: RenderConfig,
-                 policy: Union[None, str, SchedulingPolicy] = None):
+                 policy: Union[None, str, SchedulingPolicy] = None,
+                 scene_loader: Optional[Callable[[str], object]] = None):
         config = config.resolved()
         self.config = config
         self.policy = resolve_policy(policy)
@@ -148,6 +171,34 @@ class RenderServeEngine:
         self._rgb_ref: Optional[torch.Tensor] = None
         self._dep_ref: Optional[torch.Tensor] = None
         self._num_admission_ticks = 0
+        # multi-scene paging: scene name -> page index, LRU under the byte
+        # budget; the stacked [K, ...] tensors are the page storage
+        self.scene_loader = scene_loader
+        self.multi_scene = scene_loader is not None
+        if self.multi_scene:
+            if not self.engine._seg_aware:
+                raise ValueError(
+                    "multi-scene serving needs the segment-aware streaming "
+                    "backend (backend='streaming' with a grid model): the "
+                    "scene->segment map rides the flat batch's seg axis")
+            base = dict(self.engine.params)
+            self._default_table = base.pop("table")
+            self._default_mv = base.pop("mv_table")
+            self._base_params = base  # decoder etc., shared by all scenes
+            k = self.num_slots
+            self._table_stack = self._default_table.new_zeros(
+                (k,) + tuple(self._default_table.shape))
+            self._mv_stack = self._default_mv.new_zeros(
+                (k,) + tuple(self._default_mv.shape))
+            self._free_pages = list(range(k))[::-1]  # pop() gives page 0
+            self.scene_cache = SceneCache(
+                budget_bytes=config.scene_cache_bytes, max_entries=k)
+            self._num_uploads = 0
+            self._uploaded_bytes = 0
+            # the staged slot->page map, re-uploaded only when it changes
+            self._scene_sig: Optional[Tuple[int, ...]] = None
+            self._scene_of_seg = torch.zeros((k,), dtype=torch.int32,
+                                             device=self.device)
 
     # ------------------------------------------------------------------
     def _effective(self, sess: RenderSession) -> Tuple[int, int]:
@@ -182,19 +233,91 @@ class RenderServeEngine:
                 | {slot.session.sid for slot in self.slots
                    if slot is not None})
 
+    # ------------------------------------------------------------------
+    # multi-scene paging
+    # ------------------------------------------------------------------
+    def _pinned_scenes(self) -> set:
+        """Scene keys whose pages live slots hold: never evictable."""
+        return {slot.scene_key for slot in self.slots if slot is not None}
+
+    def _recycle(self, evicted: List[tuple]) -> None:
+        self._free_pages.extend(page for _key, page in evicted if page >= 0)
+
+    def _page_of(self, skey: Optional[str], pinned: set) -> int:
+        """Resolve ``skey`` to its device page, paging it in on a miss.
+
+        A hit uploads nothing. A miss recycles the least recently used
+        unpinned scene's page (a placeholder entry lets the cache's own
+        LRU and pin rules choose the victim) and uploads exactly one dense
+        table into it; the halo re-layout is built on the device. The
+        page is written in place on the current stream (see the module
+        docstring)."""
+        page = self.scene_cache.get(skey)
+        if page is not None:
+            return page
+        if not self._free_pages:
+            self._recycle(self.scene_cache.put(skey, -1, 0, pinned=pinned))
+            if not self._free_pages:
+                raise RuntimeError(
+                    "scene cache exhausted: every page is pinned by a live "
+                    "slot (more distinct scenes in flight than num_slots "
+                    "pages — should be unreachable, slots == pages)")
+        page = self._free_pages.pop()
+        if skey is None:
+            table, mv = self._default_table, self._default_mv
+        else:
+            loaded = self.scene_loader(skey)
+            table = loaded["table"] if isinstance(loaded, dict) else loaded
+            if not isinstance(table, torch.Tensor):
+                table = torch.as_tensor(np.asarray(table))
+            table = table.to(device=self.device,
+                             dtype=self._default_table.dtype)
+            if table.shape != self._default_table.shape:
+                raise ValueError(
+                    f"scene {skey!r}: table shape {tuple(table.shape)} "
+                    f"differs from the engine's page shape "
+                    f"{tuple(self._default_table.shape)} (all scenes share "
+                    f"one grid geometry)")
+            mv = streaming.build_mvoxel_table(
+                table, self.engine.model.streaming_cfg)
+        self._table_stack[page].copy_(table)
+        self._mv_stack[page].copy_(mv)
+        nbytes = (table.numel() * table.element_size()
+                  + mv.numel() * mv.element_size())
+        self._num_uploads += 1
+        self._uploaded_bytes += nbytes
+        self._recycle(self.scene_cache.put(skey, page, nbytes,
+                                           pinned=pinned))
+        return page
+
+    def _stage_scene_map(self) -> None:
+        """Re-upload the slot->page map iff it changed (admit, drain,
+        repage), then point the device engine at the stacked params; a
+        steady-state tick uploads nothing and reads nothing back."""
+        sig = tuple(slot.page if slot is not None else 0
+                    for slot in self.slots)
+        if sig != self._scene_sig:
+            self._scene_sig = sig
+            self._scene_of_seg = torch.tensor(sig, dtype=torch.int32,
+                                              device=self.device)
+        self.engine.params = dict(
+            self._base_params, table=self._table_stack,
+            mv_table=self._mv_stack, scene_of_seg=self._scene_of_seg)
+
     def submit(self, sessions: List[RenderSession]) -> None:
         """Queue sessions for admission. The whole batch is validated
         before any state changes; duplicate sids (within the batch or
-        against a queued or in-slot session) are rejected."""
+        against a queued or in-slot session) are rejected, as is a scene
+        on an engine without a ``scene_loader``."""
         live = self._live_sids()
         batch_sids = set()
         for sess in sessions:
             self._effective(sess)
-            if sess.scene is not None:
+            if sess.scene is not None and not self.multi_scene:
                 raise ValueError(
                     f"session {sess.sid}: scene={sess.scene!r} but the "
-                    f"engine has no scene_loader (multi-scene serving is "
-                    f"not ported)")
+                    f"engine has no scene_loader (construct with "
+                    f"scene_loader=... for multi-scene serving)")
             if sess.sid in live or sess.sid in batch_sids:
                 raise ValueError(
                     f"session sid {sess.sid} duplicates a live session "
@@ -238,6 +361,12 @@ class RenderServeEngine:
                         fixed=(sess.pool_bucket
                                if sess.pool_bucket is not None
                                else cfg.pool_bucket)))
+                if self.multi_scene:
+                    # page the scene in now (upload on a miss); occupied
+                    # slots pin their pages, so admission never steals one
+                    slot.scene_key = sess.scene
+                    slot.page = self._page_of(sess.scene,
+                                              self._pinned_scenes())
                 if self.fused:
                     slot.ref_pose = slot.extrapolator.next_reference(
                         sess.poses[:win])
@@ -316,6 +445,8 @@ class RenderServeEngine:
         self._queue_depth_log.append(len(self.queue))
         self._occupancy_log.append(occupied)
         self._stage_slot_masks()
+        if self.multi_scene:
+            self._stage_scene_map()
         if self.fused:
             self._prime_admitted(newly)
 
@@ -426,7 +557,8 @@ class RenderServeEngine:
     def run(self, sessions: List[RenderSession], max_ticks: int = 10_000
             ) -> Dict[str, object]:
         """Serve ``sessions`` to completion; returns aggregate metrics
-        (the reference's keys; ``scene_cache`` is None and ``devices`` 1).
+        (the reference's keys; ``scene_cache`` is None on a single-scene
+        engine, and ``devices`` 1).
 
         The loop dispatches tick t+1 before waiting for tick t, and drains
         completed ticks as it goes."""
@@ -437,6 +569,7 @@ class RenderServeEngine:
         adm_start = self._num_admission_ticks
         qd_start = len(self._queue_depth_log)
         shed_start = self._num_shed
+        sc_start = self._scene_counters() if self.multi_scene else None
         t0 = time.time()
         in_flight = None  # (dispatch_t0, assignments, done event)
         while self.num_ticks - start_ticks < max_ticks:
@@ -482,6 +615,20 @@ class RenderServeEngine:
                                if occs else 0.0),
             "active_slot_ticks": int(sum(occs)),
         }
+        # scene-cache spend of THIS run: lifetime counters snapshotted at
+        # entry, as for pool.recompiles
+        scene_metrics = None
+        if self.multi_scene:
+            end = self._scene_counters()
+            scene_metrics = {
+                k: end[k] - sc_start[k]
+                for k in ("hits", "misses", "evictions", "evicted_bytes",
+                          "uploads", "uploaded_bytes")}
+            looked = scene_metrics["hits"] + scene_metrics["misses"]
+            scene_metrics["hit_rate"] = scene_metrics["hits"] / max(looked, 1)
+            scene_metrics["resident_bytes"] = end["resident_bytes"]
+            scene_metrics["resident_scenes"] = end["entries"]
+            scene_metrics["budget_bytes"] = self.config.scene_cache_bytes
         engine = self.engine
         ns = engine.model.cfg.num_samples
         fixed_spt = self.num_slots * self.window * engine.hole_cap * ns
@@ -536,6 +683,10 @@ class RenderServeEngine:
             "memory": memory_metrics,
             "queue": queue_metrics,
             "slots": slot_metrics,
-            "scene_cache": None,
+            "scene_cache": scene_metrics,
             "devices": 1,
         }
+
+    def _scene_counters(self) -> Dict[str, float]:
+        return dict(self.scene_cache.counters(), uploads=self._num_uploads,
+                    uploaded_bytes=self._uploaded_bytes)

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch import api, convert
 from repro_torch.core.config import RenderConfig
-from repro_torch.kernels import fused_nerf_mlp, gather_trilerp
+from repro_torch.kernels import fused_nerf_mlp, gather_trilerp, \
+    streaming_pipeline
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -51,8 +52,10 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_kernels_are_not_built_at_import():
-    assert gather_trilerp.KERNEL._lib is None
-    assert fused_nerf_mlp.KERNEL._lib is None
+    for kernel in (gather_trilerp.KERNEL, gather_trilerp.KERNEL_PER_SEG,
+                   fused_nerf_mlp.KERNEL, streaming_pipeline.KERNEL,
+                   streaming_pipeline.KERNEL_PER_SEG):
+        assert kernel._lib is None
 
 
 def test_chip_smoke_fails_without_card_or_repository(tmp_path):
