@@ -21,9 +21,18 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    the first tick of arm E's mixed-scene serving run builds (captured from
    its admission priming and its fused sweep), float32 and bfloat16, both
    layouts, also bit for bit against B1 (B4) and B3 (B5) run on each
-   segment's page. Tolerances are the reference's kernel tolerances:
-   atol 2e-5 / rtol 1e-5 (float32), 3e-2 (bfloat16);
-4. run four arms end to end through ``repro_torch.api`` with every launch
+   segment's page; flash attention (B6) at arm F's first prefill
+   ([1, 40, 2048, 128] against [1, 8, 2048, 128], causal, bfloat16 and
+   float32) and first decode tick ([4, 40, 1, 128] against the
+   [4, 8, 2084, 128] cache, kv_len 2049, bfloat16 and float32), a ragged
+   prefill (S = 1000) through ``ops.mha`` and a top-left causal
+   sq = 64, sk = 128 case, and the decode shape with Sq = 2, which runs it
+   through the tile kernel instead of the decode kernel. Tolerances are the
+   reference's kernel tolerances: atol 2e-5 / rtol 1e-5 (float32;
+   attention 2e-5 / 1e-4), 3e-2 (bfloat16; attention atol 8e-3 / rtol
+   1e-2, a few bfloat16 steps at the outputs' scale);
+4. run the render arms A-E end to end through ``repro_torch.api`` (arm F,
+   LM serving, below) with every launch
    count set to 0 just before and read just after; each arm is held
    against the same port run on the CPU (which runs the plain versions):
    every frame >= 40 dB PSNR, equal reference renders and frame counts,
@@ -59,16 +68,43 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    A further, profiled run of each arm (``torch.profiler``) reports the
    device's busy share of the wall time and the busiest kernels and ops
    (for arms D and E also the ops with the most device time by input
-   shape);
+   shape).
+   Arm F: LM serving, ``repro_torch.serve.ServeEngine`` on qwen2.5-32b at
+   full width (d_model 5120, 40 query and 8 KV heads, d_ff 27648, vocab
+   152064, QKV bias), 16 of its 64 layers, bfloat16, random weights from
+   ``torch.Generator`` seed 0 at the reference's scales, QKV biases drawn
+   non-zero; 8 requests (prompts of 2048, 1536, 1024, 512, 1792, 768,
+   1280 and 256 tokens, 32 new tokens each) on 4 slots, max_len 2084,
+   served cold, then warm, then profiled. B6 must launch 16 x (8 prefills
+   + decode ticks) times and nothing else. F2 (``f2_check``): each
+   request's prefill is rerun with B6 while every layer's B6 output is held
+   against the plain version on the same q/k/v (atol 8e-3 / rtol 1e-2),
+   and its logits must come no further from the same prefill with float64
+   attention (``attention_reference``) than 1.5x the plain version's max
+   and 1.25x its RMS distance (the plain version already sits about 0.05
+   max abs from it at 16 bfloat16 layers, so a fixed 3e-2 bound against the
+   plain version is recorded, not required). F2 is then run with three
+   planted faults in B6's place (a key-tile loop one tile short, a strict
+   causal test, query head h reading KV head h % KVH) and must fail for
+   each on every request; two lower-precision attentions (scores, or P
+   and V, in bfloat16) are recorded.
+   F1: the same engine at the same width with 2 layers in float32 serves
+   prompts of 64, 48, 40 and 32 tokens on 2 slots (slots reused at
+   unequal positions, so the shared decode index matters) on the card and
+   on the CPU: equal token streams and stats, prefill logits within
+   1e-3;
 5. time each kernel and its plain version at the arms' shapes (device
    time from CUDA events, see ``time_ms``) beside the least time the card
-   could take, and print them as one JSON line, then the arms' wall times;
+   could take (B6 also beside ``scaled_dot_product_attention`` on the
+   same tensors, the library yardstick), and print them as one JSON line,
+   then the arms' wall times and each phase's seconds;
 6. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -149,7 +185,11 @@ def profile_run(fn) -> dict:
     top = lambda evs, key: [
         {"name": e.key[:70], "count": e.count, "us": getattr(e, key)}
         for e in sorted(evs, key=lambda e: -getattr(e, key))[:8]]
+    launch = [e for e in stats if e.key == "cudaLaunchKernel"]
     return {"profiled_wall_us": wall_us,
+            "host_cuda_launch_kernel": {
+                "count": sum(e.count for e in launch),
+                "us": sum(e.self_cpu_time_total for e in launch)},
             "device_busy_us": busy_us if dev else "not measured",
             "device_busy_share": busy_us / wall_us if dev else None,
             "device_events": sum(e.count for e in dev),
@@ -281,6 +321,246 @@ def arm_b_params(seed: int = 0) -> dict:
                         "w_sigma": normal(h, 1),
                         "w_rgb": normal(h + 9, 3), "b_rgb": f32(np.zeros(3))}}
 
+# Arm F: LM serving at qwen2.5-32b's full width, depth cut to 16 of 64
+# layers, random weights; 8 requests on 4 slots.
+LM_ARCH = "qwen2.5-32b"
+LM_LAYERS = 16
+LM_PROMPTS = [2048, 1536, 1024, 512, 1792, 768, 1280, 256]
+LM_MAX_NEW = 32
+LM_SLOTS = 4
+LM_MAX_LEN = 2048 + 32 + 4
+# F1: the same engine at the same width, 2 layers, float32, card vs CPU
+F1_LAYERS = 2
+F1_PROMPTS = [64, 48, 40, 32]
+F1_SLOTS = 2
+F1_MAX_NEW = 8
+# float32 on two devices: sums over 5,120-27,648 terms in other orders
+F1_TOL = dict(atol=1e-3, rtol=1e-3)
+# the attention tolerance of the reference's tests (tests/test_kernels.py)
+ATTN_F32_TOL = dict(atol=2e-5, rtol=1e-4)
+# bfloat16 attention: a few bfloat16 steps at the outputs' scale (one step
+# is 2**-8 of a value; randn q/k/v give outputs of about 0.04-1)
+B6_BF16_TOL = dict(atol=8e-3, rtol=1e-2)
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+
+
+def lm_model(num_layers: int, dtype: str, seed: int, device):
+    """``LM_ARCH`` at ``num_layers`` with random weights at the reference's
+    scales from a ``torch.Generator``, its QKV biases drawn non-zero
+    (N(0, 0.5^2)) so that the bias path carries weight."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.models.common import ninit
+
+    cfg = registry.get(LM_ARCH).with_(num_layers=num_layers, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = lm.init_params(cfg, gen, device)
+    for layer in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            b = layer["mixer"][name]
+            b.copy_(ninit(gen, b.shape, 0.5, b.dtype))
+    return cfg, params
+
+
+def lm_requests(lengths, vocab: int, max_new: int, seed: int = 0) -> list:
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, size=n).astype(np.int32)
+               for n in lengths]
+    return [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+
+
+def serve_lm(cfg, params, requests, num_slots: int, max_len: int, device):
+    """One ``ServeEngine.run`` over ``requests``, recording each prefill's
+    logits (cloned), each request's prefill seconds and time to first token
+    (its greedy token is read on the host, which waits for the device), and
+    the decode ticks. Returns (stats, wall seconds, record)."""
+    import torch
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, num_slots=num_slots, max_len=max_len,
+                      device=device)
+    rec = {"logits": [], "prefill_s": [], "ttft_s": [], "decode_ticks": 0}
+    prefill, assign, decode = eng.prefill, eng._assign, eng.decode
+
+    def spy_prefill(p, batch):
+        logits, caches = prefill(p, batch)
+        rec["logits"].append(logits.clone())
+        return logits, caches
+
+    def spy_assign(req, slot):
+        t = time.perf_counter()
+        assign(req, slot)
+        now = time.perf_counter()
+        rec["prefill_s"].append(now - t)
+        rec["ttft_s"].append(now - t0)
+
+    def spy_decode(*args):
+        rec["decode_ticks"] += 1
+        return decode(*args)
+
+    eng.prefill, eng._assign, eng.decode = spy_prefill, spy_assign, spy_decode
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        stats = eng.run(requests)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        # the spy holds a bound method of eng: without this the cycle keeps
+        # the engine, its caches and its weights alive until a gc pass
+        del eng._assign
+    return stats, time.perf_counter() - t0, rec
+
+
+# F2's controls: attentions F2 is run with in place of B6, to show what it
+# can see. The planted faults are bugs a kernel could have (a key-tile loop
+# one tile short, a strict causal test, the wrong KV head for a query
+# head): F2 must come out false for each, on every request. The
+# lower-precision ones (scores, or P and V, in bfloat16) are recorded.
+F2_FAULTS = ("diag_tile_dropped", "strict_causal", "gqa_modulo")
+F2_PRECISION = ("bf16_scores", "bf16_pv")
+
+
+def attention_reference(q, k, v, *, causal=True, sm_scale=None, kv_len=None,
+                        acc="float64", fault=None):
+    """B6's function with scores, softmax and sums in ``acc`` (float64 by
+    default, the reference F2 holds the kernel and its plain version
+    against), rounded once to ``q``'s dtype; ``fault`` plants one of F2's
+    controls (``F2_FAULTS``, ``F2_PRECISION``). A check harness: the port
+    never calls it."""
+    import torch
+
+    acc = getattr(torch, acc)
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    kv_len = sk if kv_len is None else kv_len
+    sm_scale = d**-0.5 if sm_scale is None else sm_scale
+    if fault == "gqa_modulo":  # query head h reads KV head h % KVH
+        heads = torch.arange(h, device=q.device) % kvh
+        k, v = k[:, heads], v[:, heads]
+        kvh, g = h, 1
+    s = (q.to(acc).reshape(b, kvh, g * sq, d)
+         @ k.to(acc).transpose(-1, -2)) * sm_scale
+    if fault == "bf16_scores":
+        s = s.to(torch.bfloat16).to(acc)
+    s = s.reshape(b, kvh, g, sq, sk)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    valid = kpos < kv_len
+    if causal:
+        valid = valid & ((qpos > kpos) if fault == "strict_causal"
+                         else (qpos >= kpos))
+    if fault == "diag_tile_dropped":  # each row loses its own 32-key tile
+        valid = valid & (kpos < qpos // 32 * 32)
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).reshape(b, kvh, g * sq, sk)
+    if fault == "bf16_pv":
+        o = (p.to(torch.bfloat16) @ v.to(torch.bfloat16)).to(acc)
+    else:
+        o = p @ v.to(acc)
+    return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def _prefill_with(cfg, params, request, max_len: int, attend):
+    """One prefill of ``request`` with ``attend`` in ``flash_attention``'s
+    place; returns its logits."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+
+    tokens = torch.as_tensor(request.prompt[None].astype(np.int64),
+                             device=params["embed"].device)
+    real = fa.flash_attention
+    fa.flash_attention = attend
+    try:
+        logits, _ = lm.make_prefill_step(cfg, max_len)(params,
+                                                       {"tokens": tokens})
+    finally:
+        fa.flash_attention = real
+    return logits
+
+
+def f2_references(cfg, params, requests, max_len: int) -> list:
+    """Each request's prefill logits with the plain version and with
+    float64 attention: what ``f2_check`` holds an attention against."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return [{name: _prefill_with(cfg, params, r, max_len, fn)
+             for name, fn in (("plain", fa.flash_attention_plain),
+                              ("f64", attention_reference))} for r in requests]
+
+
+def f2_check(cfg, params, requests, refs, max_len: int, tol: dict,
+             attend=None, served=None) -> list:
+    """F2 for one attention, ``attend`` (default: ``flash_attention`` as the
+    path calls it; else one of F2's controls). Each request's prefill is
+    rerun on the card with ``attend`` in the path's place, spying on every
+    layer's call to hold its output against the plain version on the same
+    q/k/v within ``tol``. F2 holds for a request when every layer's
+    attention is within ``tol`` and the logits come no further from the
+    float64 prefill (``refs``, from ``f2_references``) than 1.5x the plain
+    version's max (at least 3e-2) and 1.25x its RMS distance (at least
+    1e-3). ``served``: the logits the engine's prefills gave, recorded as
+    equal to the rerun or not. The logit distance alone misses attention
+    faults that the model's bfloat16 rounding hides (random weights make
+    attention nearly uniform); the per-layer comparison does not. Returns
+    one row per request."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    attend = fa.flash_attention if attend is None else attend
+    dist = lambda a, b: (float((a - b).abs().max()),
+                         float((a - b).pow(2).mean().sqrt()))
+    rows = []
+    for i, (r, ref) in enumerate(zip(requests, refs)):
+        layer = {"err": 0.0, "ok": True}
+
+        def spy(q, k, v, **kw):
+            out = attend(q, k, v, **kw).float()
+            want = fa.flash_attention_plain(q, k, v, **kw).float()
+            layer["err"] = max(layer["err"], float((out - want).abs().max()))
+            layer["ok"] &= bool(torch.allclose(out, want, **tol))
+            return out.to(q.dtype)
+
+        got = _prefill_with(cfg, params, r, max_len, spy)
+        (k_max, k_rms), (p_max, p_rms) = (dist(got, ref["f64"]),
+                                          dist(ref["plain"], ref["f64"]))
+        limits = [max(3e-2, 1.5 * p_max), max(1e-3, 1.25 * p_rms)]
+        logits_ok = k_max <= limits[0] and k_rms <= limits[1]
+        rows.append({
+            "rid": r.rid, "prompt": len(r.prompt),
+            "layers_max_abs_err": layer["err"], "layers_ok": layer["ok"],
+            "vs_f64_max_rms": [k_max, k_rms],
+            "plain_vs_f64_max_rms": [p_max, p_rms],
+            "limits_max_rms": limits, "logits_ok": logits_ok,
+            "holds": layer["ok"] and logits_ok,
+            "max_abs_err_vs_plain": dist(got, ref["plain"])[0],
+            "within_3e-2_of_plain": bool(torch.allclose(
+                got, ref["plain"], atol=3e-2, rtol=3e-2)),
+            "equal_to_served": (None if served is None
+                                else bool(torch.equal(got, served[i])))})
+    return rows
+
+
+def b6_cost(b, h, kvh, sq, kv_len, d, causal, elem_bytes):
+    """Bytes and flops the attention needs: q and o once, the kv_len rows
+    of K and V once; two products of 2 flops per multiply-add, the causal
+    triangle (top-left, queries 0..sq-1 over keys 0..kv_len-1) only."""
+    nbytes = (2 * b * h * sq * d + 2 * b * kvh * kv_len * d) * elem_bytes
+    if causal:
+        pairs = sum(min(i + 1, kv_len) for i in range(sq))
+    else:
+        pairs = sq * kv_len
+    return nbytes, 2 * 2 * b * h * pairs * d
+
 
 def main() -> int:
     import math
@@ -296,6 +576,7 @@ def main() -> int:
     from repro_torch.core.engine import DeviceSparwEngine
     from repro_torch.core.pipeline import orbit_trajectory
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import fused_nerf_mlp as mlp_k
     from repro_torch.kernels import gather_trilerp as gt_k
     from repro_torch.kernels import streaming_pipeline as sp_k
@@ -307,7 +588,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernels = [gt_k.KERNEL, mlp_k.KERNEL, sp_k.KERNEL, gt_k.KERNEL_PER_SEG,
-               sp_k.KERNEL_PER_SEG]
+               sp_k.KERNEL_PER_SEG, fa_k.KERNEL]
+    phase_s = {}
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
 
     # 1. the card ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -318,6 +607,7 @@ def main() -> int:
     print(f"device: {kind} (count {torch.cuda.device_count()})")
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phase_done("card")
 
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -328,6 +618,8 @@ def main() -> int:
         for line in k.log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {k.name}: {line.strip()}")
+
+    phase_done("build")
 
     # main-path inputs: the first reference chunk of each arm (the staged
     # engine renders a res-64 reference in chunks of ceil(4096 / 2) rays)
@@ -500,7 +792,72 @@ def main() -> int:
           f"{per_seg_bit_equal}")
     if not per_seg_bit_equal:
         fail("B4 or B5 differs from B1 / B3 run on a segment's page")
+    # B6 at the shapes arm F gives it (its first prefill, 2,048 tokens, and
+    # its first decode tick, 4 slots at index 2,048 of a 2,084-row cache),
+    # a ragged prefill through ops.mha (kv_len masks the padding) and a
+    # top-left causal sq < sk case; the library yardstick is SDPA on the
+    # same tensors (decode: on the cache cut to kv_len)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen6 = torch.Generator(device=dev).manual_seed(6)
+
+    def qkv(b, sq, sk, dtype):
+        rnd = lambda *shape: torch.randn(shape, generator=gen6, device=dev,
+                                         dtype=torch.float32).to(dtype)
+        return rnd(b, 40, sq, 128), rnd(b, 8, sk, 128), rnd(b, 8, sk, 128)
+
+    b6_cases = []
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = qkv(1, 2048, 2048, dt)
+        b6_cases.append((f"prefill {tag} q {list(q.shape)} k/v "
+                         f"{list(k.shape)} causal", (q, k, v),
+                         dict(causal=True), "flash",
+                         lambda q=q, k=k, v=v: sdpa(q, k, v, is_causal=True,
+                                                    enable_gqa=True),
+                         b6_cost(1, 40, 8, 2048, 2048, 128, True,
+                                 q.element_size())))
+    q, k, v = qkv(1, 1000, 1000, torch.bfloat16)
+    b6_cases.append(("ragged prefill bf16 S=1000 through ops.mha (padded to "
+                     "1024, kv_len 1000)", (q, k, v), dict(causal=True),
+                     "mha", lambda q=q, k=k, v=v: sdpa(
+                         q, k, v, is_causal=True, enable_gqa=True),
+                     b6_cost(1, 40, 8, 1000, 1000, 128, True, 2)))
+    q, k, v = qkv(1, 64, 128, torch.bfloat16)
+    b6_cases.append(("top-left causal bf16 sq=64 sk=128", (q, k, v),
+                     dict(causal=True), "flash",
+                     lambda q=q, k=k, v=v: sdpa(q, k, v, is_causal=True,
+                                                enable_gqa=True),
+                     b6_cost(1, 40, 8, 64, 128, 128, True, 2)))
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = qkv(LM_SLOTS, 1, LM_MAX_LEN, dt)
+        b6_cases.append((f"decode {tag} q {list(q.shape)} cache "
+                         f"{list(k.shape)} kv_len 2049", (q, k, v),
+                         dict(causal=False, kv_len=2049), "flash",
+                         lambda q=q, k=k, v=v: sdpa(
+                             q, k[:, :, :2049], v[:, :, :2049],
+                             enable_gqa=True),
+                         b6_cost(LM_SLOTS, 40, 8, 1, 2049, 128, False,
+                                 q.element_size())))
+    # the same decode through the tile kernel: Sq = 2 takes the tile branch
+    # and does Sq = 1's work (one 64-row query block against the same key
+    # tiles), which tells whether the decode kernel earns its place
+    q, k, v = qkv(LM_SLOTS, 2, LM_MAX_LEN, torch.bfloat16)
+    b6_cases.append(("decode shape through the tile kernel, bf16 q "
+                     f"{list(q.shape)} (Sq=2) cache {list(k.shape)} kv_len "
+                     "2049", (q, k, v), dict(causal=False, kv_len=2049),
+                     "flash", lambda q=q, k=k, v=v: sdpa(
+                         q, k[:, :, :2049], v[:, :, :2049], enable_gqa=True),
+                     b6_cost(LM_SLOTS, 40, 8, 2, 2049, 128, False, 2)))
+    errs["B6"] = errs["B6_bf16"] = 0.0
+    for name, (q, k, v), kw, via, _, _ in b6_cases:
+        got = (ops.mha(q, k, v, **kw) if via == "mha"
+               else fa_k.flash_attention(q, k, v, **kw))
+        want = fa_k.flash_attention_plain(q, k, v, **kw)
+        bf = q.dtype == torch.bfloat16
+        key = "B6_bf16" if bf else "B6"
+        errs[key] = max(errs[key], check_close(
+            f"B6 {name}", got, want, B6_BF16_TOL if bf else ATTN_F32_TOL))
     torch.cuda.synchronize()
+    phase_done("kernel checks")
 
     # 4. the arms, end to end ---------------------------------------------
     def reset():
@@ -724,9 +1081,146 @@ def main() -> int:
                 staged_db, "launches_fused": l_f, "launches_staged": l_s,
                 "fused_wall_s": m_f["wall_s"], "staged_wall_s": m_s["wall_s"]}}
 
+
+    def to_dev(tree, device):
+        if isinstance(tree, dict):
+            return {k: to_dev(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_dev(v, device) for v in tree]
+        return tree.to(device)
+
+    def tree_bytes(tree):
+        if isinstance(tree, dict):
+            return sum(tree_bytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(tree_bytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    def run_lm_arm():
+        """Arm F: LM serving (see the module docstring)."""
+        cpu = torch.device("cpu")
+        # F1: 2 layers at full width in float32, the card against the CPU
+        cfg1, p1 = lm_model(F1_LAYERS, "float32", 1, dev)
+        p1_cpu = to_dev(p1, cpu)
+        f1_len = max(F1_PROMPTS) + F1_MAX_NEW + 4
+        reqs_g = lm_requests(F1_PROMPTS, cfg1.vocab_size, F1_MAX_NEW, 1)
+        reset()
+        st_g, wall_g, rec_g = serve_lm(cfg1, p1, reqs_g, F1_SLOTS, f1_len,
+                                       dev)
+        f1_launches = counts()
+        del p1
+        torch.cuda.empty_cache()
+        reqs_c = lm_requests(F1_PROMPTS, cfg1.vocab_size, F1_MAX_NEW, 1)
+        st_c, wall_c, rec_c = serve_lm(cfg1, p1_cpu, reqs_c, F1_SLOTS,
+                                       f1_len, cpu)
+        del p1_cpu
+        streams_g, streams_c = [r.out for r in reqs_g], [r.out for r in reqs_c]
+        if st_g != st_c or streams_g != streams_c:
+            fail(f"F1: card stats {st_g} streams {streams_g} vs CPU {st_c} "
+                 f"{streams_c}")
+        if f1_launches["flash_attention"] != F1_LAYERS * (
+                len(F1_PROMPTS) + st_g["ticks"]):
+            fail(f"F1: B6 launched {f1_launches['flash_attention']} times "
+                 f"for {st_g['ticks']} ticks")
+        f1_err = max(check_close(
+            f"F1 request {i} prefill logits, card vs CPU (float32)",
+            a.cpu(), b, F1_TOL)
+            for i, (a, b) in enumerate(zip(rec_g["logits"], rec_c["logits"])))
+        f1 = {"layers": F1_LAYERS, "dtype": "float32", "prompts": F1_PROMPTS,
+              "slots": F1_SLOTS, "max_new": F1_MAX_NEW, "stats": st_g,
+              "streams": streams_g, "launches": f1_launches,
+              "max_abs_err_prefill_logits": f1_err, "card_wall_s": wall_g,
+              "cpu_wall_s": wall_c}
+
+        # the full arm: 16 layers at full width in bfloat16
+        cfg, params = lm_model(LM_LAYERS, "bfloat16", 0, dev)
+        weight_bytes = tree_bytes(params)
+        fleet = lambda: lm_requests(LM_PROMPTS, cfg.vocab_size, LM_MAX_NEW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        cold = fleet()
+        st_cold, wall_cold, rec_cold = serve_lm(cfg, params, cold, LM_SLOTS,
+                                                LM_MAX_LEN, dev)
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        ticks = st_cold["ticks"]
+        want_b6 = LM_LAYERS * (len(LM_PROMPTS) + ticks)
+        if launches["flash_attention"] != want_b6 \
+                or rec_cold["decode_ticks"] != ticks \
+                or any(n for name, n in launches.items()
+                       if name != "flash_attention"):
+            fail(f"arm F: launches {launches} for {ticks} decode ticks "
+                 f"(B6 {LM_LAYERS} x (8 prefills + ticks) = {want_b6})")
+        for r in cold:
+            if len(r.out) != LM_MAX_NEW or not r.done \
+                    or min(r.out) < 0 or max(r.out) >= cfg.vocab_size:
+                fail(f"arm F: request {r.rid} produced {r.out}")
+        for lg in rec_cold["logits"]:
+            if lg.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all():
+                fail("arm F: prefill logits not finite [1, vocab]")
+        # F2 (see f2_check), then each control in B6's place: F2 must come
+        # out false for every planted fault on every request
+        refs = f2_references(cfg, params, cold, LM_MAX_LEN)
+        f2 = {"tolerance": B6_BF16_TOL,
+              "B6": f2_check(cfg, params, cold, refs, LM_MAX_LEN,
+                             B6_BF16_TOL, served=rec_cold["logits"])}
+        for kind in F2_FAULTS + F2_PRECISION:
+            f2[kind] = f2_check(
+                cfg, params, cold, refs, LM_MAX_LEN, B6_BF16_TOL,
+                attend=functools.partial(attention_reference, acc="float32",
+                                         fault=kind))
+        for kind, rows in f2.items():
+            if kind != "tolerance":
+                for row in rows:
+                    print(f"F2 {kind} {json.dumps(row)}")
+        del refs
+        if not all(row["holds"] for row in f2["B6"]):
+            fail("F2: B6's prefill attention or logits are further from the "
+                 "plain version or the float64 prefill than the limits allow "
+                 f"(rows {f2['B6']})")
+        for kind in F2_FAULTS:
+            if any(row["holds"] for row in f2[kind]):
+                fail(f"F2 cannot see the planted fault {kind}: it held for "
+                     f"{[row['rid'] for row in f2[kind] if row['holds']]}")
+        warm = fleet()
+        st_warm, wall_warm, rec_warm = serve_lm(cfg, params, warm, LM_SLOTS,
+                                                LM_MAX_LEN, dev)
+        generated = sum(len(r.out) for r in warm)
+        prefill_s = sum(rec_warm["prefill_s"])
+        kv_bytes = (LM_LAYERS * 2 * LM_SLOTS * cfg.num_kv_heads * LM_MAX_LEN
+                    * cfg.head_dim * 2)
+        prof = profile_run(lambda: serve_lm(cfg, params, fleet(), LM_SLOTS,
+                                            LM_MAX_LEN, dev))
+        del params
+        torch.cuda.empty_cache()
+        return {
+            "model": f"{LM_ARCH} full width, {LM_LAYERS} of 64 layers, "
+                     "bfloat16, random weights (seed 0), QKV biases drawn",
+            "requests": len(LM_PROMPTS), "prompt_lengths": LM_PROMPTS,
+            "max_new": LM_MAX_NEW, "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+            "ticks": ticks, "tokens_computed": st_cold["tokens_computed"],
+            "reuse_ratio": st_cold["reuse_ratio"], "launches": launches,
+            "b6_launches_expected": want_b6,
+            "cold_wall_s": wall_cold, "warm_wall_s": wall_warm,
+            "generated_tokens": generated,
+            "generated_tok_per_s": generated / wall_warm,
+            "prefill_prompt_tok_per_s": sum(LM_PROMPTS) / prefill_s,
+            "prefill_s": rec_warm["prefill_s"], "ttft_s": rec_warm["ttft_s"],
+            "ttft_cold_s": rec_cold["ttft_s"],
+            "decode_s_per_tick": (wall_warm - prefill_s) / st_warm["ticks"],
+            "warm_streams_equal_cold": [r.out for r in warm]
+            == [r.out for r in cold],
+            "weight_bytes": weight_bytes, "kv_cache_bytes": kv_bytes,
+            "max_memory_allocated": peak, "profile": prof,
+            "F1": f1, "F2": f2}
+
     arms = {"A": run_arm("A", cfg_a, 32)}
+    phase_done("arm A")
     arms["B"] = run_arm("B", cfg_b, 16, model_b, np_params_b)
+    phase_done("arm B")
     arms["C"] = run_arm("C", cfg_c, 32)
+    phase_done("arm C")
     fused_frames, arms["D"], fleet = run_serving_arm("D", cfg_d, 6, 32)
     if arms["A"]["launches"]["gather_trilerp"] == 0:
         fail("arm A never launched the Gathering Unit kernel")
@@ -759,7 +1253,11 @@ def main() -> int:
         "min_psnr_vs_fused_db": worst, "cold_wall_s": m_staged["wall_s"],
         "warm_wall_s": m_staged_warm["wall_s"],
         "warm_fps": m_staged_warm["aggregate_fps"]}
+    phase_done("arm D")
     arms["E"] = run_scenes_arm(cfg_e, 12, 32)
+    phase_done("arm E")
+    arms["F"] = run_lm_arm()
+    phase_done("arm F")
     for name, arm in arms.items():
         print(f"arm {name}: {json.dumps(arm)}")
     print(f"B1 launches: arm A {arms['A']['launches']['gather_trilerp']} "
@@ -771,6 +1269,13 @@ def main() -> int:
     print(f"arm E multi-scene serving: warm {m_warm_line(arms['E'])}; "
           f"scene cache {arms['E']['scene_cache']}; launches "
           f"{arms['E']['launches']}")
+    f = arms["F"]
+    print(f"arm F LM serving: warm {f['warm_wall_s']:.3f} s (cold "
+          f"{f['cold_wall_s']:.3f} s), {f['generated_tok_per_s']:.1f} "
+          f"generated tok/s, prefill {f['prefill_prompt_tok_per_s']:.0f} "
+          f"prompt tok/s, {f['ticks']} ticks, B6 launches "
+          f"{f['launches']['flash_attention']}, peak "
+          f"{f['max_memory_allocated'] / 1e9:.2f} GB")
 
     # 5. timings beside the bounds ----------------------------------------
     def b1_cost(tbl, ids, w):
@@ -814,13 +1319,16 @@ def main() -> int:
                   * pages.element_size() + scn.numel() * 4)
         return bh + br - shared, fh + fr  # pages and map read once
 
-    def timed(kernel_fn, plain_fn, nbytes, flops, shape):
-        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S)
+    def timed(kernel_fn, plain_fn, nbytes, flops, shape,
+              flop_rate=FP32_FLOP_PER_S, library_fn=None):
+        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / flop_rate)
         return {"shape": shape, "ms": time_ms(kernel_fn),
                 "plain_ms": time_ms(plain_fn), "bound_ms": bound_s * 1e3,
                 "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                             >= flops / FP32_FLOP_PER_S else "operations"),
-                "bytes": nbytes, "flops": flops}
+                             >= flops / flop_rate else "operations"),
+                "bytes": nbytes, "flops": flops,
+                "library_ms": (None if library_fn is None
+                               else time_ms(library_fn))}
 
     t_b1 = [timed(lambda a=a: gt_k.gather_trilerp_mvoxels(*a),
                   lambda a=a: gt_k.gather_trilerp_plain(*a, 1),
@@ -869,6 +1377,17 @@ def main() -> int:
         b5_cost, sp_k.fused_gather_dual, sp_k.fused_gather_dual_plain,
         b3_cost, b5_args, ns5,
         f"holes {list(b5_args[2].shape)} refs {list(b5_args[4].shape)}")
+    # B6: bf16 at the tensor-core rate, float32 at the CUDA-core rate
+    t_b6 = []
+    for name, (q, k, v), kw, via, library_fn, cost in b6_cases:
+        fn = ops.mha if via == "mha" else fa_k.flash_attention
+        t_b6.append(timed(
+            lambda q=q, k=k, v=v, fn=fn, kw=kw: fn(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: fa_k.flash_attention_plain(
+                q, k, v, **kw), *cost, name,
+            flop_rate=(BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+                       else FP32_FLOP_PER_S), library_fn=library_fn))
+    phase_done("timings")
     card = f"{smi} (torch.cuda: {kind})"
     # every path's launches: each arm's measured run, plus the staged
     # comparison runs of arms D and E (counts reset before each)
@@ -877,6 +1396,7 @@ def main() -> int:
     path_launches["E_short_fused"] = arms["E"]["short_fleet"]["launches_fused"]
     path_launches["E_short_staged"] = \
         arms["E"]["short_fleet"]["launches_staged"]
+    path_launches["F1"] = arms["F"]["F1"]["launches"]
 
     def entry(name, kernel, source, replaces, err, t, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -886,8 +1406,9 @@ def main() -> int:
                                       for n, c in path_launches.items()},
                     max_abs_err=err,
                     **{k: t[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "shape")},
-                    library_ms=None, other_shapes=t[1:], card=card, **extra)
+                                            "bound_by", "library_ms",
+                                            "shape")},
+                    other_shapes=t[1:], card=card, **extra)
 
     line = {"kernels": [
         entry("gather_trilerp_mvoxels_segmented (B1, Gathering Unit)",
@@ -915,12 +1436,24 @@ def main() -> int:
               "src/repro/kernels/streaming_pipeline.py:138", errs["B5"],
               t_b5, max_abs_err_bf16=errs["B5_bf16"],
               bit_equal_to_b3_per_page=per_seg_bit_equal),
+        entry("flash_attention (B6, GQA flash attention of the LM layers)",
+              fa_k.KERNEL, "src/repro_torch/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:96", errs["B6_bf16"],
+              t_b6, max_abs_err_f32=errs["B6"],
+              ptxas=[line.strip() for line in fa_k.KERNEL.log.read_text()
+                     .splitlines() if "registers" in line or "spill" in line]),
     ]}
     print(json.dumps(line))
+    lm_arm = arms["F"]
     print(json.dumps({"arms_wall": {
         n: {"frames": a["frames"], "warm_wall_s": a["warm_wall_s"],
             "warm_fps": a["warm_fps"], "cold_wall_s": a["cold_wall_s"]}
-        for n, a in arms.items()}, "card": card}))
+        for n, a in arms.items() if n != "F"}, "lm_serving_F": {
+            k: lm_arm[k] for k in ("warm_wall_s", "cold_wall_s",
+                                   "generated_tok_per_s",
+                                   "prefill_prompt_tok_per_s", "ticks")},
+        "phase_s": phase_s, "total_s": sum(phase_s.values()),
+        "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

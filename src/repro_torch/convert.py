@@ -1,15 +1,19 @@
 """Carry weights across from the JAX reference package.
 
-The reference's parameters, handed over as numpy arrays
-(``{"table", "decoder": {w1, b1, w2, b2, w_sigma, w_rgb, b_rgb}}``,
-optionally ``"mv_table"``), become the port's tensors on a device, so that
-both packages compute the same function.
+The reference's parameters, handed over as numpy arrays, become the port's
+tensors on a device, so that both packages compute the same function: the
+NeRF's (``{"table", "decoder": {w1, b1, w2, b2, w_sigma, w_rgb, b_rgb}}``,
+optionally ``"mv_table"``) with :func:`params_from_numpy`, the LM's
+(``lm.init_params``'s tree) with :func:`lm_params_from_numpy`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks
+from repro_torch.models.common import dtype_of
 from repro_torch.utils import DeviceLike, resolve_device
 
 
@@ -25,3 +29,44 @@ def params_from_numpy(params: dict, device: DeviceLike = None) -> dict:
         return torch.from_numpy(np.array(x, copy=True)).to(dev)
 
     return conv(params)
+
+
+def _tensor(x, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # numpy holds it as ml_dtypes' type
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
+                         device: DeviceLike = None) -> dict:
+    """The reference's LM parameters (``{"embed", "blocks", "final_norm",
+    "head"?}``, leaves as numpy arrays) -> the port's (``{"embed",
+    "layers", "final_norm", "head"?}``) on ``device`` (default: the CUDA
+    card; raises without one), in ``cfg.dtype``.
+
+    ``tree["blocks"]`` holds one dict per layer of the pattern, each leaf
+    stacked on a leading ``num_periods`` axis; layer ``p * period + i`` is
+    entry ``i`` at index ``p``."""
+    dev = resolve_device(device)
+    blocks.check_supported(cfg)
+    dtype = dtype_of(cfg.dtype)
+
+    def conv(x, pick=None):
+        if isinstance(x, dict):
+            return {k: conv(v, pick) for k, v in x.items()}
+        a = np.asarray(x) if pick is None else np.asarray(x)[pick]
+        return _tensor(a, dev).to(dtype)
+
+    period = tree["blocks"]
+    if len(period) != cfg.period:
+        raise ValueError(f"{cfg.name}: {len(period)} pattern layers in the "
+                         f"tree, the config has {cfg.period}")
+    out = {"embed": conv(tree["embed"]),
+           "layers": [conv(period[i], p) for p in range(cfg.num_periods)
+                      for i in range(cfg.period)],
+           "final_norm": conv(tree["final_norm"])}
+    if "head" in tree:
+        out["head"] = conv(tree["head"])
+    return out

@@ -23,7 +23,7 @@ BUILD_DIR = PKG_DIR.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def nvcc() -> str:
@@ -43,7 +43,8 @@ class CudaKernel:
 
     ``entries`` maps each C entry point to its argument signature, one
     letter per argument: ``p`` for a pointer or the stream, ``i`` for an
-    int. Every entry returns ``cudaGetLastError()`` after its launch.
+    int, ``f`` for a float. Every entry returns ``cudaGetLastError()``
+    after its launch.
     ``launches`` is incremented by the wrapper at each kernel launch and
     nowhere else, so a run can show that it went through the kernel.
     """

@@ -1,6 +1,6 @@
 """Kernel entry points: arrange host-visible shapes into kernel geometry
-(port of ``repro.kernels.ops``, with its mixed-scene ``scene_of_seg`` path;
-attention is not ported yet)."""
+(port of ``repro.kernels.ops``, with its mixed-scene ``scene_of_seg`` path
+and the flash-attention wrapper ``mha``)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
@@ -8,10 +8,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import streaming
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_nerf_mlp as _mlp
 from repro_torch.kernels import gather_trilerp as _gt
 from repro_torch.kernels import streaming_pipeline as _sp
 from repro_torch.nerf import grids
+from repro_torch.utils import round_up
 
 
 class RitBlocks(NamedTuple):
@@ -117,3 +119,27 @@ def nerf_mlp(feats: torch.Tensor, direnc: torch.Tensor, params: dict
         feats, direnc, params["w1"], params["b1"], params["w2"],
         params["b2"], params["w_sigma"], params["w_rgb"], params["b_rgb"])
     return out[:, 0], out[:, 1:4]
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, block_q: int = 128, block_k: int = 128
+        ) -> torch.Tensor:
+    """Flash attention (kernel B6) with the reference wrapper's padding
+    rule. q [B,H,Sq,D], k/v [B,KVH,Sk,D]: the sequences are zero-padded to
+    multiples of ``min(block, max(S, 8))`` and, when K/V was padded,
+    ``kv_len`` masks the padded rows; the result is cut back to Sq.
+
+    The padding serves the TPU kernel's block shape; the CUDA kernel takes
+    any Sq, Sk and kv_len, so here it only costs copies. The port's LM
+    layers call ``flash_attention`` directly, not this wrapper."""
+    sq, d = q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    bq = min(block_q, max(sq, 8))
+    bk = min(block_k, max(sk, 8))
+    sqp, skp = round_up(sq, bq), round_up(sk, bk)
+    pad = lambda t, n: torch.nn.functional.pad(t, (0, 0, 0, n))
+    out = _fa.flash_attention(pad(q, sqp - sq), pad(k, skp - sk),
+                              pad(v, skp - sk), causal=causal,
+                              sm_scale=d**-0.5,
+                              kv_len=sk if skp > sk else None)
+    return out[:, :, :sq]

@@ -1,0 +1,151 @@
+"""GQA attention with RoPE and a KV cache (port of the full-attention,
+self-attention parts of ``repro.models.attention``).
+
+Prefill and decode both run kernel B6 (:mod:`repro_torch.kernels.
+flash_attention`), where the reference computes the same functions with
+plain einsums: prefill is causal attention with ``Sq == Sk`` (the
+reference's ``_blocked_attn``), decode is attention over the cache with
+keys ``<= index`` valid (``attn_decode``'s ``valid = kpos <= index``), i.e.
+``causal=False, kv_len=index + 1``. Softmax in fp32 either way.
+
+Not ported: local (chunked-window) attention, logit soft-capping and
+cross-attention (``ROADMAP.md`` A14); the entry points raise for them
+(:func:`check_supported`, and ``blocks.check_supported`` for encoder
+models).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.common import ninit
+
+_NOT_PORTED = "not ported (ROADMAP.md A14: local attention and softcap)"
+
+
+def check_supported(cfg: ModelConfig, local: bool = False) -> None:
+    """Raise for the attention variants the port does not run."""
+    if local:
+        raise NotImplementedError(f"local attention is {_NOT_PORTED}")
+    if cfg.logit_softcap > 0:
+        raise NotImplementedError(f"logit_softcap > 0 is {_NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+def attn_init(generator: torch.Generator, cfg: ModelConfig,
+              dtype: torch.dtype) -> dict:
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = d**-0.5
+    p = {
+        "wq": ninit(generator, (d, h * hd), s, dtype),
+        "wk": ninit(generator, (d, kvh * hd), s, dtype),
+        "wv": ninit(generator, (d, kvh * hd), s, dtype),
+        "wo": ninit(generator, (h * hd, d), (h * hd) ** -0.5, dtype),
+    }
+    if cfg.qkv_bias:
+        dev = generator.device
+        p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((kvh * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((kvh * hd,), dtype=dtype, device=dev)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x [B, S, H, D]; positions [B, S]. Half-split (not interleaved)
+    rotation in float32, cast back to ``x``'s dtype."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs  # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward paths
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, KVH, S_max, D]
+    v: torch.Tensor  # [B, KVH, S_max, D]
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache_len: int
+                 ) -> Tuple[torch.Tensor, KVCache]:
+    """Causal self-attention over x [B, S, D] at positions 0..S-1 (kernel
+    B6), and the KV cache zero-padded to ``cache_len``."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    q = q.transpose(1, 2)  # [B, H, S, D]
+    k = k.transpose(1, 2)  # [B, KVH, S, D]
+    v = v.transpose(1, 2)
+    o = fa.flash_attention(q, k, v, causal=True, sm_scale=cfg.head_dim**-0.5)
+    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    out = o @ params["wo"]
+    pad = max(cache_len - s, 0)
+    kc = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vc = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    return out, KVCache(kc, vc)
+
+
+def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
+                index: int) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode. x [B, 1, D]; ``index`` (a host int) is the
+    position every row decodes at. The new K/V are written into ``cache``
+    in place at ``index`` (on the current stream), then B6 attends over
+    the cache with keys ``<= index`` valid."""
+    b = x.shape[0]
+    s_max = cache.k.shape[2]
+    if not 0 <= index < s_max:
+        raise ValueError(f"decode index {index} outside the cache [0, "
+                         f"{s_max})")
+    positions = torch.full((b, 1), index, dtype=torch.int64, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    cache.k[:, :, index] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, :, index] = v[:, 0].to(cache.v.dtype)
+    o = fa.flash_attention(q.transpose(1, 2), cache.k, cache.v,
+                           causal=False, sm_scale=cfg.head_dim**-0.5,
+                           kv_len=index + 1)  # [B, H, 1, D]
+    o = o.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
+    return o @ params["wo"], cache
+
+
+def kv_cache_init(cfg: ModelConfig, batch: int, s_max: int,
+                  dtype: torch.dtype, device) -> KVCache:
+    shape = (batch, cfg.num_kv_heads, s_max, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))

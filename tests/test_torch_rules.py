@@ -14,13 +14,16 @@ import pytest
 import torch
 
 from repro_torch import api, convert
+from repro_torch.configs import registry
 from repro_torch.core.config import RenderConfig
-from repro_torch.kernels import fused_nerf_mlp, gather_trilerp, \
-    streaming_pipeline
+from repro_torch.kernels import flash_attention, fused_nerf_mlp, \
+    gather_trilerp, streaming_pipeline
+from repro_torch.models import lm
+from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "lm_noise_floor.py"]
 
 
 def _imported_modules(path):
@@ -51,10 +54,27 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     assert api.make_renderer(cfg.replace(device="cpu")).device.type == "cpu"
 
 
+def test_lm_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.get_reduced("qwen2.5-32b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg)
+    params = lm.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    tree = {"embed": np.zeros((cfg.vocab_size, cfg.d_model), np.float32),
+            "blocks": ({},), "final_norm": {}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.lm_params_from_numpy(cfg, tree)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params, num_slots=1, max_len=8)
+    eng = ServeEngine(cfg, params, num_slots=1, max_len=8, device="cpu")
+    assert eng.caches[0].k.device.type == "cpu"
+
+
 def test_kernels_are_not_built_at_import():
     for kernel in (gather_trilerp.KERNEL, gather_trilerp.KERNEL_PER_SEG,
                    fused_nerf_mlp.KERNEL, streaming_pipeline.KERNEL,
-                   streaming_pipeline.KERNEL_PER_SEG):
+                   streaming_pipeline.KERNEL_PER_SEG, flash_attention.KERNEL):
         assert kernel._lib is None
 
 
