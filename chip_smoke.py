@@ -21,16 +21,22 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    the first tick of arm E's mixed-scene serving run builds (captured from
    its admission priming and its fused sweep), float32 and bfloat16, both
    layouts, also bit for bit against B1 (B4) and B3 (B5) run on each
-   segment's page; flash attention (B6) at arm F's first prefill
+   segment's page; flash attention (B6), whose four kernels are the
+   bfloat16 tensor-core prefill, the float32 tile prefill and the split-KV
+   decode with its log-sum-exp combine: at arm F's first prefill
    ([1, 40, 2048, 128] against [1, 8, 2048, 128], causal, bfloat16 and
    float32) and first decode tick ([4, 40, 1, 128] against the
-   [4, 8, 2084, 128] cache, kv_len 2049, bfloat16 and float32), a ragged
-   prefill (S = 1000) through ``ops.mha`` and a top-left causal
+   [4, 8, 2084, 128] cache, kv_len 2049, bfloat16 and float32), the decode
+   also at kv_len 1, 63, 64, 65, one split length -1 and +1, and 2084 (the
+   whole cache, a prompt of max_len tokens), its two kernels also one by
+   one against their plain versions (the partials within atol / rtol
+   1e-4: float32 sums of up to a split's length in another order), a
+   ragged prefill (S = 1000) through ``ops.mha``, a top-left causal
    sq = 64, sk = 128 case, and the decode shape with Sq = 2, which runs it
-   through the tile kernel instead of the decode kernel. Tolerances are the
-   reference's kernel tolerances: atol 2e-5 / rtol 1e-5 (float32;
-   attention 2e-5 / 1e-4), 3e-2 (bfloat16; attention atol 8e-3 / rtol
-   1e-2, a few bfloat16 steps at the outputs' scale);
+   through the prefill kernel instead. Tolerances are the reference's
+   kernel tolerances: atol 2e-5 / rtol 1e-5 (float32; attention 2e-5 /
+   1e-4), 3e-2 (bfloat16; attention atol 8e-3 / rtol 1e-2, a few bfloat16
+   steps at the outputs' scale);
 4. run the render arms A-E end to end through ``repro_torch.api`` (arm F,
    LM serving, below) with every launch
    count set to 0 just before and read just after; each arm is held
@@ -65,6 +71,9 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    the card (>= 60 dB, equal hole fractions), and a shorter fleet (the
    first 4 sessions, 16 frames) is served staged and fused on the card
    (>= 40 dB, equal ticks; the staged run launches B4 in its pooled fill).
+   Where the card and CPU runs part (``c2_tables``): each of the six
+   tables the loader bakes, on the card against its CPU bake, and the
+   fleet served on the card from the CPU's bakes against the CPU run.
    A further, profiled run of each arm (``torch.profiler``) reports the
    device's busy share of the wall time and the busiest kernels and ops
    (for arms D and E also the ops with the most device time by input
@@ -75,8 +84,9 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    ``torch.Generator`` seed 0 at the reference's scales, QKV biases drawn
    non-zero; 8 requests (prompts of 2048, 1536, 1024, 512, 1792, 768,
    1280 and 256 tokens, 32 new tokens each) on 4 slots, max_len 2084,
-   served cold, then warm, then profiled. B6 must launch 16 x (8 prefills
-   + decode ticks) times and nothing else. F2 (``f2_check``): each
+   served cold, then warm, then profiled. B6's tensor-core prefill must
+   launch 16 x 8 times and its decode kernels 16 x (decode ticks) times
+   each, and nothing else. F2 (``f2_check``): each
    request's prefill is rerun with B6 while every layer's B6 output is held
    against the plain version on the same q/k/v (atol 8e-3 / rtol 1e-2),
    and its logits must come no further from the same prefill with float64
@@ -92,7 +102,7 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    prompts of 64, 48, 40 and 32 tokens on 2 slots (slots reused at
    unequal positions, so the shared decode index matters) on the card and
    on the CPU: equal token streams and stats, prefill logits within
-   1e-3;
+   1e-3; it runs B6's float32 kernels (tile prefill, split-KV decode);
 5. time each kernel and its plain version at the arms' shapes (device
    time from CUDA events, see ``time_ms``) beside the least time the card
    could take (B6 also beside ``scaled_dot_product_attention`` on the
@@ -305,6 +315,168 @@ def arm_e_sessions(n_sessions: int, n_frames: int) -> list:
         for i in range(n_sessions)]
 
 
+def c2_tables(grid_res: int, channels: int, device) -> list:
+    """Each of arm E's scene tables baked on ``device`` against its CPU
+    bake: how many vertices differ and by how much, and, on the same
+    (CPU) vertex coordinates, how many vertices pick another nearest
+    object (an argmin of near-equal distances) on the two devices."""
+    import torch
+    from repro_torch.nerf import scenes
+
+    axes = torch.linspace(-1.0, 1.0, grid_res, dtype=torch.float32)
+    axes_dev = torch.linspace(-1.0, 1.0, grid_res, dtype=torch.float32,
+                              device=device).cpu()
+    x, y, z = torch.meshgrid(axes, axes, axes, indexing="ij")
+    pts = torch.stack([x, y, z], dim=-1).reshape(-1, 3)
+    rows = []
+    for name in sorted(set(ARM_E_SCENES)):
+        scene = scenes.make_scene(name)
+        card = scenes.bake_dense_table(scene, grid_res, channels,
+                                       device=device).cpu()
+        cpu = scenes.bake_dense_table(scene, grid_res, channels, device="cpu")
+        diff = (card - cpu).abs().amax(1)
+        d_card, i_card = scenes._sdf(scene, pts.to(device))
+        d_cpu, i_cpu = scenes._sdf(scene, pts)
+        rows.append({
+            "scene": name, "equal": bool(torch.equal(card, cpu)),
+            "max_abs_diff_per_channel":
+                (card - cpu).abs().amax(0).tolist(),
+            "vertices_differing": int((diff > 0).sum()),
+            "vertices_differing_over_1e-3": int((diff > 1e-3).sum()),
+            "vertices": int(diff.numel()),
+            "linspace_equal": bool(torch.equal(axes, axes_dev)),
+            "nearest_object_flips_same_points":
+                int((i_card.cpu() != i_cpu).sum()),
+            "sdf_max_abs_diff_same_points":
+                float((d_card.cpu() - d_cpu).abs().max())})
+    return rows
+
+
+def c2_first_tick(engine, sessions) -> tuple:
+    """The first tick of a mixed-scene fused serving run, with every call
+    of B4, B5, the per-scene fallback gather and the composite recorded
+    (inputs and output, moved to the CPU), and the tick's frames."""
+    import torch
+    from repro_torch.kernels import gather_trilerp as gt_k
+    from repro_torch.kernels import streaming_pipeline as sp_k
+    from repro_torch.nerf import volrend
+
+    calls = []
+    cpu = lambda x: (x.detach().cpu() if torch.is_tensor(x) else
+                     tuple(cpu(y) for y in x) if isinstance(x, tuple) else x)
+    spied = [(gt_k, "gather_trilerp_mvoxels_per_seg"),
+             (sp_k, "fused_gather_dual_per_seg"),
+             (sp_k, "gather_trilerp_ref_scened"), (volrend, "composite")]
+    real = {name: getattr(mod, name) for mod, name in spied}
+
+    def spy(name):
+        def f(*args, **kw):
+            out = real[name](*args, **kw)
+            calls.append((name, [cpu(a) for a in args if torch.is_tensor(a)],
+                          cpu(out)))
+            return out
+        return f
+
+    for mod, name in spied:
+        setattr(mod, name, spy(name))
+    try:
+        engine.submit(sessions)
+        engine.step()
+        engine.finalize()
+    finally:
+        for mod, name in spied:
+            setattr(mod, name, real[name])
+    frames = [f.cpu() for sess in sessions for f in sess.frames
+              if f is not None]
+    return calls, frames
+
+
+def c2_compare(card: tuple, host: tuple) -> list:
+    """Card against CPU, call by call (``c2_first_tick``'s records), one
+    row per function: its calls, the largest difference of their float
+    inputs and of their outputs, and how many calls had integer inputs
+    (corner ids) that differ; then the frames' largest difference."""
+    import torch
+
+    def diff(a, b):
+        if isinstance(a, tuple):
+            return max(diff(x, y) for x, y in zip(a, b))
+        if a.shape != b.shape:
+            return float("inf")
+        if not a.is_floating_point():
+            return 0.0 if torch.equal(a, b) else float("inf")
+        return float((a.float() - b.float()).abs().max()) if a.numel() \
+            else 0.0
+
+    (calls_g, frames_g), (calls_c, frames_c) = card, host
+    if [n for n, _, _ in calls_g] != [n for n, _, _ in calls_c]:
+        fail("C2: the card and the CPU tick call other functions")
+    rows = {}
+    for (name, ig, og), (_, ic, oc) in zip(calls_g, calls_c):
+        d_in = [diff(a, b) for a, b in zip(ig, ic)]
+        row = rows.setdefault(name, {"fn": name, "calls": 0,
+                                     "float_inputs_max_abs_diff": 0.0,
+                                     "calls_with_int_inputs_differing": 0,
+                                     "output_max_abs_diff": 0.0})
+        row["calls"] += 1
+        row["float_inputs_max_abs_diff"] = max(
+            [row["float_inputs_max_abs_diff"]]
+            + [x for x in d_in if x != float("inf")])
+        row["calls_with_int_inputs_differing"] += float("inf") in d_in
+        row["output_max_abs_diff"] = max(row["output_max_abs_diff"],
+                                         diff(og, oc))
+    return list(rows.values()) + [{"frames": len(frames_g),
+                                   "frames_max_abs_diff": max(
+                                       diff(a, b) for a, b in
+                                       zip(frames_g, frames_c))}]
+
+
+def c2_warps(engine, sessions) -> list:
+    """Serve ``sessions`` on ``engine``, recording every tick's warp
+    (``sparw.warp_frames_flat``): its reference frames and depths, the
+    warped colours and the hole flags, on the CPU."""
+    from repro_torch.core import sparw
+
+    real, rec = sparw.warp_frames_flat, []
+
+    def spy(rgb_ref, dep_ref, *args, **kw):
+        out = real(rgb_ref, dep_ref, *args, **kw)
+        rec.append({"rgb_ref": rgb_ref.cpu(), "dep_ref": dep_ref.cpu(),
+                    "rgb": out.rgb.cpu(), "holes": out.holes.cpu()})
+        return out
+
+    sparw.warp_frames_flat = spy
+    try:
+        engine.run(sessions)
+    finally:
+        sparw.warp_frames_flat = real
+    return rec
+
+
+def c2_compare_warps(card: list, host: list) -> list:
+    """Tick by tick: how far the warp's inputs (the co-rendered reference)
+    are apart, how many target pixels change their hole flag, and how many
+    pixels warped on both devices take another colour (another source
+    pixel won the pixel)."""
+    rows = []
+    for t, (g, c) in enumerate(zip(card, host)):
+        warped = ~g["holes"] & ~c["holes"]
+        d = (g["rgb"] - c["rgb"]).abs().amax(-1)
+        rows.append({
+            "tick": t,
+            "ref_rgb_max_abs_diff": float(
+                (g["rgb_ref"] - c["rgb_ref"]).abs().max()),
+            "ref_depth_max_abs_diff": float(
+                (g["dep_ref"] - c["dep_ref"]).abs().max()),
+            "hole_flags_differing": int((g["holes"] != c["holes"]).sum()),
+            "warped_pixels": int(warped.sum()),
+            "warped_pixels_differing_over_1e-3": int(
+                (warped & (d > 1e-3)).sum()),
+            "warped_max_abs_diff": float(d[warped].max()) if warped.any()
+            else 0.0})
+    return rows
+
+
 def arm_b_params(seed: int = 0) -> dict:
     """Random (untrained) parameters at NerfConfig's defaults, with the
     reference initializer's scales, drawn from numpy."""
@@ -341,7 +513,12 @@ ATTN_F32_TOL = dict(atol=2e-5, rtol=1e-4)
 # bfloat16 attention: a few bfloat16 steps at the outputs' scale (one step
 # is 2**-8 of a value; randn q/k/v give outputs of about 0.04-1)
 B6_BF16_TOL = dict(atol=8e-3, rtol=1e-2)
+# the split-KV decode's float32 partials (m, l, unnormalized o): sums of up
+# to a split's length (192 keys at arm F) in another order than the plain
+# version's
+DECODE_PARTIALS_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+B6 = "flash_attention"  # the B6 source's name in the launch counts
 
 
 def lm_model(num_layers: int, dtype: str, seed: int, device):
@@ -837,35 +1014,96 @@ def main() -> int:
                              enable_gqa=True),
                          b6_cost(LM_SLOTS, 40, 8, 1, 2049, 128, False,
                                  q.element_size())))
-    # the same decode through the tile kernel: Sq = 2 takes the tile branch
-    # and does Sq = 1's work (one 64-row query block against the same key
-    # tiles), which tells whether the decode kernel earns its place
+    # the same decode through the prefill kernel: Sq = 2 takes the prefill
+    # branch and does Sq = 1's work (one 64-row query block against the
+    # same key tiles), the one-path alternative to the split-KV decode
     q, k, v = qkv(LM_SLOTS, 2, LM_MAX_LEN, torch.bfloat16)
-    b6_cases.append(("decode shape through the tile kernel, bf16 q "
+    b6_cases.append(("decode shape through the prefill kernel, bf16 q "
                      f"{list(q.shape)} (Sq=2) cache {list(k.shape)} kv_len "
                      "2049", (q, k, v), dict(causal=False, kv_len=2049),
                      "flash", lambda q=q, k=k, v=v: sdpa(
                          q, k[:, :, :2049], v[:, :, :2049], enable_gqa=True),
                      b6_cost(LM_SLOTS, 40, 8, 2, 2049, 128, False, 2)))
-    errs["B6"] = errs["B6_bf16"] = 0.0
+    def b6_route(q):
+        """The kernel the wrapper routes ``q`` to (launches, errors)."""
+        if q.shape[2] == 1:
+            return "decode_split"
+        return "prefill_mma" if q.dtype == torch.bfloat16 else "prefill_tile"
+
+    def b6_err_key(q):
+        tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        return f"B6 {b6_route(q)} {tag}"
+
     for name, (q, k, v), kw, via, _, _ in b6_cases:
         got = (ops.mha(q, k, v, **kw) if via == "mha"
                else fa_k.flash_attention(q, k, v, **kw))
         want = fa_k.flash_attention_plain(q, k, v, **kw)
         bf = q.dtype == torch.bfloat16
-        key = "B6_bf16" if bf else "B6"
-        errs[key] = max(errs[key], check_close(
+        key = b6_err_key(q)
+        errs[key] = max(errs.get(key, 0.0), check_close(
             f"B6 {name}", got, want, B6_BF16_TOL if bf else ATTN_F32_TOL))
+    # the split-KV decode at the kv_len edges of its plan (a range of one
+    # key, a whole tile, a tile and one, one split length -1 and +1, arm
+    # F's first tick, the whole cache), and its two kernels one by one
+    splits, split_len = fa_k.decode_split_plan(
+        LM_MAX_LEN, LM_SLOTS * 8,
+        2 * torch.cuda.get_device_properties(0).multi_processor_count)
+    decode_plan = {"splits": splits, "split_len": split_len,
+                   "ctas": splits * LM_SLOTS * 8, "sms": torch.cuda
+                   .get_device_properties(0).multi_processor_count}
+    print(f"B6 decode split plan at cache {LM_MAX_LEN}: {decode_plan}")
+    decode_kv_lens = [1, 63, 64, 65, split_len - 1, split_len + 1, 2049,
+                      LM_MAX_LEN]
+    errs["B6_partials"] = errs["B6_combine"] = 0.0
+    decode_inputs = {}
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = qkv(LM_SLOTS, 1, LM_MAX_LEN, dt)
+        decode_inputs[tag] = (q, k, v)
+        tol = B6_BF16_TOL if dt == torch.bfloat16 else ATTN_F32_TOL
+        key = b6_err_key(q)
+        for kv_len in decode_kv_lens:
+            kw = dict(causal=False, kv_len=kv_len)
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                f"B6 decode {tag} q {list(q.shape)} cache {list(k.shape)} "
+                f"kv_len {kv_len}", fa_k.flash_attention(q, k, v, **kw),
+                fa_k.flash_attention_plain(q, k, v, **kw), tol))
+            plan = dict(kv_len=kv_len, splits=splits, split_len=split_len)
+            parts = fa_k.decode_partials(q, k, v, **plan)
+            for part, g, w in zip("mlo", parts, fa_k.decode_partials_plain(
+                    q, k, v, **plan)):
+                errs["B6_partials"] = max(errs["B6_partials"], check_close(
+                    f"B6 decode split kernel {tag} kv_len {kv_len} partial "
+                    f"{part}", g, w, DECODE_PARTIALS_TOL))
+            errs["B6_combine"] = max(errs["B6_combine"], check_close(
+                f"B6 decode combine kernel {tag} kv_len {kv_len}",
+                fa_k.decode_combine(*parts, dt),
+                fa_k.decode_combine_plain(*parts, dt), tol))
+    # more than 8 query heads per KV head: a decode CTA serves 8 of them,
+    # so the grid has two head chunks per KV head
+    q = torch.randn((2, 32, 1, 128), generator=gen6, device=dev).bfloat16()
+    k, v = (torch.randn((2, 2, LM_MAX_LEN, 128), generator=gen6,
+                        device=dev).bfloat16() for _ in range(2))
+    kw = dict(causal=False, kv_len=2049)
+    errs["B6 decode_split bf16"] = max(errs["B6 decode_split bf16"],
+                                       check_close(
+        "B6 decode bf16 q [2, 32, 1, 128] (16 heads per KV head) cache "
+        f"[2, 2, {LM_MAX_LEN}, 128] kv_len 2049",
+        fa_k.flash_attention(q, k, v, **kw),
+        fa_k.flash_attention_plain(q, k, v, **kw), B6_BF16_TOL))
     torch.cuda.synchronize()
     phase_done("kernel checks")
 
     # 4. the arms, end to end ---------------------------------------------
     def reset():
         for k in kernels:
-            k.launches = 0
+            k.reset()
 
     def counts():
-        return {k.name: k.launches for k in kernels}
+        # each kernel source's launches, and B6's by kernel
+        c = {k.name: k.launches for k in kernels}
+        c.update({f"{B6}.{n}": m
+                  for n, m in fa_k.launches_by_kernel().items()})
+        return c
 
     def run_arm(name, cfg, n_frames, model=None, np_params=None):
         arm_poses = orbit_trajectory(n_frames)
@@ -1011,20 +1249,64 @@ def main() -> int:
                 or launches["gather_trilerp"] or launches["fused_gather_dual"]:
             fail(f"arm E: launches {launches} for {m_cold['ticks']} ticks "
                  "(B5 once per tick, B4 on admission, no B1 or B3)")
-        worst = math.inf
+        worst, worst_at = math.inf, None
         for sg, scpu in zip(cold, cpu):
             if stats_of(sg) != stats_of(scpu) \
                     or sg.stats.frames != n_frames:
                 fail(f"arm E: session {sg.sid} stats {stats_of(sg)} vs CPU "
                      f"{stats_of(scpu)}")
-            for f, c in zip(sg.frames, scpu.frames):
+            for i, (f, c) in enumerate(zip(sg.frames, scpu.frames)):
                 f = f.cpu()
                 if f.shape != (cfg.res, cfg.res, 3) \
                         or not torch.isfinite(f).all():
                     fail("arm E: a frame is not finite")
-                worst = min(worst, float(psnr(f, c)))
+                if float(psnr(f, c)) < worst:
+                    worst = float(psnr(f, c))
+                    worst_at = {"sid": sg.sid, "frame": i,
+                                "scene": sg.scene, "psnr_db": worst,
+                                "max_abs_diff": float((f - c).abs().max()),
+                                "pixels_over_1e-3": int(
+                                    ((f - c).abs().amax(-1) > 1e-3).sum())}
         if worst < 40.0:
             fail(f"arm E: a frame is {worst:.2f} dB from the CPU run")
+        # where the card and CPU runs part: the baked tables, then the fleet
+        # on the card from the CPU's bakes (the same tick code, other tables)
+        c2 = {"tables": c2_tables(cfg.grid_res, cfg.channels, dev)}
+        eng_x = RenderServeEngine(
+            ren.model, ren.params, config=ren.config,
+            scene_loader=lambda name: scene_loader("cpu")(name).to(dev))
+        sess_x = arm_e_sessions(n_sessions, n_frames)
+        warps_x = c2_warps(eng_x, sess_x)
+        if len(warps_x) != m_cpu["ticks"] or any(
+                stats_of(a) != stats_of(b) for a, b in zip(sess_x, cpu)):
+            fail("arm E from the CPU's bakes: stats differ from the CPU run")
+        c2["warps"] = c2_compare_warps(warps_x, c2_warps(
+            scene_engine(api.make_renderer(cfg, device="cpu")),
+            arm_e_sessions(n_sessions, n_frames)))
+        del warps_x
+        for row in c2["warps"]:
+            print(f"C2 warp {json.dumps(row)}")
+        c2["min_psnr_vs_cpu_db_cpu_bakes"] = min(
+            float(psnr(f.cpu(), c)) for sx, scpu in zip(sess_x, cpu)
+            for f, c in zip(sx.frames, scpu.frames))
+        c2["min_psnr_vs_cpu_db_card_bakes"] = worst
+        c2["worst_frame"] = worst_at
+        # the first mixed tick, stage by stage, card against CPU, both from
+        # the CPU's bakes
+        c2["first_tick"] = c2_compare(*(c2_first_tick(
+            RenderServeEngine(ren.model, r.params, config=r.config,
+                              scene_loader=lambda name, d=r.device:
+                              scene_loader("cpu")(name).to(d)),
+            arm_e_sessions(4, cfg.window))
+            for r in (ren, api.make_renderer(cfg, device="cpu"))))
+        for row in c2["first_tick"]:
+            print(f"C2 first tick {json.dumps(row)}")
+        for row in c2["tables"]:
+            print(f"C2 table {json.dumps(row)}")
+        print(f"C2 arm E frames vs the CPU run: card bakes {worst:.2f} dB, "
+              f"CPU bakes {c2['min_psnr_vs_cpu_db_cpu_bakes']:.2f} dB; "
+              f"worst frame {worst_at}")
+        del eng_x, sess_x
         # two sessions on different scenes against their scene alone
         alone_db = math.inf
         for sid in (0, 1):
@@ -1068,7 +1350,7 @@ def main() -> int:
             "profile": profile_run(fleet),
             "top_ops_by_shape": profile_ops_by_shape(fleet),
             "min_psnr_vs_cpu_db": worst,
-            "min_psnr_vs_alone_db": alone_db,
+            "min_psnr_vs_alone_db": alone_db, "C2": c2,
             "reference_renders": [x.stats.reference_renders for x in cold],
             "sparse_pixels": [x.stats.sparse_pixels for x in cold],
             "fallback_pixels": [x.stats.fallback_pixels for x in cold],
@@ -1118,10 +1400,13 @@ def main() -> int:
         if st_g != st_c or streams_g != streams_c:
             fail(f"F1: card stats {st_g} streams {streams_g} vs CPU {st_c} "
                  f"{streams_c}")
-        if f1_launches["flash_attention"] != F1_LAYERS * (
-                len(F1_PROMPTS) + st_g["ticks"]):
-            fail(f"F1: B6 launched {f1_launches['flash_attention']} times "
-                 f"for {st_g['ticks']} ticks")
+        f1_want = {"prefill_tile": F1_LAYERS * len(F1_PROMPTS),
+                   "prefill_mma": 0,
+                   "decode_split": F1_LAYERS * st_g["ticks"],
+                   "decode_combine": F1_LAYERS * st_g["ticks"]}
+        if any(f1_launches[f"{B6}.{n}"] != m for n, m in f1_want.items()):
+            fail(f"F1: B6 launches {f1_launches} for {st_g['ticks']} ticks "
+                 f"(want {f1_want})")
         f1_err = max(check_close(
             f"F1 request {i} prefill logits, card vs CPU (float32)",
             a.cpu(), b, F1_TOL)
@@ -1145,13 +1430,16 @@ def main() -> int:
         launches = counts()
         peak = torch.cuda.max_memory_allocated()
         ticks = st_cold["ticks"]
-        want_b6 = LM_LAYERS * (len(LM_PROMPTS) + ticks)
-        if launches["flash_attention"] != want_b6 \
-                or rec_cold["decode_ticks"] != ticks \
-                or any(n for name, n in launches.items()
-                       if name != "flash_attention"):
+        want_b6 = {f"{B6}.prefill_mma": LM_LAYERS * len(LM_PROMPTS),
+                   f"{B6}.decode_split": LM_LAYERS * ticks,
+                   f"{B6}.decode_combine": LM_LAYERS * ticks}
+        want_b6[B6] = sum(want_b6.values())
+        if rec_cold["decode_ticks"] != ticks or any(
+                n != want_b6.get(name, 0) for name, n in launches.items()):
             fail(f"arm F: launches {launches} for {ticks} decode ticks "
-                 f"(B6 {LM_LAYERS} x (8 prefills + ticks) = {want_b6})")
+                 f"(want {want_b6}: B6's prefill {LM_LAYERS} x 8 prefills, "
+                 "its decode kernels each once per layer and tick, no other "
+                 "kernel)")
         for r in cold:
             if len(r.out) != LM_MAX_NEW or not r.done \
                     or min(r.out) < 0 or max(r.out) >= cfg.vocab_size:
@@ -1377,16 +1665,49 @@ def main() -> int:
         b5_cost, sp_k.fused_gather_dual, sp_k.fused_gather_dual_plain,
         b3_cost, b5_args, ns5,
         f"holes {list(b5_args[2].shape)} refs {list(b5_args[4].shape)}")
-    # B6: bf16 at the tensor-core rate, float32 at the CUDA-core rate
-    t_b6 = []
+    # B6: bf16 at the tensor-core rate, float32 at the CUDA-core rate; each
+    # case under the kernel the wrapper routes it to. The decode's two
+    # kernels are timed alone at arm F's first tick (no single PyTorch call
+    # computes either), then the whole decode (both) beside SDPA
+    t_b6 = {n: [] for n in fa_k.KERNELS}
+    decode_path = []
     for name, (q, k, v), kw, via, library_fn, cost in b6_cases:
         fn = ops.mha if via == "mha" else fa_k.flash_attention
-        t_b6.append(timed(
-            lambda q=q, k=k, v=v, fn=fn, kw=kw: fn(q, k, v, **kw),
-            lambda q=q, k=k, v=v, kw=kw: fa_k.flash_attention_plain(
-                q, k, v, **kw), *cost, name,
-            flop_rate=(BF16_FLOP_PER_S if q.dtype == torch.bfloat16
-                       else FP32_FLOP_PER_S), library_fn=library_fn))
+        t = timed(lambda q=q, k=k, v=v, fn=fn, kw=kw: fn(q, k, v, **kw),
+                  lambda q=q, k=k, v=v, kw=kw: fa_k.flash_attention_plain(
+                      q, k, v, **kw), *cost, name,
+                  flop_rate=(BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+                             else FP32_FLOP_PER_S), library_fn=library_fn)
+        route = b6_route(q)
+        (decode_path if route == "decode_split" else t_b6[route]).append(t)
+    for tag, (q, k, v) in decode_inputs.items():
+        plan = dict(kv_len=2049, splits=splits, split_len=split_len)
+        parts = fa_k.decode_partials(q, k, v, **plan)
+        es, (b, h, _, d) = q.element_size(), q.shape
+        part_bytes = 4 * b * h * splits * (d + 2)
+        rate = BF16_FLOP_PER_S if tag == "bf16" else FP32_FLOP_PER_S
+        t_b6["decode_split"].append(timed(
+            lambda q=q, k=k, v=v, plan=plan: fa_k.decode_partials(
+                q, k, v, **plan),
+            lambda q=q, k=k, v=v, plan=plan: fa_k.decode_partials_plain(
+                q, k, v, **plan),
+            (b * h * d + 2 * b * 8 * 2049 * d) * es + part_bytes,
+            4 * b * h * 2049 * d,
+            f"split kernel alone, {tag} q {list(q.shape)} cache "
+            f"{list(k.shape)} kv_len 2049: {decode_plan}", flop_rate=rate))
+        t_b6["decode_combine"].append(timed(
+            lambda parts=parts, dt=q.dtype: fa_k.decode_combine(*parts, dt),
+            lambda parts=parts, dt=q.dtype: fa_k.decode_combine_plain(
+                *parts, dt),
+            part_bytes + b * h * d * es, 4 * b * h * splits * d,
+            f"combine kernel alone, {tag}, partials of {splits} splits "
+            f"[{b}, {h}, {splits}, {d}]", flop_rate=FP32_FLOP_PER_S))
+    t_b6["decode_split"] += decode_path
+    print(f"B6 decode: {decode_plan['splits']} splits of "
+          f"{decode_plan['split_len']} keys, {decode_plan['ctas']} CTAs on "
+          f"{decode_plan['sms']} SMs; " + "; ".join(
+              f"{t['shape']}: {t['ms'] * 1e3:.1f} us (SDPA "
+              f"{t['library_ms'] * 1e3:.1f} us)" for t in decode_path))
     phase_done("timings")
     card = f"{smi} (torch.cuda: {kind})"
     # every path's launches: each arm's measured run, plus the staged
@@ -1398,11 +1719,10 @@ def main() -> int:
         arms["E"]["short_fleet"]["launches_staged"]
     path_launches["F1"] = arms["F"]["F1"]["launches"]
 
-    def entry(name, kernel, source, replaces, err, t, **extra):
+    def entry(name, key, source, replaces, err, t, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=sum(c[kernel.name]
-                                 for c in path_launches.values()),
-                    launches_per_arm={n: c[kernel.name]
+                    launches=sum(c[key] for c in path_launches.values()),
+                    launches_per_arm={n: c[key]
                                       for n, c in path_launches.items()},
                     max_abs_err=err,
                     **{k: t[0][k] for k in ("ms", "plain_ms", "bound_ms",
@@ -1412,37 +1732,53 @@ def main() -> int:
 
     line = {"kernels": [
         entry("gather_trilerp_mvoxels_segmented (B1, Gathering Unit)",
-              gt_k.KERNEL, "src/repro_torch/csrc/gather_trilerp.cu",
+              gt_k.KERNEL.name, "src/repro_torch/csrc/gather_trilerp.cu",
               "src/repro/kernels/gather_trilerp.py:95", errs["B1"], t_b1,
               max_abs_err_bf16=errs["B1_bf16"]),
-        entry("fused_nerf_mlp (B2, fused radiance MLP)", mlp_k.KERNEL,
+        entry("fused_nerf_mlp (B2, fused radiance MLP)", mlp_k.KERNEL.name,
               "src/repro_torch/csrc/fused_nerf_mlp.cu",
               "src/repro/kernels/fused_nerf_mlp.py:54", errs["B2"], t_b2),
-        entry("fused_gather_dual (B3, fused tick dual gather)", sp_k.KERNEL,
+        entry("fused_gather_dual (B3, fused tick dual gather)",
+              sp_k.KERNEL.name,
               "src/repro_torch/csrc/fused_gather_dual.cu",
               "src/repro/kernels/streaming_pipeline.py:80", errs["B3"], t_b3,
               max_abs_err_bf16=errs["B3_bf16"],
               max_abs_err_vs_b1=errs["B3_vs_B1"],
               bit_equal_to_b1=b3_bit_equal),
         entry("gather_trilerp_mvoxels_per_seg (B4, mixed-scene Gathering "
-              "Unit)", gt_k.KERNEL_PER_SEG,
+              "Unit)", gt_k.KERNEL_PER_SEG.name,
               "src/repro_torch/csrc/gather_trilerp_per_seg.cu",
               "src/repro/kernels/gather_trilerp.py:143", errs["B4"], t_b4,
               max_abs_err_bf16=errs["B4_bf16"],
               bit_equal_to_b1_per_page=per_seg_bit_equal),
         entry("fused_gather_dual_per_seg (B5, mixed-scene fused tick dual "
-              "gather)", sp_k.KERNEL_PER_SEG,
+              "gather)", sp_k.KERNEL_PER_SEG.name,
               "src/repro_torch/csrc/fused_gather_dual_per_seg.cu",
               "src/repro/kernels/streaming_pipeline.py:138", errs["B5"],
               t_b5, max_abs_err_bf16=errs["B5_bf16"],
               bit_equal_to_b3_per_page=per_seg_bit_equal),
-        entry("flash_attention (B6, GQA flash attention of the LM layers)",
-              fa_k.KERNEL, "src/repro_torch/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:96", errs["B6_bf16"],
-              t_b6, max_abs_err_f32=errs["B6"],
-              ptxas=[line.strip() for line in fa_k.KERNEL.log.read_text()
-                     .splitlines() if "registers" in line or "spill" in line]),
     ]}
+    b6_ptxas = [line.strip() for line in fa_k.KERNEL.log.read_text()
+                .splitlines() if "registers" in line or "spill" in line]
+    b6_src = "src/repro_torch/csrc/flash_attention.cu"
+    b6_rep = "src/repro/kernels/flash_attention.py:96"
+    line["kernels"] += [
+        entry("flash_mma_kernel (B6 prefill, bf16 mma.sync tensor cores)",
+              f"{B6}.prefill_mma", b6_src, b6_rep,
+              errs["B6 prefill_mma bf16"],
+              t_b6["prefill_mma"], ptxas=b6_ptxas),
+        entry("flash_tile_kernel (B6 prefill, fp32 CUDA cores)",
+              f"{B6}.prefill_tile", b6_src, b6_rep,
+              errs["B6 prefill_tile f32"], t_b6["prefill_tile"]),
+        entry("flash_decode_split_kernel (B6 decode, split-KV partials)",
+              f"{B6}.decode_split", b6_src, b6_rep, errs["B6_partials"],
+              t_b6["decode_split"], decode_plan=decode_plan,
+              max_abs_err_decode_bf16=errs["B6 decode_split bf16"],
+              max_abs_err_decode_f32=errs["B6 decode_split f32"]),
+        entry("flash_decode_combine_kernel (B6 decode, log-sum-exp merge)",
+              f"{B6}.decode_combine", b6_src, b6_rep, errs["B6_combine"],
+              t_b6["decode_combine"]),
+    ]
     print(json.dumps(line))
     lm_arm = arms["F"]
     print(json.dumps({"arms_wall": {

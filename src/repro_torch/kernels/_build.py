@@ -46,14 +46,21 @@ class CudaKernel:
     int, ``f`` for a float. Every entry returns ``cudaGetLastError()``
     after its launch.
     ``launches`` is incremented by the wrapper at each kernel launch and
-    nowhere else, so a run can show that it went through the kernel.
+    nowhere else, so a run can show that it went through the kernel;
+    ``entry_launches`` counts the launches of each entry point (a source
+    with several kernels has one entry per kernel and dtype).
     """
 
     def __init__(self, name: str, entries: Dict[str, str]):
         self.name = name
         self.entries = entries
-        self.launches = 0
         self._lib = None
+        self.reset()
+
+    def reset(self) -> None:
+        """Set every launch count to 0."""
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.entries, 0)
 
     @property
     def source(self) -> Path:
@@ -89,6 +96,7 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}.{entry}: CUDA error {err} at "
                                "launch")
         self.launches += 1
+        self.entry_launches[entry] += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[CudaKernel]:

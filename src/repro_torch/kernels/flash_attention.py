@@ -2,8 +2,8 @@
 LM layers' prefill and decode attention.
 
 Port of ``repro.kernels.flash_attention.flash_attention`` (a Pallas TPU
-kernel) as a hand-written CUDA kernel, ``csrc/flash_attention.cu``; see the
-note there for its bound and design.
+kernel) as hand-written CUDA kernels, ``csrc/flash_attention.cu``; see the
+note there for their bounds and designs.
 
 ``q [B, H, Sq, D]``, ``k``/``v [B, KVH, Sk, D]`` with ``H % KVH == 0``
 (query head ``h`` reads KV head ``h // (H // KVH)``) -> ``[B, H, Sq, D]``
@@ -13,22 +13,81 @@ counted from 0 for both (top-left alignment, as the Pallas kernel; the
 reference's oracle ``attention_ref`` aligns bottom-right, and the two
 differ when ``Sq != Sk``). Masked scores are ``NEG_INF = -1e30``, finite,
 so a fully masked tile gives no NaN.
+
+On the card the wrapper routes by shape and dtype:
+
+============================  ==========================================
+``Sq == 1``, either dtype     split-KV decode: partials over the key
+                              ranges of :func:`decode_split_plan`, then
+                              their log-sum-exp merge (two kernels)
+``Sq > 1``, bfloat16          the ``mma.sync`` tensor-core kernel
+``Sq > 1``, float32           the CUDA-core tile kernel
+============================  ==========================================
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels._build import CudaKernel
+from repro_torch.utils import cdiv
 
-KERNEL = CudaKernel("flash_attention",
-                    {"flash_attention_f32": "ppppiiiiiiiifp",
-                     "flash_attention_bf16": "ppppiiiiiiiifp"})
+KERNEL = CudaKernel("flash_attention", {
+    "flash_prefill_f32": "ppppiiiiiiiifp",
+    "flash_prefill_bf16": "ppppiiiiiiiifp",
+    "flash_decode_split_f32": "ppppppiiiiiiiifp",
+    "flash_decode_split_bf16": "ppppppiiiiiiiifp",
+    "flash_decode_combine_f32": "ppppiiiip",
+    "flash_decode_combine_bf16": "ppppiiiip"})
+# the kernels of csrc/flash_attention.cu and the entries that launch each
+KERNELS = {"decode_split": ("flash_decode_split_f32",
+                            "flash_decode_split_bf16"),
+           "decode_combine": ("flash_decode_combine_f32",
+                              "flash_decode_combine_bf16"),
+           "prefill_mma": ("flash_prefill_bf16",),
+           "prefill_tile": ("flash_prefill_f32",)}
 HEAD_DIMS = (64, 128)
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 NEG_INF = -1e30
+DECODE_TILE = 64  # the split plan's granule: a decode CTA's key tile
+H100_SMS = 132
+
+
+def check_head_dim(d: int) -> None:
+    """Raise for a head dim the kernels do not take (the plain version
+    takes any)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+
+
+def launches_by_kernel() -> Dict[str, int]:
+    """Launches of each kernel of ``KERNELS`` since the last reset."""
+    return {name: sum(KERNEL.entry_launches[e] for e in entries)
+            for name, entries in KERNELS.items()}
+
+
+def decode_split_plan(sk: int, bkvh: int, target_ctas: int = 2 * H100_SMS
+                      ) -> Tuple[int, int]:
+    """``(splits, split_len)``: the key ranges ``[s * split_len, (s + 1) *
+    split_len)`` (the last cut at ``sk``) that each of the decode's ``bkvh
+    = B * KVH`` CTA rows splits the cache into. ``split_len`` is the
+    longest multiple of ``DECODE_TILE`` that still gives ``splits * bkvh >=
+    target_ctas``, and ``DECODE_TILE`` where the cache is too short for
+    that. It depends on the cache length ``sk`` only, not on ``kv_len``,
+    so the grid is the same on every decode tick; range 0 starts at key
+    0."""
+    want = max(1, cdiv(target_ctas, max(bkvh, 1)))
+    split_len = max(DECODE_TILE, sk // want // DECODE_TILE * DECODE_TILE)
+    return cdiv(sk, split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_target_ctas(device_index: int) -> int:
+    """Two CTAs per SM of the card."""
+    return 2 * torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
 
 
 def _shapes(q, k, v, kv_len):
@@ -72,10 +131,55 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (p @ v.float()).reshape(b, h, sq, d).to(q.dtype)
 
 
+def decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, kv_len: int, splits: int,
+                          split_len: int, sm_scale: Optional[float] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain version of the split-KV decode kernel: for q ``[B, H, 1, D]``,
+    each key range's fp32 partials ``m, l [B, H, splits]`` (the range's max
+    score and softmax denominator at that max) and ``o [B, H, splits, D]``
+    (its unnormalized P.V); a range wholly past ``kv_len`` gives
+    ``(NEG_INF, 0, 0)``."""
+    b, h, kvh, sq, sk, d, kv_len = _shapes(q, k, v, kv_len)
+    if sq != 1:
+        raise ValueError(f"decode_partials_plain: Sq {sq}, expected 1")
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    g = h // kvh
+    m = torch.full((b, h, splits), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, splits), device=q.device)
+    o = torch.zeros((b, h, splits, d), device=q.device)
+    qg = q.float().reshape(b, kvh, g, d)
+    for s in range(splits):
+        lo, hi = s * split_len, min((s + 1) * split_len, kv_len)
+        if lo >= hi:
+            continue
+        sc = (qg @ k[:, :, lo:hi].float().transpose(-1, -2)) * sm_scale
+        ms = sc.amax(-1, keepdim=True)
+        p = torch.exp(sc - ms)
+        m[:, :, s] = ms.reshape(b, h)
+        l[:, :, s] = p.sum(-1).reshape(b, h)
+        o[:, :, s] = (p @ v[:, :, lo:hi].float()).reshape(b, h, d)
+    return m, l, o
+
+
+def decode_combine_plain(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the combine kernel: the log-sum-exp merge of the
+    partials (``src/repro/parallel/decode_attention.py``'s cross-shard
+    merge) -> ``[B, H, 1, D]`` in ``dtype``."""
+    big_m = m.amax(-1, keepdim=True)
+    w = torch.exp(m - big_m)
+    big_l = (l * w).sum(-1)
+    out = (o * w[..., None]).sum(-2) / torch.clamp(big_l, min=1e-30)[..., None]
+    return out[:, :, None].to(dtype)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel
+    """CPU tensors take the plain version; CUDA tensors launch the kernels
     (anything else raises). ``sm_scale`` defaults to ``D ** -0.5`` and
     ``kv_len`` to ``Sk``."""
     if q.device.type == "cpu":
@@ -88,31 +192,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, 16-byte aligned (the kernel reads 16-byte vectors)."""
+    """Contiguous, 16-byte aligned (the kernels read 16-byte vectors)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch_kernel(q, k, v, *, causal, sm_scale, kv_len) -> torch.Tensor:
+def _checked(q, k, v, kv_len):
+    """What every launch checks before it builds anything."""
     b, h, kvh, sq, sk, d, kv_len = _shapes(q, k, v, kv_len)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
-    if q.dtype not in _ENTRY:
+    check_head_dim(d)
+    if q.dtype not in _TAG:
         raise TypeError(f"flash_attention: dtype {q.dtype} not in "
-                        f"{tuple(_ENTRY)}")
+                        f"{tuple(_TAG)}")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"flash_attention: {name} must be {q.dtype} on "
                             f"{q.device}")
+    return b, h, kvh, sq, sk, d, kv_len
+
+
+def _launch_kernel(q, k, v, *, causal, sm_scale, kv_len) -> torch.Tensor:
+    b, h, kvh, sq, sk, d, kv_len = _checked(q, k, v, kv_len)
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    if sq == 1:
+        if causal:  # top-left: the one query (position 0) sees key 0 only
+            kv_len = 1
+        splits, split_len = decode_split_plan(
+            sk, b * kvh, _decode_target_ctas(q.device.index or 0))
+        parts = decode_partials(q, k, v, kv_len=kv_len, splits=splits,
+                                split_len=split_len, sm_scale=sm_scale)
+        return decode_combine(*parts, q.dtype)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    if b == 0 or h == 0:
+        return out
+    with torch.cuda.device(q.device):
+        KERNEL.call(f"flash_prefill_{_TAG[q.dtype]}", q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kvh,
+                    sq, sk, d, kv_len, int(causal), float(sm_scale),
+                    torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def decode_partials(q, k, v, *, kv_len: int, splits: int, split_len: int,
+                    sm_scale: Optional[float] = None):
+    """The split-KV decode kernel on CUDA tensors alone: the partials of
+    :func:`decode_partials_plain`, in fp32 scratch from ``torch.empty``."""
+    b, h, kvh, sq, sk, d, kv_len = _checked(q, k, v, kv_len)
+    if sq != 1:
+        raise ValueError(f"decode_partials: Sq {sq}, expected 1")
     if sm_scale is None:
         sm_scale = d**-0.5
     q, k, v = (_aligned(t) for t in (q, k, v))
-    out = torch.empty_like(q)
-    if b == 0 or h == 0 or sq == 0:
-        return out
+    m = torch.empty((b, h, splits), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    o = torch.empty((b, h, splits, d), dtype=torch.float32, device=q.device)
+    if b == 0 or h == 0:
+        return m, l, o
     with torch.cuda.device(q.device):
-        KERNEL.call(_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(), b, h, kvh, sq, sk, d,
-                    kv_len, int(causal), float(sm_scale),
+        KERNEL.call(f"flash_decode_split_{_TAG[q.dtype]}", q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(),
+                    o.data_ptr(), b, h, kvh, sk, d, kv_len, splits,
+                    split_len, float(sm_scale),
                     torch.cuda.current_stream().cuda_stream)
+    return m, l, o
+
+
+def decode_combine(m, l, o, dtype: torch.dtype) -> torch.Tensor:
+    """The combine kernel on CUDA tensors alone: the partials' log-sum-exp
+    merge, ``[B, H, 1, D]`` in ``dtype``."""
+    b, h, splits, d = o.shape
+    check_head_dim(d)
+    out = torch.empty((b, h, 1, d), dtype=dtype, device=o.device)
+    if b == 0 or h == 0:
+        return out
+    m, l, o = (_aligned(t) for t in (m, l, o))
+    with torch.cuda.device(o.device):
+        KERNEL.call(f"flash_decode_combine_{_TAG[dtype]}", m.data_ptr(),
+                    l.data_ptr(), o.data_ptr(), out.data_ptr(), b, h, d,
+                    splits, torch.cuda.current_stream().cuda_stream)
     return out

@@ -6,7 +6,7 @@ flash_attention`), where the reference computes the same functions with
 plain einsums: prefill is causal attention with ``Sq == Sk`` (the
 reference's ``_blocked_attn``), decode is attention over the cache with
 keys ``<= index`` valid (``attn_decode``'s ``valid = kpos <= index``), i.e.
-``causal=False, kv_len=index + 1``. Softmax in fp32 either way.
+``causal=False, kv_len=min(index + 1, S_max)``. Softmax in fp32 either way.
 
 Not ported: local (chunked-window) attention, logit soft-capping and
 cross-attention (``ROADMAP.md`` A14); the entry points raise for them
@@ -125,21 +125,24 @@ def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache_len: int
 def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
                 index: int) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode. x [B, 1, D]; ``index`` (a host int) is the
-    position every row decodes at. The new K/V are written into ``cache``
-    in place at ``index`` (on the current stream), then B6 attends over
-    the cache with keys ``<= index`` valid."""
+    position every row decodes at (RoPE's position). The new K/V are
+    written into ``cache`` in place at row ``min(index, S_max - 1)`` (on
+    the current stream), then B6 attends over the cache with keys
+    ``<= index`` valid. At ``index >= S_max`` that is the reference's rule:
+    ``dynamic_update_slice_in_dim`` clamps the write to the last row, and
+    every key counts as valid."""
     b = x.shape[0]
     s_max = cache.k.shape[2]
-    if not 0 <= index < s_max:
-        raise ValueError(f"decode index {index} outside the cache [0, "
-                         f"{s_max})")
+    if index < 0:
+        raise ValueError(f"decode index {index} < 0")
     positions = torch.full((b, 1), index, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    cache.k[:, :, index] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, :, index] = v[:, 0].to(cache.v.dtype)
+    row = min(index, s_max - 1)
+    cache.k[:, :, row] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, :, row] = v[:, 0].to(cache.v.dtype)
     o = fa.flash_attention(q.transpose(1, 2), cache.k, cache.v,
                            causal=False, sm_scale=cfg.head_dim**-0.5,
-                           kv_len=index + 1)  # [B, H, 1, D]
+                           kv_len=min(index + 1, s_max))  # [B, H, 1, D]
     o = o.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return o @ params["wo"], cache
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import lm
 from repro_torch.utils import DeviceLike, resolve_device
 
@@ -42,11 +43,15 @@ class Request:
 class ServeEngine:
     """Fixed-slot continuous batching (decode batch = num_slots). Runs on
     ``device`` (default: the CUDA card; raises without one), where
-    ``params`` must lie."""
+    ``params`` must lie. On a CUDA device ``cfg.head_dim`` must be one of
+    ``flash_attention.HEAD_DIMS`` (a ValueError here, not at the first
+    launch)."""
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int = 4,
                  max_len: int = 256, device: DeviceLike = None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":  # B6's kernels take these head dims
+            fa.check_head_dim(cfg.head_dim)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, engine "
                              f"on {self.device}")

@@ -155,3 +155,50 @@ def test_wrapper_device_rule_and_kernel_limits():
     with pytest.raises(ValueError, match="GQA"):
         t_fa.flash_attention(q[:, :3], k, v)
     assert t_fa.KERNEL.launches == 0 and t_fa.KERNEL._lib is None
+
+
+# arm F's first decode tick: 4 slots x 8 KV heads over a 2,084-row cache
+ARM_F_SK, ARM_F_BKVH = 2084, 32
+
+
+@pytest.mark.parametrize("bkvh", [1, ARM_F_BKVH])
+@pytest.mark.parametrize("sk", [1, 63, 64, 65, ARM_F_SK])
+def test_decode_split_plan_covers_the_cache_once(sk, bkvh):
+    target = 2 * t_fa.H100_SMS
+    splits, split_len = t_fa.decode_split_plan(sk, bkvh, target)
+    ranges = [range(s * split_len, min((s + 1) * split_len, sk))
+              for s in range(splits)]
+    assert ranges[0].start == 0
+    assert sorted(key for r in ranges for key in r) == list(range(sk))
+    assert all(len(r) > 0 for r in ranges)
+    assert split_len % t_fa.DECODE_TILE == 0
+    # the target is met unless the ranges are already one tile long
+    assert splits * bkvh >= target or split_len == t_fa.DECODE_TILE
+
+
+def test_decode_split_plan_reaches_the_target_at_arm_f():
+    splits, split_len = t_fa.decode_split_plan(ARM_F_SK, ARM_F_BKVH)
+    assert splits * ARM_F_BKVH >= 2 * t_fa.H100_SMS
+    # the same grid at every kv_len of the run: the plan reads Sk only
+    assert (splits, split_len) == (11, 192)
+
+
+@pytest.mark.parametrize("kv_len", [1, 63, 64, 65, 129, 200])
+def test_decode_partials_and_combine_match_attn_decode(kv_len):
+    """The split-KV decode's plain versions (the arithmetic its two
+    kernels do): per-range partials merged by log-sum-exp equal one
+    softmax over the valid keys, ranges past kv_len included."""
+    b, h, kvh, sk, d = 2, 10, 2, 200, 64
+    q, k, v = _qkv(kv_len, b, h, kvh, 1, sk, d)
+    splits, split_len = t_fa.decode_split_plan(sk, b * kvh, 32)
+    assert splits == 4  # ranges of 64; kv_len 1 leaves three empty
+    tq, tk, tv = (torch.as_tensor(a) for a in (q, k, v))
+    m, l, o = t_fa.decode_partials_plain(tq, tk, tv, kv_len=kv_len,
+                                         splits=splits, split_len=split_len)
+    empty = [s for s in range(splits) if s * split_len >= kv_len]
+    assert bool((m[:, :, empty] == t_fa.NEG_INF).all())
+    assert bool((l[:, :, empty] == 0).all() and (o[:, :, empty] == 0).all())
+    got = t_fa.decode_combine_plain(m, l, o, torch.float32)
+    _close(got, _decode_einsum(q, k, v, kv_len - 1))
+    _close(got, t_fa.flash_attention_plain(tq, tk, tv, causal=False,
+                                           kv_len=kv_len))

@@ -232,3 +232,27 @@ def test_unported_attention_variants_raise():
     for knob in ("encoder_layers", "moe_num_experts", "q_block", "remat"):
         with pytest.raises(TypeError):
             cfg.with_(**{knob: 1})
+
+
+@pytest.mark.parametrize("past", [0, 2])
+def test_attention_decode_at_and_past_the_cache_end_matches_jax(past):
+    """At index >= S_max the reference clamps the K/V write to the last
+    row (``dynamic_update_slice_in_dim``) and counts every key valid; RoPE
+    stays at ``index``. The port does the same."""
+    tcfg, jcfg = _cfg("qwen2.5-32b")
+    mixer = _jax_params(jcfg)["blocks"][0]["mixer"]
+    mixer = {k: v[0] for k, v in mixer.items()}
+    jp, tp = jax.tree.map(jnp.asarray, mixer), _t(mixer)
+    rng = np.random.default_rng(5)
+    b, s = 2, 8
+    x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
+    _, j_cache = j_attn.attn_prefill(jp, jnp.asarray(x), jcfg, s)
+    _, t_cache = t_attn.attn_prefill(tp, torch.as_tensor(x), tcfg, s)
+    xd = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
+    j_out, j_cache = j_attn.attn_decode(jp, jnp.asarray(xd), jcfg, j_cache,
+                                        jnp.asarray(s + past))
+    t_out, t_cache = t_attn.attn_decode(tp, torch.as_tensor(xd), tcfg,
+                                        t_cache, s + past)
+    _close(t_out, j_out)
+    _close(t_cache.k, j_cache.k)
+    _close(t_cache.v, j_cache.v)

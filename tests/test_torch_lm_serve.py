@@ -105,3 +105,30 @@ def test_more_requests_than_slots(model):
                               max_len=24)
     assert all(len(r.out) == 4 for r in reqs)
     assert stats["ticks"] >= 3 * 3  # three waves of three decode ticks
+
+
+def test_prompt_of_max_len_tokens_matches_jax(model):
+    """A prompt of exactly max_len tokens: the first decode runs at index
+    max_len, past the cache; both engines clamp its K/V write to the last
+    row and serve it."""
+    prompts = _prompts(4, [16, 16])
+    reqs, stats = _serve_both(model, prompts, max_new=4, num_slots=2,
+                              max_len=16)
+    assert all(len(r.out) == 2 for r in reqs)  # the prefill's and one decode
+    assert stats["ticks"] == 1
+
+
+def test_cuda_engine_rejects_head_dims_the_kernels_do_not_take():
+    """B6's kernels take head_dim 64 and 128; a CUDA engine says so when
+    it is built, not at its first launch (no card is needed to see it)."""
+    cfg = t_registry.get_reduced(ARCH)
+    assert cfg.head_dim == 128  # REDUCED keeps the full width's head_dim
+    odd = cfg.with_(head_dim=16)
+    params = t_lm.init_params(odd, device="cpu")
+    with pytest.raises(ValueError, match="head_dim 16"):
+        ServeEngine(odd, params, num_slots=1, max_len=8, device="cuda")
+    ServeEngine(odd, params, num_slots=1, max_len=8, device="cpu")
+    # a supported head_dim passes the check and meets the next one
+    with pytest.raises(ValueError, match="params on cpu"):
+        ServeEngine(cfg, t_lm.init_params(cfg, device="cpu"), num_slots=1,
+                    max_len=8, device="cuda")
