@@ -10,18 +10,25 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    name and power limit);
 2. build every CUDA kernel of the path from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together) and print the build seconds;
+   B2's SASS (``cuobjdump``) must hold TF32 ``HMMA`` instructions;
 3. hold each kernel against its plain PyTorch version on the card, on
    inputs the main path builds, TF32 off: the Gathering Unit (B1) with
    float32 and bfloat16 tables, both MVoxel layouts, 1 and 4 segments; the
-   fused MLP (B2) at C=8, H=64; the fused tick's dual gather (B3) on the
-   RIT blocks a fused tick builds (captured from a real tick), float32 and
-   bfloat16, both layouts, 1 and 4 segments, also against two B1 launches
-   on the same blocks; the mixed-scene kernels B4 (Gathering Unit per
-   segment's page) and B5 (dual gather per segment's page) on the blocks
-   the first tick of arm E's mixed-scene serving run builds (captured from
-   its admission priming and its fused sweep), float32 and bfloat16, both
-   layouts, also bit for bit against B1 (B4) and B3 (B5) run on each
-   segment's page; flash attention (B6), whose four kernels are the
+   fused MLP (B2, 3xTF32 on the tensor cores) at arm B's C=8, H=64 for S =
+   131,072 (a reference chunk) and 4,096 (one pooled-fill chunk), and at
+   the reference's shapes (1000, 8, 64), (555, 16, 32), (64, 4, 128) with
+   weights at its initializer's scales; the fused tick's dual gather (B3)
+   on the RIT blocks a fused tick builds (captured from a real tick),
+   float32 and bfloat16, both layouts, 1 and 4 segments, also against two
+   B1 launches on the same blocks; the mixed-scene kernels B4 (Gathering
+   Unit per segment's page) and B5 (dual gather per segment's page) on the
+   blocks the first tick of arm E's mixed-scene serving run builds
+   (captured from its admission priming and its fused sweep), float32 and
+   bfloat16, both layouts, also bit for bit against B1 (B4) and B3 (B5) run
+   on each segment's page; B4 also under maps that work its prefetched
+   second buffer, on arm E's captured rows, float32 and bfloat16: all
+   page 0, [0, 1] x 4 (num_seg 8), -1 and K between valid pages (NaN on
+   exactly those rows, the others bit-equal to B1) and one segment; flash attention (B6), whose four kernels are the
    bfloat16 tensor-core prefill, the float32 tile prefill and the split-KV
    decode with its log-sum-exp combine: at arm F's first prefill
    ([1, 40, 2048, 128] against [1, 8, 2048, 128], causal, bfloat16 and
@@ -103,7 +110,10 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    unequal positions, so the shared decode index matters) on the card and
    on the CPU: equal token streams and stats, prefill logits within
    1e-3; it runs B6's float32 kernels (tile prefill, split-KV decode);
-5. time each kernel and its plain version at the arms' shapes (device
+5. time each kernel and its plain version at the arms' shapes (B4 also
+   at the shape of arm E's staged per-scene fill, captured in a spied
+   rerun of its staged fleet; B2 also beside its 3xTF32 tensor-core
+   bound) (device
    time from CUDA events, see ``time_ms``) beside the least time the card
    could take (B6 also beside ``scaled_dot_product_attention`` on the
    same tensors, the library yardstick), and print them as one JSON line,
@@ -172,6 +182,48 @@ def check_close(name: str, got, want, tol) -> float:
              f"(max abs err {err:.3g}, tolerance {tol})")
     print(f"check {name}: max abs err {err:.3g}")
     return err
+
+
+def check_close_nan(name: str, got, want, tol) -> float:
+    """``check_close`` where NaN is expected: the NaNs must sit at the
+    same places, and the rest must agree."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        fail(f"{name}: NaN at other places than the plain version's")
+    ok = ~torch.isnan(want)
+    return check_close(name, got[ok], want[ok], tol)
+
+
+def mlp_ref_inputs(n: int, c: int, h: int, device, seed: int = 0) -> tuple:
+    """B2's arguments at [S = n, C = c, H = h]: weights at the reference
+    initializer's scales (N(0, 1) / sqrt(fan_in), zero biases) drawn from
+    numpy ``seed`` as ``arm_b_params`` draws them, features N(0, 1) and
+    the direction code of random unit directions."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                    device=device)
+    normal = lambda rows, cols: f32(rng.standard_normal((rows, cols))
+                                    / np.sqrt(rows))
+    w = {"w1": normal(c, h), "b1": f32(np.zeros(h)), "w2": normal(h, h),
+         "b2": f32(np.zeros(h)), "w_sigma": normal(h, 1),
+         "w_rgb": normal(h + 9, 3), "b_rgb": f32(np.zeros(3))}
+    feats = f32(rng.standard_normal((n, c)))
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    x, y, z = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    enc = f32(np.concatenate([d, x * y, y * z, x * z, x * x, y * y, z * z],
+                             -1))
+    return (feats, enc) + tuple(w.values())
+
+
+# the reference's B2 shapes (tests/test_kernels.py::test_fused_mlp_shapes)
+B2_REF_SHAPES = [(1000, 8, 64), (555, 16, 32), (64, 4, 128)]
+TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
 
 
 def profile_run(fn) -> dict:
@@ -795,6 +847,17 @@ def main() -> int:
         for line in k.log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {k.name}: {line.strip()}")
+    # B2 must run on the tensor cores: its SASS holds TF32 HMMAs
+    sass = subprocess.run(
+        [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(mlp_k.KERNEL.library)], capture_output=True, text=True,
+        check=True).stdout.splitlines()
+    b2_hmma = [line.split("*/")[1].split(";")[0].strip() for line in sass
+               if "HMMA" in line and "TF32" in line]
+    print(f"B2 SASS (cuobjdump): {len(b2_hmma)} TF32 HMMA instructions, "
+          f"e.g. {b2_hmma[0] if b2_hmma else None}")
+    if not b2_hmma:
+        fail("B2's SASS holds no TF32 HMMA: it does not use the tensor cores")
 
     phase_done("build")
 
@@ -905,6 +968,17 @@ def main() -> int:
     errs["B2"] = check_close(
         f"B2 C=8 H=64 S={feats_b.shape[0]}", mlp_k.fused_nerf_mlp(*mlp_args),
         mlp_k.fused_nerf_mlp_plain(*mlp_args), F32_TOL)
+    # one pooled-fill chunk of arm B (64 rays x 64 samples), and the
+    # reference's three shapes at its initializer's scales
+    fill = 64 * cfg_b_model.num_samples
+    fill_args = (mlp_args[0][:fill], mlp_args[1][:fill]) + mlp_args[2:]
+    b2_cases = [(f"C=8 H=64 S={fill} (one pooled-fill chunk)", fill_args)]
+    b2_cases += [(f"C={c} H={h} S={n} (reference shape)",
+                  mlp_ref_inputs(n, c, h, dev)) for n, c, h in B2_REF_SHAPES]
+    for label, a in b2_cases:
+        errs["B2"] = max(errs["B2"], check_close(
+            f"B2 {label}", mlp_k.fused_nerf_mlp(*a),
+            mlp_k.fused_nerf_mlp_plain(*a), F32_TOL))
     # B3 at arm D's shape: a 4-session fused tick of arm B's model
     eng_d = DeviceSparwEngine(model_b, params_b, config=cfg_d)
     (tbl, ih, wh, ir, wr), ns = capture_b3_inputs(eng_d, 4)
@@ -965,6 +1039,47 @@ def main() -> int:
             if layout == "identity" and tag == "f32":
                 shapes["B4_E"] = (b4_args, ns4)
                 shapes["B5_E"] = (b5_args, ns5)
+    # B4 under more maps that work its second buffer (the captured map,
+    # a restage at every segment, is checked above), on arm E's captured
+    # rows (segment s of a map takes the captured segment s mod num_seg):
+    # no restage, alternation over 8 segments, an invalid page (-1, then
+    # K) between valid ones, one segment
+    b4_args, ns4 = shapes["B4_E"]
+    pages, ids, w = b4_args[0], b4_args[2], b4_args[3]
+    k_pages, num_mv = pages.shape[0], pages.shape[1]
+    b4_maps = {"all page 0": [0] * ns4, "alternating": [0, 1] * 4,
+               "-1 between valid": [0, -1, 1, 2],
+               "K between valid": [1, k_pages, 1, 0], "one segment": [2]}
+    seg_of = lambda x, s: x[s * num_mv:(s + 1) * num_mv]
+    b4_map_checks = {}
+    for label, page_map in b4_maps.items():
+        ns = len(page_map)
+        ids_m = torch.cat([seg_of(ids, s % ns4) for s in range(ns)])
+        w_m = torch.cat([seg_of(w, s % ns4) for s in range(ns)])
+        scn_m = torch.tensor(page_map, dtype=torch.int32, device=dev)
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tbl = pages.to(dt)
+            got = gt_k.gather_trilerp_mvoxels_per_seg(tbl, scn_m, ids_m, w_m,
+                                                      num_seg=ns)
+            key = "B4_bf16" if tag == "bf16" else "B4"
+            errs[key] = max(errs[key], check_close_nan(
+                f"B4 {tag} map {page_map} ({label}) ids "
+                f"{tuple(ids_m.shape)}", got,
+                gt_k.gather_trilerp_per_seg_plain(tbl, scn_m, ids_m, w_m, ns),
+                BF16_TOL if tag == "bf16" else F32_TOL))
+            equal = True
+            for s, page in enumerate(page_map):
+                if 0 <= page < k_pages:
+                    equal &= bool(torch.equal(
+                        seg_of(got, s), gt_k.gather_trilerp_mvoxels_segmented(
+                            tbl[page], seg_of(ids_m, s), seg_of(w_m, s),
+                            num_seg=1)))
+                else:
+                    equal &= bool(torch.isnan(seg_of(got, s)).all())
+            b4_map_checks[f"{label} {tag}"] = equal
+            per_seg_bit_equal &= equal
+    print(f"B4 under each map, bit-equal to B1 on each valid page and NaN "
+          f"on the invalid: {json.dumps(b4_map_checks)}")
     print(f"B4 / B5 bit-equal to B1 / B3 on each segment's page: "
           f"{per_seg_bit_equal}")
     if not per_seg_bit_equal:
@@ -1331,6 +1446,30 @@ def main() -> int:
             sess = arm_e_sessions(4, n_frames // 2)
             m = e.run(sess)
             short[fused] = (sess, m, counts())
+        # the staged run once more, recording B4's calls by shape (apart
+        # from the measured run, so the spy costs it nothing): the staged
+        # per-scene fill's shape, which the timings use
+        b4_calls = {}
+        real_b4 = gt_k.gather_trilerp_mvoxels_per_seg
+
+        def spy_b4(*args, **kw):
+            key = (tuple(args[0].shape), str(args[0].dtype),
+                   tuple(args[2].shape), kw["num_seg"])
+            b4_calls.setdefault(key, [0, (args, kw["num_seg"])])[0] += 1
+            return real_b4(*args, **kw)
+
+        gt_k.gather_trilerp_mvoxels_per_seg = spy_b4
+        try:
+            scene_engine(ren, fused_tick=False).run(
+                arm_e_sessions(4, n_frames // 2))
+        finally:
+            gt_k.gather_trilerp_mvoxels_per_seg = real_b4
+        b4_by_shape = sorted(b4_calls.items(), key=lambda kv: -kv[1][0])
+        shapes["B4_fill"] = b4_by_shape[0][1][1]
+        b4_staged_shapes = [{"pages": list(k[0]), "dtype": k[1],
+                             "ids": list(k[2]), "num_seg": k[3], "calls": v[0]}
+                            for k, v in b4_by_shape]
+        print(f"arm E staged: B4 calls by shape {b4_staged_shapes}")
         (s_f, m_f, l_f), (s_s, m_s, l_s) = short[True], short[False]
         if m_f["ticks"] != m_s["ticks"] or not m_s["complete"] \
                 or l_s["gather_trilerp_per_seg"] == 0 \
@@ -1361,7 +1500,8 @@ def main() -> int:
                 "sessions": 4, "frames_each": n_frames // 2,
                 "ticks": m_f["ticks"], "min_psnr_staged_vs_fused_db":
                 staged_db, "launches_fused": l_f, "launches_staged": l_s,
-                "fused_wall_s": m_f["wall_s"], "staged_wall_s": m_s["wall_s"]}}
+                "fused_wall_s": m_f["wall_s"], "staged_wall_s": m_s["wall_s"],
+                "staged_b4_calls_by_shape": b4_staged_shapes}}
 
 
     def to_dev(tree, device):
@@ -1623,12 +1763,15 @@ def main() -> int:
                   *b1_cost(*a),
                   f"table {list(a[0].shape)} ids {list(a[1].shape)}")
             for a in (shapes["B1_A"], shapes["B1_B"])]
-    fill = 64 * cfg_b_model.num_samples  # one pooled-fill chunk: 64 rays
-    fill_args = (mlp_args[0][:fill], mlp_args[1][:fill]) + mlp_args[2:]
     t_b2 = [timed(lambda a=a: mlp_k.fused_nerf_mlp(*a),
                   lambda a=a: mlp_k.fused_nerf_mlp_plain(*a), *b2_cost(a),
                   f"S={a[0].shape[0]} C=8 H=64")
             for a in (mlp_args, fill_args)]
+    # B2 runs on the TF32 tensor cores, three products per product (3xTF32):
+    # its bound there, beside the fp32 CUDA-core bound kept in "bound_ms"
+    for t in t_b2:
+        t["bound_ms_3xtf32_tensor"] = 1e3 * max(
+            t["bytes"] / HBM_BYTES_PER_S, 3 * t["flops"] / TF32_FLOP_PER_S)
     t_b3 = [timed(lambda a=a, n=n: sp_k.fused_gather_dual(*a, num_seg=n),
                   lambda a=a, n=n: sp_k.fused_gather_dual_plain(*a, n),
                   *b3_cost(*a),
@@ -1660,6 +1803,21 @@ def main() -> int:
         b4_cost, gt_k.gather_trilerp_mvoxels_segmented,
         gt_k.gather_trilerp_plain, b1_cost, b4_args, ns4,
         f"ids {list(b4_args[2].shape)}")
+    # B4 at the shape of the staged per-scene fill (most of its launches),
+    # captured from arm E's staged fleet
+    fill4, ns_fill = shapes["B4_fill"]
+    errs["B4"] = max(errs["B4"], check_close(
+        f"B4 staged fill shape pages {tuple(fill4[0].shape)} map "
+        f"{fill4[1].tolist()} ids {tuple(fill4[2].shape)}",
+        gt_k.gather_trilerp_mvoxels_per_seg(*fill4, num_seg=ns_fill),
+        gt_k.gather_trilerp_per_seg_plain(*fill4, ns_fill), F32_TOL))
+    t_b4.append(timed(
+        lambda: gt_k.gather_trilerp_mvoxels_per_seg(*fill4, num_seg=ns_fill),
+        lambda: gt_k.gather_trilerp_per_seg_plain(*fill4, ns_fill),
+        *b4_cost(*fill4),
+        f"staged per-scene fill (arm E's staged fleet): pages "
+        f"{list(fill4[0].shape)} map {fill4[1].tolist()} ids "
+        f"{list(fill4[2].shape)}"))
     t_b5 = per_seg_timings(
         sp_k.fused_gather_dual_per_seg, sp_k.fused_gather_dual_per_seg_plain,
         b5_cost, sp_k.fused_gather_dual, sp_k.fused_gather_dual_plain,
@@ -1735,9 +1893,11 @@ def main() -> int:
               gt_k.KERNEL.name, "src/repro_torch/csrc/gather_trilerp.cu",
               "src/repro/kernels/gather_trilerp.py:95", errs["B1"], t_b1,
               max_abs_err_bf16=errs["B1_bf16"]),
-        entry("fused_nerf_mlp (B2, fused radiance MLP)", mlp_k.KERNEL.name,
-              "src/repro_torch/csrc/fused_nerf_mlp.cu",
-              "src/repro/kernels/fused_nerf_mlp.py:54", errs["B2"], t_b2),
+        entry("fused_nerf_mlp (B2, fused radiance MLP, 3xTF32 mma.sync)",
+              mlp_k.KERNEL.name, "src/repro_torch/csrc/fused_nerf_mlp.cu",
+              "src/repro/kernels/fused_nerf_mlp.py:54", errs["B2"], t_b2,
+              bound_ms_3xtf32_tensor=t_b2[0]["bound_ms_3xtf32_tensor"],
+              sass_tf32_hmma=len(b2_hmma)),
         entry("fused_gather_dual (B3, fused tick dual gather)",
               sp_k.KERNEL.name,
               "src/repro_torch/csrc/fused_gather_dual.cu",
@@ -1750,7 +1910,8 @@ def main() -> int:
               "src/repro_torch/csrc/gather_trilerp_per_seg.cu",
               "src/repro/kernels/gather_trilerp.py:143", errs["B4"], t_b4,
               max_abs_err_bf16=errs["B4_bf16"],
-              bit_equal_to_b1_per_page=per_seg_bit_equal),
+              bit_equal_to_b1_per_page=per_seg_bit_equal,
+              maps_checked=b4_map_checks),
         entry("fused_gather_dual_per_seg (B5, mixed-scene fused tick dual "
               "gather)", sp_k.KERNEL_PER_SEG.name,
               "src/repro_torch/csrc/fused_gather_dual_per_seg.cu",

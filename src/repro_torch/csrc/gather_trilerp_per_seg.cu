@@ -19,23 +19,41 @@
 // What bounds it on an H100: bytes. Per (s, m, i) row it reads 8 ids and
 // 8 weights (64 B) and writes C outputs, doing 8 multiply-adds per output;
 // each distinct page's halo block is read once per MVoxel. At the serving
-// path's shapes (216 MVoxels x 512-1024 rows x 4 segments, C = 4) that is
-// 30-60 MB, i.e. 9-18 us at 3.35 TB/s, against well under a GFLOP.
+// path's shapes (216 MVoxels x 512 rows x 4 segments, C = 4, 3 distinct
+// pages) that is ~43 MB, ~12.8 us at 3.35 TB/s, against well under a GFLOP.
 //
-// Design: B1's (csrc/gather_trilerp.cu). One CTA per MVoxel loops over the
-// segments; for each it reads the segment's page and stages that page's
-// halo block [P, C] into shared memory (converted to fp32) only when it
-// differs from the block already staged, so segments that share a scene
-// -- adjacent or not, as long as no other page comes between -- reuse one
-// staged block: one pass over the distinct resident tables per MVoxel.
-// The map entry is the same for every thread of the CTA, so the restage
-// branch (with its two barriers) is uniform. Each thread owns one (row,
-// channel) output, so consecutive threads write consecutive addresses. The
-// per-output arithmetic is B1's exactly: 8 indexed shared-memory loads,
-// each step a separately rounded multiply and add (no FMA contraction) in
-// v order, so B4 on segment s is bit-equal to B1 run on page
-// scene_of_seg[s], and to the plain PyTorch version. An id outside [0, P)
-// or a page outside [0, K) yields NaN instead of an out-of-bounds read.
+// Design:
+//  * A CTA of 256 threads owns 256 RIT rows of one MVoxel (cap / 256 CTAs
+//    per MVoxel, 432 CTAs at cap 512) and walks the segments in order; a
+//    thread owns one row and computes all C channels of it. The row's 8
+//    ids and 8 weights come in as two int4 and two float4 loads, issued
+//    before a page switch's wait, so they are in flight through it; at
+//    C = 4 fp32 the thread stores one 16-byte vector. (Loading each row a
+//    segment ahead, in registers, measured slower on the card.) With one thread per row and the segments
+//    walked in order, the rows cap the warps at num_mv * cap / 32: 3,456,
+//    ~26 an SM, all resident in one wave at arm E's shape.
+//  * Two shared-memory buffers hold halo blocks [P, C] in the page's own
+//    dtype (bf16 -> fp32 at the read is exact, so the arithmetic does not
+//    change; raw bytes suit cp.async). When segment s switches to a new
+//    page, the block of the next valid page that differs from it is
+//    issued with cp.async into the other buffer, unless that buffer
+//    already holds it, and overlaps segment s's gathers. A page switch
+//    costs one cp.async.wait_group and one barrier (which also frees the
+//    buffer the next prefetch overwrites); segments that share the staged
+//    page, and invalid segments, take no barrier. The alternating map
+//    [0, 1, 0, 1, ...] stages two blocks in all. Copies are 16, 8 or 4
+//    bytes, the largest that divides the block's address and size (fp32
+//    C = 4: 11,664 B, 16-byte copies; bf16: 5,832 B, 8-byte copies);
+//    plain loads otherwise.
+//  * The map entry is the same for every thread of the CTA, so every
+//    branch on it is uniform. Invalid pages are never prefetched; an
+//    invalid segment's rows are NaN.
+//  * The per-output arithmetic is B1's exactly: for v = 0..7 in order,
+//    acc = __fadd_rn(acc, __fmul_rn(w_v, x_v)) from 0.0f (no FMA
+//    contraction), so B4 on segment s is bit-equal to B1 run on page
+//    scene_of_seg[s], and to the plain PyTorch version. An id outside
+//    [0, P) or a page outside [0, K) yields NaN instead of an
+//    out-of-bounds read.
 // The file is self-contained (no header shared with B1), so a library
 // rebuilds exactly when its own source changes.
 
@@ -44,82 +62,302 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+constexpr int kThreads = 256;  // RIT rows a CTA owns
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(N));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_units(char* dst, const char* src,
+                                           size_t bytes) {
+  for (size_t k = threadIdx.x * static_cast<size_t>(N); k < bytes;
+       k += static_cast<size_t>(blockDim.x) * N) {
+    cp_async<N>(dst + k, src + k);
+  }
+}
+
+// issue the copy of one halo block into a shared buffer (asynchronous
+// where the alignment allows; the caller waits and syncs before reading)
+__device__ __forceinline__ void stage_block(char* dst, const char* src,
+                                            size_t bytes) {
+  const size_t align = reinterpret_cast<uintptr_t>(src) | bytes;
+  if ((align & 15) == 0) {
+    copy_units<16>(dst, src, bytes);
+  } else if ((align & 7) == 0) {
+    copy_units<8>(dst, src, bytes);
+  } else if ((align & 3) == 0) {
+    copy_units<4>(dst, src, bytes);
+  } else {
+    for (size_t k = threadIdx.x * 2; k < bytes; k += blockDim.x * 2) {
+      *reinterpret_cast<uint16_t*>(dst + k) =
+          *reinterpret_cast<const uint16_t*>(src + k);
+    }
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void gather_trilerp_per_seg_kernel(
-    const T* __restrict__ pages, const int* __restrict__ scene_of_seg,
-    const int* __restrict__ ids, const float* __restrict__ w,
-    T* __restrict__ out, int num_pages, int num_mv, int num_seg, int p, int c,
-    int cap) {
-  extern __shared__ float blk[];  // [p, c] fp32, the staged halo block
-  const int m = blockIdx.x;
-  const size_t block_elems = static_cast<size_t>(p) * c;
-  const size_t page_elems = static_cast<size_t>(num_mv) * block_elems;
-  const int outputs = cap * c;
-  int staged = -1;  // page whose block m is in shared memory (-1: none)
-  for (int s = 0; s < num_seg; ++s) {
-    const int page = __ldg(scene_of_seg + s);
-    const bool valid =
-        static_cast<unsigned>(page) < static_cast<unsigned>(num_pages);
-    if (valid && page != staged) {
-      __syncthreads();  // every thread is done with the previous block
-      const T* src = pages + page * page_elems + m * block_elems;
-      for (int k = threadIdx.x; k < p * c; k += blockDim.x) {
-        blk[k] = load_f32(src + k);
-      }
-      __syncthreads();
-      staged = page;
+// the C channels of halo row id of a staged block, in fp32
+template <typename T, int C>
+__device__ __forceinline__ void read_row(const T* blk, int id, float* x) {
+  const T* src = blk + static_cast<size_t>(id) * C;
+  if constexpr (sizeof(T) * C == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) x[ch] = to_f32(e[ch]);
+  } else if constexpr (sizeof(T) * C == 32) {
+    const uint4 u0 = *reinterpret_cast<const uint4*>(src);
+    const uint4 u1 = *reinterpret_cast<const uint4*>(src + C / 2);
+    const T* e0 = reinterpret_cast<const T*>(&u0);
+    const T* e1 = reinterpret_cast<const T*>(&u1);
+#pragma unroll
+    for (int ch = 0; ch < C / 2; ++ch) {
+      x[ch] = to_f32(e0[ch]);
+      x[C / 2 + ch] = to_f32(e1[ch]);
     }
-    const size_t row0 = (static_cast<size_t>(s) * num_mv + m) * cap;
-    const int* id_s = ids + row0 * 8;
-    const float* w_s = w + row0 * 8;
-    T* out_s = out + row0 * c;
-    for (int t = threadIdx.x; t < outputs; t += blockDim.x) {
-      const int i = t / c;
-      const int ch = t - i * c;
-      float acc = 0.0f;
+  } else if constexpr (sizeof(T) * C == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) x[ch] = to_f32(e[ch]);
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) x[ch] = to_f32(src[ch]);
+  }
+}
+
+template <typename T, int C>
+__device__ __forceinline__ void store_row(T* dst, const float* acc) {
+  if constexpr (sizeof(T) == 4 && C % 4 == 0) {
+#pragma unroll
+    for (int ch = 0; ch < C; ch += 4) {
+      *reinterpret_cast<float4*>(dst + ch) =
+          make_float4(acc[ch], acc[ch + 1], acc[ch + 2], acc[ch + 3]);
+    }
+  } else if constexpr (sizeof(T) == 2 && C % 4 == 0) {
+#pragma unroll
+    for (int ch = 0; ch < C; ch += 4) {
+      T e[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) store(e + k, acc[ch + k]);
+      *reinterpret_cast<uint2*>(dst + ch) = *reinterpret_cast<uint2*>(e);
+    }
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) store(dst + ch, acc[ch]);
+  }
+}
+
+struct Row {
+  int id[8];
+  float w[8];
+};
+
+__device__ __forceinline__ void load_row(const int* __restrict__ ids,
+                                         const float* __restrict__ w,
+                                         size_t r, Row& row) {
+  const int4* ip = reinterpret_cast<const int4*>(ids + r * 8);
+  const float4* wp = reinterpret_cast<const float4*>(w + r * 8);
+  const int4 i0 = __ldg(ip), i1 = __ldg(ip + 1);
+  const float4 w0 = __ldg(wp), w1 = __ldg(wp + 1);
+  row.id[0] = i0.x; row.id[1] = i0.y; row.id[2] = i0.z; row.id[3] = i0.w;
+  row.id[4] = i1.x; row.id[5] = i1.y; row.id[6] = i1.z; row.id[7] = i1.w;
+  row.w[0] = w0.x; row.w[1] = w0.y; row.w[2] = w0.z; row.w[3] = w0.w;
+  row.w[4] = w1.x; row.w[5] = w1.y; row.w[6] = w1.z; row.w[7] = w1.w;
+}
+
+__device__ __forceinline__ bool valid_page(int page, int num_pages) {
+  return static_cast<unsigned>(page) < static_cast<unsigned>(num_pages);
+}
+
+// the first segment at or after s whose page is valid and differs from
+// `other`; -1 if none
+__device__ __forceinline__ int next_page(const int* __restrict__ map, int s,
+                                         int num_seg, int num_pages,
+                                         int other) {
+  for (; s < num_seg; ++s) {
+    const int page = __ldg(map + s);
+    if (valid_page(page, num_pages) && page != other) return page;
+  }
+  return -1;
+}
+
+// CC: the channel count as a template value (4 or 8), 0 for any other,
+// read from c at run time (up to kMaxC)
+constexpr int kMaxC = 32;
+
+template <typename T, int CC>
+__global__ void __launch_bounds__(kThreads) gather_trilerp_per_seg_kernel(
+    const T* __restrict__ pages, const int* __restrict__ map,
+    const int* __restrict__ ids, const float* __restrict__ w,
+    T* __restrict__ out, int num_pages, int num_mv, int num_seg, int p,
+    int c_rt, int cap, size_t buf_stride) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr int C = CC ? CC : kMaxC;  // register arrays' size
+  const int c = CC ? CC : c_rt;
+  const int m = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;  // this thread's row
+  const bool live = i < cap;
+  const size_t block_elems = static_cast<size_t>(p) * c;
+  const size_t block_bytes = block_elems * sizeof(T);
+  const size_t page_elems = static_cast<size_t>(num_mv) * block_elems;
+  const T* blk_src = pages + static_cast<size_t>(m) * block_elems;
+  char* buf[2] = {smem, smem + buf_stride};
+  int held[2] = {-1, -1};  // the page each buffer holds (or is loading)
+  int cur = 1;             // the buffer segments read; none staged yet
+
+  // prologue: the first valid page into buffer 0
+  const int first = next_page(map, 0, num_seg, num_pages, -1);
+  if (first >= 0) {
+    stage_block(buf[0],
+                reinterpret_cast<const char*>(blk_src + first * page_elems),
+                block_bytes);
+    held[0] = first;
+  }
+  for (int s = 0; s < num_seg; ++s) {
+    const int page = __ldg(map + s);
+    const bool valid = valid_page(page, num_pages);
+    const size_t r = (static_cast<size_t>(s) * num_mv + m) * cap + i;
+    // the row's ids and weights, in flight through a page switch's wait
+    Row row;
+    if (live && valid) load_row(ids, w, r, row);
+    if (valid && page != held[cur]) {
+      // the page was prefetched into the other buffer: wait for it; the
+      // barrier also frees this buffer for the next prefetch
+      cp_async_wait_all();
+      __syncthreads();
+      cur ^= 1;
+      const int np = next_page(map, s + 1, num_seg, num_pages, page);
+      if (np >= 0 && np != held[cur ^ 1]) {
+        stage_block(buf[cur ^ 1],
+                    reinterpret_cast<const char*>(blk_src + np * page_elems),
+                    block_bytes);
+        held[cur ^ 1] = np;
+      }
+    }
+    if (live) {
+      const T* blk = reinterpret_cast<const T*>(buf[cur]);
+      float acc[C];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) acc[ch] = 0.0f;
 #pragma unroll
       for (int v = 0; v < 8; ++v) {
-        const int id = __ldg(id_s + i * 8 + v);
-        const float x =
-            (valid && static_cast<unsigned>(id) < static_cast<unsigned>(p))
-                ? blk[id * c + ch]
-                : NAN;
-        acc = __fadd_rn(acc, __fmul_rn(__ldg(w_s + i * 8 + v), x));
+        float x[C];
+        if (valid && static_cast<unsigned>(row.id[v]) <
+                         static_cast<unsigned>(p)) {
+          if constexpr (CC != 0) {
+            read_row<T, C>(blk, row.id[v], x);
+          } else {
+            for (int ch = 0; ch < c; ++ch) {
+              x[ch] = to_f32(blk[static_cast<size_t>(row.id[v]) * c + ch]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) x[ch] = NAN;
+        }
+        const float wv = valid ? row.w[v] : 0.0f;
+        if constexpr (CC != 0) {
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) {
+            acc[ch] = __fadd_rn(acc[ch], __fmul_rn(wv, x[ch]));
+          }
+        } else {
+          for (int ch = 0; ch < c; ++ch) {
+            acc[ch] = __fadd_rn(acc[ch], __fmul_rn(wv, x[ch]));
+          }
+        }
       }
-      store(out_s + t, acc);
+      T* dst = out + r * c;
+      if constexpr (CC != 0) {
+        store_row<T, C>(dst, acc);
+      } else {
+        for (int ch = 0; ch < c; ++ch) store(dst + ch, acc[ch]);
+      }
     }
   }
 }
 
+template <typename T, int CC>
+int launch_c(const void* pages, const void* scene_of_seg, const void* ids,
+             const void* w, void* out, int num_pages, int num_mv,
+             int num_seg, int p, int c, int cap, void* stream) {
+  const size_t block_bytes = static_cast<size_t>(p) * c * sizeof(T);
+  const size_t buf_stride = (block_bytes + 15) / 16 * 16;
+  const size_t smem = 2 * buf_stride;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gather_trilerp_per_seg_kernel<T, CC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((cap + kThreads - 1) / kThreads, num_mv);
+  gather_trilerp_per_seg_kernel<T, CC><<<grid, kThreads, smem,
+                                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(pages), static_cast<const int*>(scene_of_seg),
+      static_cast<const int*>(ids), static_cast<const float*>(w),
+      static_cast<T*>(out), num_pages, num_mv, num_seg, p, c, cap,
+      buf_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ids and weights must be 16-byte aligned (two int4 / float4 loads a
+// row), the channel count at most kMaxC
 template <typename T>
 int launch(const void* pages, const void* scene_of_seg, const void* ids,
            const void* w, void* out, int num_pages, int num_mv, int num_seg,
            int p, int c, int cap, void* stream) {
-  const size_t smem = static_cast<size_t>(p) * c * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gather_trilerp_per_seg_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (c < 1 || c > kMaxC ||
+      ((reinterpret_cast<uintptr_t>(ids) | reinterpret_cast<uintptr_t>(w)) &
+       15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  gather_trilerp_per_seg_kernel<T><<<num_mv, 256, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(pages), static_cast<const int*>(scene_of_seg),
-      static_cast<const int*>(ids), static_cast<const float*>(w),
-      static_cast<T*>(out), num_pages, num_mv, num_seg, p, c, cap);
-  return static_cast<int>(cudaGetLastError());
+  switch (c) {
+    case 4:
+      return launch_c<T, 4>(pages, scene_of_seg, ids, w, out, num_pages,
+                            num_mv, num_seg, p, c, cap, stream);
+    case 8:
+      return launch_c<T, 8>(pages, scene_of_seg, ids, w, out, num_pages,
+                            num_mv, num_seg, p, c, cap, stream);
+    default:
+      return launch_c<T, 0>(pages, scene_of_seg, ids, w, out, num_pages,
+                            num_mv, num_seg, p, c, cap, stream);
+  }
 }
 
 }  // namespace

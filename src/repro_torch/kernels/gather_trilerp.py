@@ -31,6 +31,14 @@ KERNEL_PER_SEG = CudaKernel(
 _ENTRY_PER_SEG = {torch.float32: "gather_trilerp_per_seg_f32",
                   torch.bfloat16: "gather_trilerp_per_seg_bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+PER_SEG_MAX_C = 32  # B4's channel limit (kMaxC in its source)
+
+
+def per_seg_smem_bytes(p: int, c: int, elem_bytes: int) -> int:
+    """B4's shared memory: two halo blocks ``[P, C]`` in the pages' dtype
+    (the staged page and the prefetched next one), each rounded up to 16
+    bytes."""
+    return 2 * (-(-p * c * elem_bytes // 16) * 16)
 
 
 def gather_trilerp_plain(mv_table: torch.Tensor, ids: torch.Tensor,
@@ -129,7 +137,9 @@ def gather_trilerp_mvoxels_per_seg(pages: torch.Tensor,
     """Mixed-scene GU (B4): segment ``s`` gathers from the halo tables of
     page ``scene_of_seg[s]`` of the resident set ``pages [K, num_mv, P,
     C]``. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (anything else raises). The map stays on the device."""
+    kernel (anything else raises). The map stays on the device: the
+    kernel walks it, prefetching the next page's block into a second
+    shared buffer."""
     if pages.device.type == "cpu":
         return gather_trilerp_per_seg_plain(pages, scene_of_seg, ids,
                                             weights, num_seg)
@@ -157,11 +167,17 @@ def gather_trilerp_mvoxels_per_seg(pages: torch.Tensor,
         if t.device != pages.device:
             raise ValueError("gather_trilerp_per_seg: inputs on different "
                              "devices")
-    if p * c * 4 > _SMEM_LIMIT:
-        raise ValueError(f"gather_trilerp_per_seg: halo block [{p}, {c}] "
-                         "exceeds shared memory")
+    if per_seg_smem_bytes(p, c, pages.element_size()) > _SMEM_LIMIT:
+        raise ValueError(f"gather_trilerp_per_seg: two halo blocks [{p}, "
+                         f"{c}] exceed shared memory")
+    if c > PER_SEG_MAX_C:
+        raise ValueError(f"gather_trilerp_per_seg: {c} channels, the kernel "
+                         f"takes at most {PER_SEG_MAX_C}")
     pages, scene_of_seg, ids, weights = (
         t.contiguous() for t in (pages, scene_of_seg, ids, weights))
+    # the kernel reads each row's ids and weights as 16-byte vectors
+    ids, weights = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (ids, weights))
     out = torch.empty((rows, cap, c), dtype=pages.dtype, device=pages.device)
     if out.numel() == 0:
         return out

@@ -1,7 +1,10 @@
 """The port's kernels B1 (Gathering Unit) and B2 (fused radiance MLP): their
 plain PyTorch versions against the JAX package's Pallas kernels (run in
 interpret mode on the CPU), on the same numpy inputs; and the wrappers'
-device rule (CPU tensors -> plain version, CUDA -> kernel, else raise)."""
+device rule (CPU tensors -> plain version, CUDA -> kernel, else raise).
+Also B2's tensor-core arithmetic (the 3xTF32 split and the folded heads,
+emulated in plain PyTorch) against the reference, and B4's plain version
+under the segment->page maps the card is checked with."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,8 +13,11 @@ import torch
 from repro.core import streaming as j_streaming
 from repro.kernels import fused_nerf_mlp as j_mlp
 from repro.kernels import gather_trilerp as j_gt
+from repro.kernels import ops as j_ops
+from repro.kernels import ref as j_ref
 from repro_torch.kernels import fused_nerf_mlp as t_mlp
 from repro_torch.kernels import gather_trilerp as t_gt
+from repro_torch.nerf import mlp as t_nerf_mlp
 
 # the reference's own kernel tolerances (tests/test_kernels.py)
 F32_TOL = dict(atol=2e-5, rtol=1e-5)
@@ -32,13 +38,16 @@ def _gather_inputs(rng, layout, num_seg, c, cap=64, res=24):
     mv_table = np.array(j_streaming.build_mvoxel_table(jnp.asarray(table),
                                                          cfg))
     num_mv, p, _ = mv_table.shape
-    rows = num_seg * num_mv
+    return (mv_table,) + _rit_rows(rng, num_seg * num_mv, cap, p)
+
+
+def _rit_rows(rng, rows, cap, p):
     ids = rng.integers(0, p, size=(rows, cap, 8)).astype(np.int32)
     w = rng.uniform(0.0, 1.0, size=(rows, cap, 8)).astype(np.float32)
     pad = rng.uniform(size=(rows, cap)) < 0.3  # RIT pad rows: id 0, w 0
     ids[pad] = 0
     w[pad] = 0.0
-    return mv_table, ids, w
+    return ids, w
 
 
 @pytest.mark.parametrize("num_seg", [1, 3])
@@ -111,3 +120,216 @@ def test_wrappers_take_plain_only_for_cpu_tensors():
         t_mlp.fused_nerf_mlp(meta(feats), meta(enc),
                              *(meta(wt[k]) for k in wt))
     assert t_gt.KERNEL.launches == 0 and t_mlp.KERNEL.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# B2's tensor-core arithmetic: the 3xTF32 split, emulated in plain PyTorch
+# (the CUDA kernel runs only on the card; chip_smoke.py holds it there)
+# ---------------------------------------------------------------------------
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits), round to nearest, ties away from
+    zero, on the bit pattern: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's mma3 forms it: a = a_hi + a_lo and b = b_hi +
+    b_lo, each part TF32; three products (lo.lo dropped), fp32 sums."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    acc = a_lo @ b_hi
+    acc = acc + a_hi @ b_lo
+    return acc + a_hi @ b_hi
+
+
+def _mm_1xtf32(a, b):
+    """One TF32 pass: the operands rounded to TF32 once."""
+    return _tf32_rna(a) @ _tf32_rna(b)
+
+
+def _mlp_emulated(feats, enc, w1, b1, w2, b2, w_sigma, w_rgb, b_rgb, mm):
+    """B2's function with every product through ``mm`` and the heads as
+    one product with the folded weight, as the kernel computes it."""
+    h = torch.relu(mm(feats, w1) + b1)
+    h = torch.relu(mm(h, w2) + b2)
+    heads = t_mlp.fold_heads(w_sigma, w_rgb)
+    pad = heads.shape[0] - h.shape[1] - enc.shape[1]
+    x = torch.cat([h, torch.nn.functional.pad(enc, (0, pad))], dim=-1)
+    out = mm(x, heads)
+    return torch.cat([t_nerf_mlp.softplus(out[:, :1]),
+                      torch.sigmoid(out[:, 1:4] + b_rgb)], dim=-1)
+
+
+def _ref_init_inputs(n, cin, hidden, seed=0):
+    """Weights at the reference initializer's scales (repro.nerf.mlp
+    decoder_init: N(0, 1) / sqrt(fan_in), zero biases), drawn from numpy
+    seed ``seed`` in the order chip_smoke.py's arm B draws them; then
+    features N(0, 1) and the direction code of random unit directions."""
+    rng = np.random.default_rng(seed)
+    normal = lambda rows, cols: (rng.standard_normal((rows, cols))
+                                 / np.sqrt(rows)).astype(np.float32)
+    zeros = lambda k: np.zeros(k, np.float32)
+    wt = {"w1": normal(cin, hidden), "b1": zeros(hidden),
+          "w2": normal(hidden, hidden), "b2": zeros(hidden),
+          "w_sigma": normal(hidden, 1), "w_rgb": normal(hidden + 9, 3),
+          "b_rgb": zeros(3)}
+    feats = rng.standard_normal((n, cin)).astype(np.float32)
+    dirs = rng.standard_normal((n, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    x, y, z = dirs[:, 0:1], dirs[:, 1:2], dirs[:, 2:3]
+    enc = np.concatenate([dirs, x * y, y * z, x * z, x * x, y * y, z * z],
+                         -1).astype(np.float32)
+    return feats, enc, wt
+
+
+def _jax_mlp(feats, enc, wt, block):
+    """The reference: ops.nerf_mlp through the Pallas kernel in interpret
+    mode (as tests/test_kernels.py runs it), and kernels.ref.nerf_mlp_ref."""
+    params = {k: jnp.asarray(v) for k, v in wt.items()}
+    sig, rgb = j_ops.nerf_mlp(jnp.asarray(feats), jnp.asarray(enc), params,
+                              block=block, interpret=True)
+    kernel = np.concatenate([np.asarray(sig)[:, None], np.asarray(rgb)], -1)
+    ref = np.asarray(j_ref.nerf_mlp_ref(jnp.asarray(feats), jnp.asarray(enc),
+                                        *(params[k] for k in wt)))
+    return kernel, ref
+
+
+# the reference's three shapes (tests/test_kernels.py::test_fused_mlp_shapes)
+# and arm B's width at one pooled-fill chunk (64 rays x 64 samples)
+MLP_SHAPES = [(1000, 8, 64, 256), (555, 16, 32, 128), (64, 4, 128, 64),
+              (4096, 8, 64, 256)]
+
+
+@pytest.mark.parametrize("n,cin,hidden,block", MLP_SHAPES)
+def test_mlp_3xtf32_emulation_matches_reference(n, cin, hidden, block):
+    feats, enc, wt = _ref_init_inputs(n, cin, hidden)
+    kernel, ref = _jax_mlp(feats, enc, wt, block)
+    got = _mlp_emulated(torch.as_tensor(feats), torch.as_tensor(enc),
+                        *(torch.as_tensor(wt[k]) for k in wt),
+                        mm=_mm_3xtf32).numpy()
+    np.testing.assert_allclose(got, kernel, **F32_TOL)
+    np.testing.assert_allclose(got, ref, **F32_TOL)
+
+
+@pytest.mark.parametrize("n,cin,hidden,block", MLP_SHAPES)
+def test_mlp_one_tf32_pass_fails_tolerance(n, cin, hidden, block):
+    """The control: one TF32 pass (what the tensor cores give without the
+    split) misses the reference's fp32 tolerance, so the test above can
+    fail."""
+    feats, enc, wt = _ref_init_inputs(n, cin, hidden)
+    kernel, _ = _jax_mlp(feats, enc, wt, block)
+    got = _mlp_emulated(torch.as_tensor(feats), torch.as_tensor(enc),
+                        *(torch.as_tensor(wt[k]) for k in wt),
+                        mm=_mm_1xtf32).numpy()
+    assert not np.allclose(got, kernel, **F32_TOL)
+
+
+def test_tf32_split_keeps_22_bits():
+    """hi + lo carries a value to ~2^-22 relative where hi alone keeps
+    ~2^-11; both parts are TF32 (their low 13 bits are zero)."""
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(4096)
+                        .astype(np.float32))
+    hi = _tf32_rna(x)
+    lo = _tf32_rna(x - hi)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    rel = lambda y: float(((y - x).abs() / x.abs()).max())
+    assert 2.0**-13 < rel(hi) <= 2.0**-11
+    assert rel(hi + lo) <= 2.0**-21
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 128])
+def test_fold_heads_gives_reference_sigma_and_rgb(hidden):
+    """The folded heads weight [H + 16, 8] over [h, d] zero-padded: column
+    0 softplus'd is the reference's sigma, columns 1-3 with b_rgb
+    sigmoid'd its rgb; the padding rows and columns 4-7 are zero."""
+    feats, enc, wt = _ref_init_inputs(300, 8, hidden, seed=1)
+    wt["b1"] = np.full(hidden, 0.1, np.float32)  # the bias path too
+    wt["b_rgb"] = np.asarray([0.1, -0.2, 0.3], np.float32)
+    heads = t_mlp.fold_heads(torch.as_tensor(wt["w_sigma"]),
+                             torch.as_tensor(wt["w_rgb"]))
+    assert tuple(heads.shape) == (hidden + 16, 8)
+    assert not heads[:, 4:].any() and not heads[hidden:, 0].any()
+    assert not heads[hidden + 9:].any()
+    got = _mlp_emulated(torch.as_tensor(feats), torch.as_tensor(enc),
+                        *(torch.as_tensor(wt[k]) for k in wt),
+                        mm=torch.matmul).numpy()
+    params = {k: jnp.asarray(v) for k, v in wt.items()}
+    want = np.asarray(j_ref.nerf_mlp_ref(jnp.asarray(feats),
+                                         jnp.asarray(enc),
+                                         *(params[k] for k in wt)))
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_mlp_staging_fits_shared_memory():
+    """The wrapper's shared-memory rule follows the kernel's layout: the
+    split fragments of W1 (K padded to 8), W2 and the folded heads, 512
+    bytes per 8x8 tile, then b1, b2 and b_rgb; every reference width
+    fits one H100 block."""
+    assert t_mlp.smem_bytes(8, 64, 9) == (8 + 64 + 8 + 2) * 512 + 4 * 131
+    assert t_mlp.smem_bytes(4, 64, 9) == t_mlp.smem_bytes(8, 64, 9)
+    for cin in (4, 8, 16):
+        for hidden in t_mlp.HIDDEN_WIDTHS:
+            assert t_mlp.smem_bytes(cin, hidden, 9) <= t_mlp._SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# B4 under the segment->page maps chip_smoke.py holds the kernel to
+# ---------------------------------------------------------------------------
+
+
+PER_SEG_MAPS = {"captured": [0, 1, 0, 2], "all_zero": [0, 0, 0, 0],
+                "alternating": [0, 1] * 4, "one_segment": [2],
+                "minus_one": [0, -1, 1, 2], "past_k": [1, 3, 1, 0]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(PER_SEG_MAPS))
+def test_per_seg_plain_under_chip_maps(name, dtype):
+    """Plain B4 against the Pallas kernel (interpret mode, tables picked by
+    the map) where every page is valid, bit for bit against plain B1 on
+    each valid segment's page, and NaN exactly on the rows of a segment
+    whose page is outside [0, K) (K = 3)."""
+    scn = PER_SEG_MAPS[name]
+    ns = len(scn)
+    rng = np.random.default_rng(40 + ns)
+    cfg = j_streaming.StreamingCfg(grid_res=16, capacity=32)
+    tables = rng.standard_normal((3, 16**3, 4)).astype(np.float32)
+    pages = np.stack([np.asarray(j_streaming.build_mvoxel_table(
+        jnp.asarray(t), cfg)) for t in tables])
+    num_mv, p = pages.shape[1:3]
+    ids, w = _rit_rows(rng, ns * num_mv, 32, p)
+    t_pages = torch.as_tensor(pages)
+    j_pages = jnp.asarray(pages)
+    if dtype == "bfloat16":
+        t_pages, j_pages = t_pages.to(torch.bfloat16), \
+            j_pages.astype(jnp.bfloat16)
+    got = t_gt.gather_trilerp_mvoxels_per_seg(
+        t_pages, torch.tensor(scn, dtype=torch.int32), torch.as_tensor(ids),
+        torch.as_tensor(w), num_seg=ns)
+    rows = lambda x, s: x[s * num_mv:(s + 1) * num_mv]
+    for s, page in enumerate(scn):
+        if 0 <= page < 3:
+            assert torch.equal(rows(got, s), t_gt.gather_trilerp_mvoxels(
+                t_pages[page], torch.as_tensor(rows(ids, s)),
+                torch.as_tensor(rows(w, s))))
+        else:
+            assert torch.isnan(rows(got, s)).all()
+    if all(0 <= page < 3 for page in scn):
+        want = j_gt.gather_trilerp_mvoxels_per_seg(
+            j_pages[jnp.asarray(scn)], jnp.asarray(ids), jnp.asarray(w),
+            num_seg=ns, interpret=True)
+        tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, dtype=np.float32), **tol)
+
+
+def test_per_seg_shared_memory_rule():
+    """Two halo blocks in the pages' own dtype, each rounded up to 16
+    bytes: 2 x 11,664 B at arm E's fp32 [729, 4], 2 x 5,840 B in bf16."""
+    assert t_gt.per_seg_smem_bytes(729, 4, 4) == 2 * 11664
+    assert t_gt.per_seg_smem_bytes(729, 4, 2) == 2 * 5840
+    assert t_gt.per_seg_smem_bytes(729, 8, 4) <= t_gt._SMEM_LIMIT
