@@ -13,22 +13,26 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    B2's SASS (``cuobjdump``) must hold TF32 ``HMMA`` instructions;
 3. hold each kernel against its plain PyTorch version on the card, on
    inputs the main path builds, TF32 off: the Gathering Unit (B1) with
-   float32 and bfloat16 tables, both MVoxel layouts, 1 and 4 segments; the
+   float32 and bfloat16 tables, both MVoxel layouts, 1 and 4 segments, at
+   arm B's shape and at the reference's four shapes (C = 4, 8, 12, 16,
+   caps 64-512: the run-time-C code, CTAs under 256 threads and a block
+   read in place), bit for bit in every case; the
    fused MLP (B2, 3xTF32 on the tensor cores) at arm B's C=8, H=64 for S =
    131,072 (a reference chunk) and 4,096 (one pooled-fill chunk), and at
    the reference's shapes (1000, 8, 64), (555, 16, 32), (64, 4, 128) with
    weights at its initializer's scales; the fused tick's dual gather (B3)
    on the RIT blocks a fused tick builds (captured from a real tick),
-   float32 and bfloat16, both layouts, 1 and 4 segments, also against two
-   B1 launches on the same blocks; the mixed-scene kernels B4 (Gathering
+   float32 and bfloat16, both layouts, 1 and 4 segments, also bit for bit
+   against two B1 launches on the same blocks; the mixed-scene kernels B4 (Gathering
    Unit per segment's page) and B5 (dual gather per segment's page) on the
    blocks the first tick of arm E's mixed-scene serving run builds
    (captured from its admission priming and its fused sweep), float32 and
    bfloat16, both layouts, also bit for bit against B1 (B4) and B3 (B5) run
-   on each segment's page; B4 also under maps that work its prefetched
-   second buffer, on arm E's captured rows, float32 and bfloat16: all
-   page 0, [0, 1] x 4 (num_seg 8), -1 and K between valid pages (NaN on
-   exactly those rows, the others bit-equal to B1) and one segment; flash attention (B6), whose four kernels are the
+   on each segment's page; B4 and B5 also under maps that work their
+   prefetched second buffer, on arm E's captured rows, float32 and
+   bfloat16: all page 0, [0, 1] x 4 (num_seg 8), -1 and K between valid
+   pages (NaN on exactly those rows, the others bit-equal to B1 / B3) and
+   one segment; flash attention (B6), whose four kernels are the
    bfloat16 tensor-core prefill, the float32 tile prefill and the split-KV
    decode with its log-sum-exp combine: at arm F's first prefill
    ([1, 40, 2048, 128] against [1, 8, 2048, 128], causal, bfloat16 and
@@ -110,7 +114,8 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    unequal positions, so the shared decode index matters) on the card and
    on the CPU: equal token streams and stats, prefill logits within
    1e-3; it runs B6's float32 kernels (tile prefill, split-KV decode);
-5. time each kernel and its plain version at the arms' shapes (B4 also
+5. time each kernel and its plain version at the arms' shapes (B1 also
+   on arm A's ``bank_interleaved`` table; B4 also
    at the shape of arm E's staged per-scene fill, captured in a spied
    rerun of its staged fleet; B2 also beside its 3xTF32 tensor-core
    bound) (device
@@ -223,6 +228,10 @@ def mlp_ref_inputs(n: int, c: int, h: int, device, seed: int = 0) -> tuple:
 
 # the reference's B2 shapes (tests/test_kernels.py::test_fused_mlp_shapes)
 B2_REF_SHAPES = [(1000, 8, 64), (555, 16, 32), (64, 4, 128)]
+# the reference's Gathering Unit shapes (res, edge, cap, points, C):
+# tests/test_kernels.py::test_gather_trilerp_shapes
+B1_REF_SHAPES = [(32, 8, 128, 1500, 4), (48, 8, 256, 3000, 8),
+                 (48, 16, 512, 2000, 12), (24, 8, 64, 500, 16)]
 TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
 
 
@@ -794,6 +803,7 @@ def b6_cost(b, h, kvh, sq, kv_len, d, causal, elem_bytes):
 def main() -> int:
     import math
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -801,6 +811,7 @@ def main() -> int:
         return 2
     from repro_torch import api
     from repro_torch.convert import params_from_numpy
+    from repro_torch.core import streaming
     from repro_torch.core.config import RenderConfig, RenderRequest
     from repro_torch.core.engine import DeviceSparwEngine
     from repro_torch.core.pipeline import orbit_trajectory
@@ -900,7 +911,23 @@ def main() -> int:
             "B3_vs_B1": 0.0, "B4": 0.0, "B4_bf16": 0.0, "B5": 0.0,
             "B5_bf16": 0.0}
     b3_bit_equal = True
+    b1_bit_equal = True
     shapes = {}
+
+    def b1_check(label, tbl, ids, w, num_seg):
+        """B1 against its plain version, within the tolerance and bit for
+        bit (the same arithmetic)."""
+        nonlocal b1_bit_equal
+        got = gt_k.gather_trilerp_mvoxels_segmented(tbl, ids, w,
+                                                    num_seg=num_seg)
+        want = gt_k.gather_trilerp_plain(tbl, ids, w, num_seg)
+        bf = tbl.dtype == torch.bfloat16
+        key = "B1_bf16" if bf else "B1"
+        errs[key] = max(errs[key], check_close(
+            f"B1 {label} table {tuple(tbl.shape)} ids {tuple(ids.shape)}",
+            got, want, BF16_TOL if bf else F32_TOL))
+        b1_bit_equal &= bool(torch.equal(got, want))
+
     for layout in ("identity", "bank_interleaved"):
         ren = api.make_renderer(cfg_a.replace(mvoxel_layout=layout))
         scfg = ren.model.streaming_cfg
@@ -913,16 +940,10 @@ def main() -> int:
             for tag, tbl in (("f32", mv_f32),
                              ("bf16", mv_f32.to(torch.bfloat16))):
                 args = (tbl, blocks.ids, blocks.weights)
-                got = gt_k.gather_trilerp_mvoxels_segmented(
-                    *args, num_seg=blocks.num_seg)
-                want = gt_k.gather_trilerp_plain(*args, blocks.num_seg)
-                key = "B1_bf16" if tag == "bf16" else "B1"
-                errs[key] = max(errs[key], check_close(
-                    f"B1 {layout} {tag} num_seg={num_seg} "
-                    f"table {tuple(tbl.shape)} ids {tuple(blocks.ids.shape)}",
-                    got, want, BF16_TOL if tag == "bf16" else F32_TOL))
-                if layout == "identity" and num_seg == 1 and tag == "f32":
-                    shapes["B1_A"] = args
+                b1_check(f"{layout} {tag} num_seg={num_seg}", *args,
+                         blocks.num_seg)
+                if num_seg == 1 and tag == "f32":
+                    shapes[f"B1_A {layout}"] = args
         # B3 on the blocks a fused tick of arm C's config builds
         eng_c = DeviceSparwEngine(ren.model, ren.params,
                                   config=cfg_c.replace(mvoxel_layout=layout))
@@ -949,15 +970,36 @@ def main() -> int:
                 if layout == "identity" and num_seg == 1 and tag == "f32":
                     shapes["B3_C"] = ((t, ih, wh, ir, wr), ns)
     print(f"B3 bit-equal to B1 on every captured block: {b3_bit_equal}")
+    if not b3_bit_equal:
+        fail("B3 differs from two B1 launches on the same blocks")
     pts_b, dirs_b = chunk_points(poses[:1], cfg_b_model.num_samples)
     scfg_b = model_b.streaming_cfg
     prepared_b = model_b.prepare_streaming(params_b)
     blocks_b = ops.rit_blocks(pts_b, scfg_b)
     shapes["B1_B"] = (prepared_b["mv_table"], blocks_b.ids, blocks_b.weights)
-    got = gt_k.gather_trilerp_mvoxels(*shapes["B1_B"])
-    errs["B1"] = max(errs["B1"], check_close(
-        f"B1 arm-B identity f32 table {tuple(prepared_b['mv_table'].shape)}",
-        got, gt_k.gather_trilerp_plain(*shapes["B1_B"], 1), F32_TOL))
+    for tag, tbl in (("f32", prepared_b["mv_table"]),
+                     ("bf16", prepared_b["mv_table"].to(torch.bfloat16))):
+        b1_check(f"arm-B identity {tag}", tbl, *shapes["B1_B"][1:], 1)
+    # the reference's four shapes: C = 12 and 16 run the run-time-C code,
+    # caps 64 and 128 CTAs of 64 and 128 threads, and the edge-16 C = 12
+    # block (235,824 B in fp32) is read in place
+    for res, edge, cap, n, c in B1_REF_SHAPES:
+        rng = np.random.default_rng(res + n)
+        scfg_r = streaming.StreamingCfg(grid_res=res, mvoxel_edge=edge,
+                                        capacity=cap)
+        table = torch.as_tensor(rng.standard_normal((res**3, c)),
+                                dtype=torch.float32, device=dev)
+        pts = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, 3)),
+                              dtype=torch.float32, device=dev)
+        blocks = ops.rit_blocks(pts, scfg_r)
+        mv = streaming.build_mvoxel_table(table, scfg_r)
+        for tag, tbl in (("f32", mv), ("bf16", mv.to(torch.bfloat16))):
+            b1_check(f"reference shape res {res} edge {edge} cap {cap} "
+                     f"C {c} {tag}", tbl, blocks.ids, blocks.weights, 1)
+    print(f"B1 bit-equal to its plain version on every block: "
+          f"{b1_bit_equal}")
+    if not b1_bit_equal:
+        fail("B1 differs from its plain version (the same arithmetic)")
     feats_b = ops.gather_features_streaming(
         params_b["table"], pts_b, scfg_b, mv_table=prepared_b["mv_table"])
     dec = params_b["decoder"]
@@ -1039,25 +1081,29 @@ def main() -> int:
             if layout == "identity" and tag == "f32":
                 shapes["B4_E"] = (b4_args, ns4)
                 shapes["B5_E"] = (b5_args, ns5)
-    # B4 under more maps that work its second buffer (the captured map,
-    # a restage at every segment, is checked above), on arm E's captured
-    # rows (segment s of a map takes the captured segment s mod num_seg):
-    # no restage, alternation over 8 segments, an invalid page (-1, then
-    # K) between valid ones, one segment
+    # B4 and B5 under more maps that work their second buffer (the
+    # captured map, a restage at every segment, is checked above), on arm
+    # E's captured rows (segment s of a map takes the captured segment s
+    # mod num_seg): no restage, alternation over 8 segments, an invalid
+    # page (-1, then K) between valid ones, one segment
     b4_args, ns4 = shapes["B4_E"]
-    pages, ids, w = b4_args[0], b4_args[2], b4_args[3]
+    b5_args, ns5 = shapes["B5_E"]
+    pages = b4_args[0]
     k_pages, num_mv = pages.shape[0], pages.shape[1]
-    b4_maps = {"all page 0": [0] * ns4, "alternating": [0, 1] * 4,
-               "-1 between valid": [0, -1, 1, 2],
-               "K between valid": [1, k_pages, 1, 0], "one segment": [2]}
+    page_maps = {"all page 0": [0] * ns4, "alternating": [0, 1] * 4,
+                 "-1 between valid": [0, -1, 1, 2],
+                 "K between valid": [1, k_pages, 1, 0], "one segment": [2]}
     seg_of = lambda x, s: x[s * num_mv:(s + 1) * num_mv]
-    b4_map_checks = {}
-    for label, page_map in b4_maps.items():
+    b4_map_checks, b5_map_checks = {}, {}
+    for label, page_map in page_maps.items():
         ns = len(page_map)
-        ids_m = torch.cat([seg_of(ids, s % ns4) for s in range(ns)])
-        w_m = torch.cat([seg_of(w, s % ns4) for s in range(ns)])
+        rows_of = lambda x, n: torch.cat([seg_of(x, s % n)
+                                          for s in range(ns)])
+        ids_m, w_m = rows_of(b4_args[2], ns4), rows_of(b4_args[3], ns4)
+        sets_m = [rows_of(x, ns5) for x in b5_args[2:]]
         scn_m = torch.tensor(page_map, dtype=torch.int32, device=dev)
         for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tol = BF16_TOL if tag == "bf16" else F32_TOL
             tbl = pages.to(dt)
             got = gt_k.gather_trilerp_mvoxels_per_seg(tbl, scn_m, ids_m, w_m,
                                                       num_seg=ns)
@@ -1066,20 +1112,39 @@ def main() -> int:
                 f"B4 {tag} map {page_map} ({label}) ids "
                 f"{tuple(ids_m.shape)}", got,
                 gt_k.gather_trilerp_per_seg_plain(tbl, scn_m, ids_m, w_m, ns),
-                BF16_TOL if tag == "bf16" else F32_TOL))
-            equal = True
+                tol))
+            got5 = sp_k.fused_gather_dual_per_seg(tbl, scn_m, *sets_m,
+                                                  num_seg=ns)
+            want5 = sp_k.fused_gather_dual_per_seg_plain(tbl, scn_m, *sets_m,
+                                                         ns)
+            key = "B5_bf16" if tag == "bf16" else "B5"
+            for part, g, wt in zip(("holes", "refs"), got5, want5):
+                errs[key] = max(errs[key], check_close_nan(
+                    f"B5 {tag} map {page_map} ({label}) {part} "
+                    f"{tuple(g.shape)}", g, wt, tol))
+            equal4 = equal5 = True
             for s, page in enumerate(page_map):
                 if 0 <= page < k_pages:
-                    equal &= bool(torch.equal(
+                    equal4 &= bool(torch.equal(
                         seg_of(got, s), gt_k.gather_trilerp_mvoxels_segmented(
                             tbl[page], seg_of(ids_m, s), seg_of(w_m, s),
                             num_seg=1)))
+                    b3 = sp_k.fused_gather_dual(
+                        tbl[page], *(seg_of(x, s) for x in sets_m),
+                        num_seg=1)
+                    equal5 &= all(bool(torch.equal(seg_of(g, s), o))
+                                  for g, o in zip(got5, b3))
                 else:
-                    equal &= bool(torch.isnan(seg_of(got, s)).all())
-            b4_map_checks[f"{label} {tag}"] = equal
-            per_seg_bit_equal &= equal
+                    equal4 &= bool(torch.isnan(seg_of(got, s)).all())
+                    equal5 &= all(bool(torch.isnan(seg_of(g, s)).all())
+                                  for g in got5)
+            b4_map_checks[f"{label} {tag}"] = equal4
+            b5_map_checks[f"{label} {tag}"] = equal5
+            per_seg_bit_equal &= equal4 and equal5
     print(f"B4 under each map, bit-equal to B1 on each valid page and NaN "
           f"on the invalid: {json.dumps(b4_map_checks)}")
+    print(f"B5 under each map, bit-equal to B3 on each valid page and NaN "
+          f"on the invalid: {json.dumps(b5_map_checks)}")
     print(f"B4 / B5 bit-equal to B1 / B3 on each segment's page: "
           f"{per_seg_bit_equal}")
     if not per_seg_bit_equal:
@@ -1761,8 +1826,11 @@ def main() -> int:
     t_b1 = [timed(lambda a=a: gt_k.gather_trilerp_mvoxels(*a),
                   lambda a=a: gt_k.gather_trilerp_plain(*a, 1),
                   *b1_cost(*a),
-                  f"table {list(a[0].shape)} ids {list(a[1].shape)}")
-            for a in (shapes["B1_A"], shapes["B1_B"])]
+                  f"table {list(a[0].shape)} ids {list(a[1].shape)}{label}")
+            for a, label in ((shapes["B1_A identity"], ""),
+                             (shapes["B1_B"], ""),
+                             (shapes["B1_A bank_interleaved"],
+                              " (arm A, bank_interleaved layout)"))]
     t_b2 = [timed(lambda a=a: mlp_k.fused_nerf_mlp(*a),
                   lambda a=a: mlp_k.fused_nerf_mlp_plain(*a), *b2_cost(a),
                   f"S={a[0].shape[0]} C=8 H=64")
@@ -1892,7 +1960,9 @@ def main() -> int:
         entry("gather_trilerp_mvoxels_segmented (B1, Gathering Unit)",
               gt_k.KERNEL.name, "src/repro_torch/csrc/gather_trilerp.cu",
               "src/repro/kernels/gather_trilerp.py:95", errs["B1"], t_b1,
-              max_abs_err_bf16=errs["B1_bf16"]),
+              max_abs_err_bf16=errs["B1_bf16"],
+              bit_equal_to_plain=b1_bit_equal,
+              reference_shapes_checked=B1_REF_SHAPES),
         entry("fused_nerf_mlp (B2, fused radiance MLP, 3xTF32 mma.sync)",
               mlp_k.KERNEL.name, "src/repro_torch/csrc/fused_nerf_mlp.cu",
               "src/repro/kernels/fused_nerf_mlp.py:54", errs["B2"], t_b2,
@@ -1917,7 +1987,8 @@ def main() -> int:
               "src/repro_torch/csrc/fused_gather_dual_per_seg.cu",
               "src/repro/kernels/streaming_pipeline.py:138", errs["B5"],
               t_b5, max_abs_err_bf16=errs["B5_bf16"],
-              bit_equal_to_b3_per_page=per_seg_bit_equal),
+              bit_equal_to_b3_per_page=per_seg_bit_equal,
+              maps_checked=b5_map_checks),
     ]}
     b6_ptxas = [line.strip() for line in fa_k.KERNEL.log.read_text()
                 .splitlines() if "registers" in line or "spill" in line]

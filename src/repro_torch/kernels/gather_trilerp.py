@@ -17,12 +17,14 @@ resident pages ``[K, num_mv, P, C]`` with the segment->page map
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from repro_torch.kernels._build import CudaKernel
 
-KERNEL = CudaKernel("gather_trilerp", {"gather_trilerp_f32": "ppppiiiiip",
-                                       "gather_trilerp_bf16": "ppppiiiiip"})
+KERNEL = CudaKernel("gather_trilerp", {"gather_trilerp_f32": "ppppiiiiiiiip",
+                                       "gather_trilerp_bf16": "ppppiiiiiiiip"})
 _ENTRY = {torch.float32: "gather_trilerp_f32",
           torch.bfloat16: "gather_trilerp_bf16"}
 KERNEL_PER_SEG = CudaKernel(
@@ -31,7 +33,51 @@ KERNEL_PER_SEG = CudaKernel(
 _ENTRY_PER_SEG = {torch.float32: "gather_trilerp_per_seg_f32",
                   torch.bfloat16: "gather_trilerp_per_seg_bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+MAX_GRID_Y = 65535  # CTA rows of a grid: one per MVoxel
 PER_SEG_MAX_C = 32  # B4's channel limit (kMaxC in its source)
+CTA_ROWS = 256  # RIT rows a CTA of B1 or B5 owns at the main path's caps
+
+
+class LaunchPlan(NamedTuple):
+    """A gather kernel's grid: ``grid`` = (CTA columns, num_mv), CTAs of
+    ``threads`` threads, one RIT row each; ``columns[x]`` = (set, first
+    row) of CTA column x (set 0: the only set of B1, B5's hole rows; set
+    1: B5's reference rows). Every CTA walks all the segments."""
+    grid: Tuple[int, int]
+    threads: int
+    columns: Tuple[Tuple[int, int], ...]
+
+
+def cta_rows(cap: int) -> int:
+    """Rows a CTA owns: ``CTA_ROWS`` from a cap of ``CTA_ROWS`` up, else
+    the cap rounded up to a warp (32), so a small cap leaves few threads
+    idle."""
+    return min(CTA_ROWS, max(32, -(-cap // 32) * 32))
+
+
+def gather_grid(num_mv: int, cap: int) -> LaunchPlan:
+    """B1's grid: ``ceil(cap / R)`` CTAs of R = :func:`cta_rows` threads per
+    MVoxel, column x owning rows ``[R x, R x + R)``."""
+    r = cta_rows(cap)
+    tiles = -(-cap // r)
+    return LaunchPlan((tiles, num_mv), r,
+                      tuple((0, x * r) for x in range(tiles)))
+
+
+def gather_smem_bytes(p: int, c: int, elem_bytes: int) -> int:
+    """B1's shared memory: one halo block ``[P, C]`` in the table's dtype,
+    or 0 where that exceeds one H100 block's shared memory, and the
+    kernel reads the block in place (through L1 and L2) instead."""
+    nbytes = p * c * elem_bytes
+    return nbytes if nbytes <= _SMEM_LIMIT else 0
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned address (a copy when it is
+    not): the gather kernels read each RIT row's ids and weights as two
+    16-byte vectors."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def per_seg_smem_bytes(p: int, c: int, elem_bytes: int) -> int:
@@ -82,19 +128,21 @@ def gather_trilerp_mvoxels_segmented(mv_table: torch.Tensor,
     for t in (ids, weights):
         if t.device != mv_table.device:
             raise ValueError("gather_trilerp: inputs on different devices")
-    if p * c * 4 > _SMEM_LIMIT:
-        raise ValueError(f"gather_trilerp: halo block [{p}, {c}] exceeds "
-                         "shared memory")
-    mv_table, ids, weights = (t.contiguous() for t in (mv_table, ids,
-                                                       weights))
+    if num_mv > MAX_GRID_Y:
+        raise ValueError(f"gather_trilerp: {num_mv} MVoxels, the grid takes "
+                         f"at most {MAX_GRID_Y}")
+    mv_table = mv_table.contiguous()
+    ids, weights = aligned16(ids), aligned16(weights)
     out = torch.empty((rows, cap, c), dtype=mv_table.dtype,
                       device=mv_table.device)
     if out.numel() == 0:
         return out
+    plan = gather_grid(num_mv, cap)
     with torch.cuda.device(mv_table.device):
         KERNEL.call(_ENTRY[mv_table.dtype], mv_table.data_ptr(),
                     ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                    num_mv, num_seg, p, c, cap,
+                    num_mv, num_seg, p, c, cap, plan.grid[0], plan.threads,
+                    gather_smem_bytes(p, c, mv_table.element_size()),
                     torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -173,11 +221,8 @@ def gather_trilerp_mvoxels_per_seg(pages: torch.Tensor,
     if c > PER_SEG_MAX_C:
         raise ValueError(f"gather_trilerp_per_seg: {c} channels, the kernel "
                          f"takes at most {PER_SEG_MAX_C}")
-    pages, scene_of_seg, ids, weights = (
-        t.contiguous() for t in (pages, scene_of_seg, ids, weights))
-    # the kernel reads each row's ids and weights as 16-byte vectors
-    ids, weights = (t if t.data_ptr() % 16 == 0 else t.clone()
-                    for t in (ids, weights))
+    pages, scene_of_seg = pages.contiguous(), scene_of_seg.contiguous()
+    ids, weights = aligned16(ids), aligned16(weights)
     out = torch.empty((rows, cap, c), dtype=pages.dtype, device=pages.device)
     if out.numel() == 0:
         return out

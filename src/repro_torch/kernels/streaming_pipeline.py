@@ -27,8 +27,9 @@ import torch
 
 from repro_torch.core import streaming
 from repro_torch.kernels._build import CudaKernel
-from repro_torch.kernels.gather_trilerp import gather_trilerp_per_seg_plain, \
-    gather_trilerp_plain
+from repro_torch.kernels.gather_trilerp import MAX_GRID_Y, LaunchPlan, \
+    aligned16, cta_rows, gather_trilerp_per_seg_plain, gather_trilerp_plain, \
+    per_seg_smem_bytes
 from repro_torch.nerf import grids
 
 KERNEL = CudaKernel("fused_gather_dual",
@@ -38,11 +39,23 @@ _ENTRY = {torch.float32: "fused_gather_dual_f32",
           torch.bfloat16: "fused_gather_dual_bf16"}
 KERNEL_PER_SEG = CudaKernel(
     "fused_gather_dual_per_seg",
-    {"fused_gather_dual_per_seg_f32": "ppppppppiiiiiiip",
-     "fused_gather_dual_per_seg_bf16": "ppppppppiiiiiiip"})
+    {"fused_gather_dual_per_seg_f32": "ppppppppiiiiiiiiiip",
+     "fused_gather_dual_per_seg_bf16": "ppppppppiiiiiiiiiip"})
 _ENTRY_PER_SEG = {torch.float32: "fused_gather_dual_per_seg_f32",
                   torch.bfloat16: "fused_gather_dual_per_seg_bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+
+
+def dual_grid(num_mv: int, cap_h: int, cap_r: int) -> LaunchPlan:
+    """B5's grid: ``tiles_h + tiles_r`` CTA columns per MVoxel, ``tiles_x
+    = ceil(cap_x / R)`` with R = ``cta_rows(max(cap_h, cap_r))`` (256 at
+    the main path's caps); columns below ``tiles_h`` own hole rows (set
+    0), the others reference rows (set 1), so no CTA mixes the sets."""
+    r = cta_rows(max(cap_h, cap_r))
+    tiles_h, tiles_r = -(-cap_h // r), -(-cap_r // r)
+    columns = tuple((0, x * r) for x in range(tiles_h)) \
+        + tuple((1, x * r) for x in range(tiles_r))
+    return LaunchPlan((tiles_h + tiles_r, num_mv), r, columns)
 
 
 def fused_gather_dual_plain(mv_table: torch.Tensor, ids_h: torch.Tensor,
@@ -168,24 +181,29 @@ def fused_gather_dual_per_seg(pages: torch.Tensor, scene_of_seg: torch.Tensor,
         if ids.device != pages.device or w.device != pages.device:
             raise ValueError("fused_gather_dual_per_seg: inputs on "
                              "different devices")
-    if p * c * 4 > _SMEM_LIMIT:
-        raise ValueError(f"fused_gather_dual_per_seg: halo block [{p}, {c}] "
-                         "exceeds shared memory")
-    pages, scene_of_seg, ids_h, w_h, ids_r, w_r = (
-        t.contiguous() for t in (pages, scene_of_seg, ids_h, w_h, ids_r,
-                                 w_r))
+    if per_seg_smem_bytes(p, c, pages.element_size()) > _SMEM_LIMIT:
+        raise ValueError(f"fused_gather_dual_per_seg: two halo blocks [{p}, "
+                         f"{c}] exceed shared memory")
+    if num_mv > MAX_GRID_Y:
+        raise ValueError(f"fused_gather_dual_per_seg: {num_mv} MVoxels, the "
+                         f"grid takes at most {MAX_GRID_Y}")
+    pages, scene_of_seg = pages.contiguous(), scene_of_seg.contiguous()
+    ids_h, w_h, ids_r, w_r = (aligned16(t) for t in (ids_h, w_h, ids_r, w_r))
     out_h = torch.empty((rows, cap_h, c), dtype=pages.dtype,
                         device=pages.device)
     out_r = torch.empty((rows, cap_r, c), dtype=pages.dtype,
                         device=pages.device)
     if rows == 0 or (cap_h == 0 and cap_r == 0):
         return out_h, out_r
+    plan = dual_grid(num_mv, cap_h, cap_r)
+    tiles_h = sum(1 for kind, _ in plan.columns if kind == 0)
     with torch.cuda.device(pages.device):
         KERNEL_PER_SEG.call(
             _ENTRY_PER_SEG[pages.dtype], pages.data_ptr(),
             scene_of_seg.data_ptr(), ids_h.data_ptr(), w_h.data_ptr(),
             ids_r.data_ptr(), w_r.data_ptr(), out_h.data_ptr(),
             out_r.data_ptr(), k, num_mv, num_seg, p, c, cap_h, cap_r,
+            plan.grid[0], tiles_h, plan.threads,
             torch.cuda.current_stream().cuda_stream)
     return out_h, out_r
 

@@ -3,8 +3,9 @@ plain PyTorch versions against the JAX package's Pallas kernels (run in
 interpret mode on the CPU), on the same numpy inputs; and the wrappers'
 device rule (CPU tensors -> plain version, CUDA -> kernel, else raise).
 Also B2's tensor-core arithmetic (the 3xTF32 split and the folded heads,
-emulated in plain PyTorch) against the reference, and B4's plain version
-under the segment->page maps the card is checked with."""
+emulated in plain PyTorch) against the reference; B4's and B5's plain
+versions under the segment->page maps the card is checked with; and B1's
+and B5's launch plans, shared-memory rules and 16-byte realignment."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,8 +16,10 @@ from repro.kernels import fused_nerf_mlp as j_mlp
 from repro.kernels import gather_trilerp as j_gt
 from repro.kernels import ops as j_ops
 from repro.kernels import ref as j_ref
+from repro.kernels import streaming_pipeline as j_sp
 from repro_torch.kernels import fused_nerf_mlp as t_mlp
 from repro_torch.kernels import gather_trilerp as t_gt
+from repro_torch.kernels import streaming_pipeline as t_sp
 from repro_torch.nerf import mlp as t_nerf_mlp
 
 # the reference's own kernel tolerances (tests/test_kernels.py)
@@ -277,7 +280,7 @@ def test_mlp_staging_fits_shared_memory():
 
 
 # ---------------------------------------------------------------------------
-# B4 under the segment->page maps chip_smoke.py holds the kernel to
+# B4 and B5 under the segment->page maps chip_smoke.py holds the kernels to
 # ---------------------------------------------------------------------------
 
 
@@ -289,10 +292,10 @@ PER_SEG_MAPS = {"captured": [0, 1, 0, 2], "all_zero": [0, 0, 0, 0],
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", list(PER_SEG_MAPS))
 def test_per_seg_plain_under_chip_maps(name, dtype):
-    """Plain B4 against the Pallas kernel (interpret mode, tables picked by
-    the map) where every page is valid, bit for bit against plain B1 on
-    each valid segment's page, and NaN exactly on the rows of a segment
-    whose page is outside [0, K) (K = 3)."""
+    """Plain B4 and B5 against their Pallas kernels (interpret mode, tables
+    picked by the map) where every page is valid, bit for bit against
+    plain B1 / B3 on each valid segment's page, and NaN exactly on the
+    rows of a segment whose page is outside [0, K) (K = 3)."""
     scn = PER_SEG_MAPS[name]
     ns = len(scn)
     rng = np.random.default_rng(40 + ns)
@@ -302,29 +305,41 @@ def test_per_seg_plain_under_chip_maps(name, dtype):
         jnp.asarray(t), cfg)) for t in tables])
     num_mv, p = pages.shape[1:3]
     ids, w = _rit_rows(rng, ns * num_mv, 32, p)
+    ids_r, w_r = _rit_rows(rng, ns * num_mv, 64, p)  # B5's reference set
     t_pages = torch.as_tensor(pages)
     j_pages = jnp.asarray(pages)
     if dtype == "bfloat16":
         t_pages, j_pages = t_pages.to(torch.bfloat16), \
             j_pages.astype(jnp.bfloat16)
-    got = t_gt.gather_trilerp_mvoxels_per_seg(
-        t_pages, torch.tensor(scn, dtype=torch.int32), torch.as_tensor(ids),
-        torch.as_tensor(w), num_seg=ns)
+    t_scn = torch.tensor(scn, dtype=torch.int32)
+    sets = [torch.as_tensor(x) for x in (ids, w, ids_r, w_r)]
+    got = t_gt.gather_trilerp_mvoxels_per_seg(t_pages, t_scn, *sets[:2],
+                                              num_seg=ns)
+    got5 = t_sp.fused_gather_dual_per_seg(t_pages, t_scn, *sets, num_seg=ns)
     rows = lambda x, s: x[s * num_mv:(s + 1) * num_mv]
     for s, page in enumerate(scn):
         if 0 <= page < 3:
             assert torch.equal(rows(got, s), t_gt.gather_trilerp_mvoxels(
-                t_pages[page], torch.as_tensor(rows(ids, s)),
-                torch.as_tensor(rows(w, s))))
+                t_pages[page], *(rows(x, s) for x in sets[:2])))
+            b3 = t_sp.fused_gather_dual(t_pages[page],
+                                        *(rows(x, s) for x in sets),
+                                        num_seg=1)
+            assert all(torch.equal(rows(g, s), o) for g, o in zip(got5, b3))
         else:
             assert torch.isnan(rows(got, s)).all()
+            assert all(torch.isnan(rows(g, s)).all() for g in got5)
     if all(0 <= page < 3 for page in scn):
+        j_tables = j_pages[jnp.asarray(scn)]
+        j_sets = [jnp.asarray(x) for x in (ids, w, ids_r, w_r)]
         want = j_gt.gather_trilerp_mvoxels_per_seg(
-            j_pages[jnp.asarray(scn)], jnp.asarray(ids), jnp.asarray(w),
-            num_seg=ns, interpret=True)
+            j_tables, *j_sets[:2], num_seg=ns, interpret=True)
+        want5 = j_sp.fused_gather_dual_per_seg(j_tables, *j_sets,
+                                               num_seg=ns, interpret=True)
         tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
-        np.testing.assert_allclose(got.float().numpy(),
-                                   np.asarray(want, dtype=np.float32), **tol)
+        for g, wt in zip((got,) + tuple(got5), (want,) + tuple(want5)):
+            np.testing.assert_allclose(g.float().numpy(),
+                                       np.asarray(wt, dtype=np.float32),
+                                       **tol)
 
 
 def test_per_seg_shared_memory_rule():
@@ -333,3 +348,126 @@ def test_per_seg_shared_memory_rule():
     assert t_gt.per_seg_smem_bytes(729, 4, 4) == 2 * 11664
     assert t_gt.per_seg_smem_bytes(729, 4, 2) == 2 * 5840
     assert t_gt.per_seg_smem_bytes(729, 8, 4) <= t_gt._SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# B1's and B5's launch plans: the grid each wrapper hands its kernel, from
+# which the kernel derives its rows (CTA (x, m), thread t: set
+# columns[x][0], row columns[x][1] + t of MVoxel m, every segment)
+# ---------------------------------------------------------------------------
+
+
+def _coverage(plan, caps, num_seg):
+    """How many times the plan's grid computes each (set, segment, MVoxel,
+    row): one count array [num_seg, num_mv, cap] per set."""
+    num_mv = plan.grid[1]
+    counts = [np.zeros((num_seg, num_mv, cap), np.int64) for cap in caps]
+    assert len(plan.columns) == plan.grid[0]
+    for kind, first in plan.columns:
+        for t in range(plan.threads):
+            row = first + t
+            if row < caps[kind]:  # threads past the set's cap are idle
+                counts[kind][:, :, row] += 1  # every MVoxel, every segment
+    return counts
+
+
+# (num_mv, cap, num_seg): arm A's, arm B's and arm E's staged fill shapes,
+# then caps that are not multiples of 256 or of 32
+GATHER_PLANS = [(216, 512, 1), (512, 512, 1), (216, 512, 4), (27, 64, 1),
+                (27, 100, 3), (5, 300, 2), (3, 1, 1), (7, 257, 1)]
+
+
+@pytest.mark.parametrize("num_mv,cap,num_seg", GATHER_PLANS)
+def test_gather_grid_covers_each_row_once(num_mv, cap, num_seg):
+    plan = t_gt.gather_grid(num_mv, cap)
+    (counts,) = _coverage(plan, [cap], num_seg)
+    assert (counts == 1).all()
+    assert plan.threads == (256 if cap >= 256 else -(-cap // 32) * 32)
+    assert [first for _, first in plan.columns] == [
+        x * plan.threads for x in range(plan.grid[0])]
+
+
+# (num_mv, cap_h, cap_r, num_seg): arm E's fused tick (and one segment),
+# then caps that are not multiples of 256 or of 32, and an empty set
+DUAL_PLANS = [(216, 512, 1024, 4), (216, 512, 1024, 1), (27, 100, 37, 3),
+              (5, 300, 1000, 2), (3, 33, 257, 1), (4, 0, 64, 1),
+              (4, 64, 0, 2)]
+
+
+@pytest.mark.parametrize("num_mv,cap_h,cap_r,num_seg", DUAL_PLANS)
+def test_dual_grid_covers_each_row_once(num_mv, cap_h, cap_r, num_seg):
+    plan = t_sp.dual_grid(num_mv, cap_h, cap_r)
+    counts = _coverage(plan, [cap_h, cap_r], num_seg)
+    assert all((c == 1).all() for c in counts)
+    assert plan.threads == t_gt.cta_rows(max(cap_h, cap_r))
+    # hole columns first: the kernel takes column x < tiles_h as holes,
+    # its first row (x - tiles_h * set) * threads
+    kinds = [kind for kind, _ in plan.columns]
+    tiles_h = kinds.count(0)
+    assert kinds == [0] * tiles_h + [1] * (len(kinds) - tiles_h)
+    for x, (kind, first) in enumerate(plan.columns):
+        assert first == (x - tiles_h * kind) * plan.threads
+
+
+def test_launch_plans_at_the_arms_shapes():
+    """Arm A's B1 launch: 2 CTAs of 256 rows per MVoxel, 432 in all; arm
+    B's: 1,024; arm E's B5 launch: 2 hole and 4 reference CTAs per
+    MVoxel, 1,296 in all; a reference-shape cap of 64 takes CTAs of 64
+    threads."""
+    plan = t_gt.gather_grid(216, 512)
+    assert plan == t_gt.LaunchPlan((2, 216), 256, ((0, 0), (0, 256)))
+    assert t_gt.gather_grid(512, 512).grid == (2, 512)
+    plan = t_sp.dual_grid(216, 512, 1024)
+    assert plan.grid == (6, 216) and plan.threads == 256
+    assert plan.columns == ((0, 0), (0, 256), (1, 0), (1, 256), (1, 512),
+                            (1, 768))
+    assert t_gt.gather_grid(27, 64) == t_gt.LaunchPlan((1, 27), 64,
+                                                       ((0, 0),))
+
+
+def test_gather_shared_memory_rule():
+    """B1 stages one halo block in the table's own dtype: 11,664 B at arm
+    A's fp32 [729, 4], half that in bf16, 23,328 B at arm B's [729, 8].
+    The reference's edge-16, C = 12 block (4,913 halo rows: 235,824 B in
+    fp32) exceeds one H100 block's 232,448 B, so the kernel reads it in
+    place (0); its bf16 copy (117,912 B) is staged."""
+    assert t_gt.gather_smem_bytes(729, 4, 4) == 11664
+    assert t_gt.gather_smem_bytes(729, 4, 2) == 5832
+    assert t_gt.gather_smem_bytes(729, 8, 4) == 23328
+    halo = j_streaming.StreamingCfg(grid_res=48, mvoxel_edge=16,
+                                    capacity=512).halo_rows
+    assert halo == 4913
+    assert t_gt.gather_smem_bytes(halo, 12, 4) == 0
+    assert t_gt.gather_smem_bytes(halo, 12, 2) == 117912
+
+
+def test_dual_per_seg_shared_memory_rule():
+    """B5 stages two halo blocks in the pages' own dtype (B4's rule,
+    ``per_seg_smem_bytes``): arm E's fp32 [729, 4] pair takes 23,328 B,
+    its bf16 pair 11,680 B; two [4913, 12] blocks do not fit in either
+    dtype, and the wrapper raises for them."""
+    assert t_sp.per_seg_smem_bytes is t_gt.per_seg_smem_bytes
+    assert t_sp.per_seg_smem_bytes(729, 4, 4) == 23328
+    assert t_sp.per_seg_smem_bytes(729, 4, 2) == 11680
+    for elem in (4, 2):
+        assert t_sp.per_seg_smem_bytes(4913, 12, elem) > t_sp._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_aligned16_copies_only_misaligned_tensors(dtype):
+    """The gather wrappers' realignment: a view 4 bytes past a 16-byte
+    boundary becomes an aligned contiguous copy with the same values; a
+    view 16 bytes past one is passed through; a transposed view is made
+    contiguous."""
+    base = torch.arange(96).to(dtype)
+    assert base.data_ptr() % 16 == 0
+    off = base[1:65].reshape(8, 8)  # storage offset 1 element: 4 bytes
+    assert off.data_ptr() % 16 == 4
+    got = t_gt.aligned16(off)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    assert torch.equal(got, off)
+    on = base[4:68].reshape(8, 8)  # 16 bytes: already aligned
+    assert t_gt.aligned16(on).data_ptr() == on.data_ptr()
+    got = t_gt.aligned16(base[:64].reshape(8, 8).t())
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert torch.equal(got, base[:64].reshape(8, 8).t())
