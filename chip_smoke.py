@@ -22,8 +22,12 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    the reference's shapes (1000, 8, 64), (555, 16, 32), (64, 4, 128) with
    weights at its initializer's scales; the fused tick's dual gather (B3)
    on the RIT blocks a fused tick builds (captured from a real tick),
-   float32 and bfloat16, both layouts, 1 and 4 segments, also bit for bit
-   against two B1 launches on the same blocks; the mixed-scene kernels B4 (Gathering
+   float32 and bfloat16, both layouts, 1 and 4 segments, and at arm D's
+   shape, at the reference's shapes (grid 16, edge 8, C = 4, caps
+   128 / 256 and 32 / 64) and at blocks read in place (the edge-16, C = 12
+   block and [729, 80], float32; their bfloat16 copies staged), bit for
+   bit against its plain version and against two B1 launches on the same
+   blocks; the mixed-scene kernels B4 (Gathering
    Unit per segment's page) and B5 (dual gather per segment's page) on the
    blocks the first tick of arm E's mixed-scene serving run builds
    (captured from its admission priming and its fused sweep), float32 and
@@ -32,7 +36,13 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    prefetched second buffer, on arm E's captured rows, float32 and
    bfloat16: all page 0, [0, 1] x 4 (num_seg 8), -1 and K between valid
    pages (NaN on exactly those rows, the others bit-equal to B1 / B3) and
-   one segment; flash attention (B6), whose four kernels are the
+   one segment; B4 and B5 also where the kernels before fault C4's repair
+   raised: arm E's captured map and rows on pages rebuilt at C = 40
+   (float32, read in place) and C = 36 (bfloat16, staged), and three
+   pages of the edge-16, C = 12 block (read in place in both dtypes),
+   each under its captured map and one with -1, bit for bit against the
+   plain versions and against B1 / B3 on each valid page, NaN exactly on
+   the invalid segment's rows; flash attention (B6), whose four kernels are the
    bfloat16 tensor-core prefill, the float32 tile prefill and the split-KV
    decode with its log-sum-exp combine: at arm F's first prefill
    ([1, 40, 2048, 128] against [1, 8, 2048, 128], causal, bfloat16 and
@@ -81,7 +91,10 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    counters), two of its sessions against their scenes served alone on
    the card (>= 60 dB, equal hole fractions), and a shorter fleet (the
    first 4 sessions, 16 frames) is served staged and fused on the card
-   (>= 40 dB, equal ticks; the staged run launches B4 in its pooled fill).
+   (>= 40 dB, equal ticks; the staged run launches B4 in its pooled fill),
+   and again at ``RenderConfig(channels=40)``, where B4 and B5 read every
+   block in place: >= 60 dB from the 4-channel runs, equal ticks,
+   per-session stats and scene-cache counters (byte counters 10x).
    Where the card and CPU runs part (``c2_tables``): each of the six
    tables the loader bakes, on the card against its CPU bake, and the
    fleet served on the card from the CPU's bakes against the CPU run.
@@ -115,9 +128,11 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    on the CPU: equal token streams and stats, prefill logits within
    1e-3; it runs B6's float32 kernels (tile prefill, split-KV decode);
 5. time each kernel and its plain version at the arms' shapes (B1 also
-   on arm A's ``bank_interleaved`` table; B4 also
+   on arm A's ``bank_interleaved`` table; B3 also at the two float32
+   blocks read in place; B4 also
    at the shape of arm E's staged per-scene fill, captured in a spied
-   rerun of its staged fleet; B2 also beside its 3xTF32 tensor-core
+   rerun of its staged fleet; B4 and B5 also on 40-channel pages, read
+   in place; B2 also beside its 3xTF32 tensor-core
    bound) (device
    time from CUDA events, see ``time_ms``) beside the least time the card
    could take (B6 also beside ``scaled_dot_product_attention`` on the
@@ -129,6 +144,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import statistics
@@ -910,7 +926,8 @@ def main() -> int:
     errs = {"B1": 0.0, "B1_bf16": 0.0, "B2": 0.0, "B3": 0.0, "B3_bf16": 0.0,
             "B3_vs_B1": 0.0, "B4": 0.0, "B4_bf16": 0.0, "B5": 0.0,
             "B5_bf16": 0.0}
-    b3_bit_equal = True
+    b3_bit_equal = True  # B3 against two B1 launches
+    b3_plain_equal = True  # B3 against its plain version
     b1_bit_equal = True
     shapes = {}
 
@@ -927,6 +944,28 @@ def main() -> int:
             f"B1 {label} table {tuple(tbl.shape)} ids {tuple(ids.shape)}",
             got, want, BF16_TOL if bf else F32_TOL))
         b1_bit_equal &= bool(torch.equal(got, want))
+
+    def b3_check(label, t, ih, wh, ir, wr, ns):
+        """B3 against its plain version and against two B1 launches on
+        the same blocks, within the tolerance and bit for bit."""
+        nonlocal b3_bit_equal, b3_plain_equal
+        bf = t.dtype == torch.bfloat16
+        tol = BF16_TOL if bf else F32_TOL
+        name = (f"B3 {label} {'bf16' if bf else 'f32'} num_seg={ns} table "
+                f"{tuple(t.shape)} holes {tuple(ih.shape)} refs "
+                f"{tuple(ir.shape)}")
+        got = sp_k.fused_gather_dual(t, ih, wh, ir, wr, num_seg=ns)
+        want = sp_k.fused_gather_dual_plain(t, ih, wh, ir, wr, ns)
+        b1 = (gt_k.gather_trilerp_mvoxels_segmented(t, ih, wh, num_seg=ns),
+              gt_k.gather_trilerp_mvoxels_segmented(t, ir, wr, num_seg=ns))
+        key = "B3_bf16" if bf else "B3"
+        for part, g, w, o in zip(("holes", "refs"), got, want, b1):
+            errs[key] = max(errs[key], check_close(f"{name} {part}", g, w,
+                                                   tol))
+            errs["B3_vs_B1"] = max(errs["B3_vs_B1"], check_close(
+                f"{name} {part} vs B1", g, o, tol))
+            b3_plain_equal &= bool(torch.equal(g, w))
+            b3_bit_equal &= bool(torch.equal(g, o))
 
     for layout in ("identity", "bank_interleaved"):
         ren = api.make_renderer(cfg_a.replace(mvoxel_layout=layout))
@@ -949,29 +988,10 @@ def main() -> int:
                                   config=cfg_c.replace(mvoxel_layout=layout))
         for num_seg in (1, 4):
             (tbl, ih, wh, ir, wr), ns = capture_b3_inputs(eng_c, num_seg)
-            for tag, t in (("f32", tbl), ("bf16", tbl.to(torch.bfloat16))):
-                tol = BF16_TOL if tag == "bf16" else F32_TOL
-                name = (f"B3 {layout} {tag} num_seg={ns} table "
-                        f"{tuple(t.shape)} holes {tuple(ih.shape)} "
-                        f"refs {tuple(ir.shape)}")
-                got = sp_k.fused_gather_dual(t, ih, wh, ir, wr, num_seg=ns)
-                want = sp_k.fused_gather_dual_plain(t, ih, wh, ir, wr, ns)
-                b1 = (gt_k.gather_trilerp_mvoxels_segmented(t, ih, wh,
-                                                            num_seg=ns),
-                      gt_k.gather_trilerp_mvoxels_segmented(t, ir, wr,
-                                                            num_seg=ns))
-                key = "B3_bf16" if tag == "bf16" else "B3"
-                for part, g, w, o in zip(("holes", "refs"), got, want, b1):
-                    errs[key] = max(errs[key], check_close(
-                        f"{name} {part}", g, w, tol))
-                    errs["B3_vs_B1"] = max(errs["B3_vs_B1"], check_close(
-                        f"{name} {part} vs B1", g, o, tol))
-                    b3_bit_equal &= bool(torch.equal(g, o))
-                if layout == "identity" and num_seg == 1 and tag == "f32":
-                    shapes["B3_C"] = ((t, ih, wh, ir, wr), ns)
-    print(f"B3 bit-equal to B1 on every captured block: {b3_bit_equal}")
-    if not b3_bit_equal:
-        fail("B3 differs from two B1 launches on the same blocks")
+            for t in (tbl, tbl.to(torch.bfloat16)):
+                b3_check(layout, t, ih, wh, ir, wr, ns)
+            if layout == "identity" and num_seg == 1:
+                shapes["B3_C"] = ((tbl, ih, wh, ir, wr), ns)
     pts_b, dirs_b = chunk_points(poses[:1], cfg_b_model.num_samples)
     scfg_b = model_b.streaming_cfg
     prepared_b = model_b.prepare_streaming(params_b)
@@ -1025,14 +1045,43 @@ def main() -> int:
     eng_d = DeviceSparwEngine(model_b, params_b, config=cfg_d)
     (tbl, ih, wh, ir, wr), ns = capture_b3_inputs(eng_d, 4)
     shapes["B3_D"] = ((tbl, ih, wh, ir, wr), ns)
-    for part, g, w in zip(("holes", "refs"),
-                          sp_k.fused_gather_dual(tbl, ih, wh, ir, wr,
-                                                 num_seg=ns),
-                          sp_k.fused_gather_dual_plain(tbl, ih, wh, ir, wr,
-                                                       ns)):
-        errs["B3"] = max(errs["B3"], check_close(
-            f"B3 arm-D identity f32 num_seg={ns} table {tuple(tbl.shape)} "
-            f"{part}", g, w, F32_TOL))
+    for t in (tbl, tbl.to(torch.bfloat16)):
+        b3_check("arm-D identity", t, ih, wh, ir, wr, ns)
+    # B3 at the reference's shapes (tests/test_streaming_pipeline.py: grid
+    # 16, edge 8, C = 4, caps 128 / 256 and 32 / 64: CTAs of 256 and 64
+    # threads), then at blocks too large to stage, read in place: the
+    # edge-16, C = 12 block in fp32 (235,824 B) and [729, 80] in fp32
+    # (233,280 B; its bf16 copy is staged)
+    b3_cases = [(16, 8, 128, 4, 600), (16, 8, 32, 4, 600),
+                (48, 16, 512, 12, 20000), (48, 8, 512, 80, 150000)]
+    for res, edge, cap, c, n in b3_cases:
+        rng = np.random.default_rng(res + cap + c)
+        table = torch.as_tensor(rng.standard_normal((res**3, c)),
+                                dtype=torch.float32, device=dev)
+        pts = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, 3)),
+                              dtype=torch.float32, device=dev)
+        seg = torch.zeros(n, dtype=torch.int32, device=dev)
+        layouts = ("identity", "bank_interleaved") if res == 16 \
+            else ("identity",)
+        for layout in layouts:
+            scfg_r = streaming.StreamingCfg(grid_res=res, mvoxel_edge=edge,
+                                            capacity=cap, layout=layout)
+            bh = sp_k._rit_blocks(pts, seg, 1, scfg_r)
+            br = sp_k._rit_blocks(pts, seg, 1, dataclasses.replace(
+                scfg_r, capacity=2 * cap))
+            mv = streaming.build_mvoxel_table(table, scfg_r)
+            args = (bh.ids_mv, bh.w_mv, br.ids_mv, br.w_mv)
+            label = (f"reference shape res {res} edge {edge} caps {cap}/"
+                     f"{2 * cap} C {c} {layout}")
+            for t in (mv, mv.to(torch.bfloat16)):
+                b3_check(label, t, *args, 1)
+            if res == 48:
+                shapes[f"B3_in_place C{c}"] = ((mv,) + args, 1)
+    print(f"B3 bit-equal to its plain version at every checked shape: "
+          f"{b3_plain_equal}; to two B1 launches: {b3_bit_equal}")
+    if not (b3_plain_equal and b3_bit_equal):
+        fail("B3 differs from its plain version or from two B1 launches "
+             "on the same blocks")
     # B4 and B5 on the blocks arm E's first mixed-scene tick builds; each
     # segment's rows also against B1 / B3 run on that segment's page
     per_seg_bit_equal = True
@@ -1149,6 +1198,92 @@ def main() -> int:
           f"{per_seg_bit_equal}")
     if not per_seg_bit_equal:
         fail("B4 or B5 differs from B1 / B3 run on a segment's page")
+    # B4 and B5 at the shapes C4 was about, where the old kernels raised:
+    # arm E's captured map and rows on pages rebuilt at C = 40 (fp32: two
+    # blocks exceed shared memory, read in place) and C = 36 (bf16: staged,
+    # run-time C over 32), and three pages of the edge-16, C = 12 block (in
+    # place in both dtypes); each under its captured map and one with -1.
+    # Bit-equal to the plain versions (NaN at the same places) and to B1 /
+    # B3 on each valid page, NaN exactly on the invalid segment's rows
+    gen4 = torch.Generator(device=dev).manual_seed(4)
+    same = lambda a, b: bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                             and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    c4_checks = {}
+
+    def per_seg_c4(label, pages, maps, b4_rows, b5_rows, ns):
+        tol = BF16_TOL if pages.dtype == torch.bfloat16 else F32_TOL
+        key = "_bf16" if pages.dtype == torch.bfloat16 else ""
+        seg_rows = lambda x, s: x[s * pages.shape[1]:(s + 1) * pages.shape[1]]
+        for page_map in maps:
+            scn_m = torch.tensor(page_map, dtype=torch.int32, device=dev)
+            name = (f"{label} pages {tuple(pages.shape)} "
+                    f"{str(pages.dtype)[6:]} map {page_map}")
+            got4 = gt_k.gather_trilerp_mvoxels_per_seg(pages, scn_m, *b4_rows,
+                                                       num_seg=ns)
+            want4 = gt_k.gather_trilerp_per_seg_plain(pages, scn_m, *b4_rows,
+                                                      ns)
+            got5 = sp_k.fused_gather_dual_per_seg(pages, scn_m, *b5_rows,
+                                                  num_seg=ns)
+            want5 = sp_k.fused_gather_dual_per_seg_plain(pages, scn_m,
+                                                         *b5_rows, ns)
+            errs["B4" + key] = max(errs["B4" + key], check_close_nan(
+                f"B4 {name}", got4, want4, tol))
+            for part, g, wt in zip(("holes", "refs"), got5, want5):
+                errs["B5" + key] = max(errs["B5" + key], check_close_nan(
+                    f"B5 {name} {part}", g, wt, tol))
+            equal = same(got4, want4) and all(
+                same(g, wt) for g, wt in zip(got5, want5))
+            for s, page in enumerate(page_map):
+                if 0 <= page < pages.shape[0]:
+                    b1 = gt_k.gather_trilerp_mvoxels_segmented(
+                        pages[page], *(seg_rows(x, s) for x in b4_rows),
+                        num_seg=1)
+                    b3 = sp_k.fused_gather_dual(
+                        pages[page], *(seg_rows(x, s) for x in b5_rows),
+                        num_seg=1)
+                    equal &= bool(torch.equal(seg_rows(got4, s), b1)) and all(
+                        bool(torch.equal(seg_rows(g, s), o))
+                        for g, o in zip(got5, b3))
+                else:
+                    equal &= all(bool(torch.isnan(seg_rows(g, s)).all())
+                                 for g in (got4,) + tuple(got5))
+            c4_checks[name] = equal
+
+    k_pages, num_mv, p_e = pages.shape[:3]
+    map_e = b4_args[1].tolist()
+    maps_e = [map_e, [map_e[0], -1] + map_e[2:]]
+    for c, dt in ((40, torch.float32), (36, torch.bfloat16)):
+        pages_c = torch.randn((k_pages, num_mv, p_e, c), generator=gen4,
+                              device=dev).to(dt)
+        per_seg_c4(f"arm E's rows, C = {c}", pages_c, maps_e, b4_args[2:],
+                   b5_args[2:], ns4)
+        if c == 40:
+            shapes["B4_in_place"] = ((pages_c, b4_args[1]) + b4_args[2:],
+                                     ns4)
+            shapes["B5_in_place"] = ((pages_c, b5_args[1]) + b5_args[2:],
+                                     ns5)
+    rng = np.random.default_rng(16)
+    scfg_16 = streaming.StreamingCfg(grid_res=48, mvoxel_edge=16,
+                                     capacity=512)
+    n16, ns16 = 40000, 4
+    pts = torch.as_tensor(rng.uniform(-1.0, 1.0, (n16, 3)),
+                          dtype=torch.float32, device=dev)
+    seg = torch.arange(n16, device=dev, dtype=torch.int32) % ns16
+    blocks = ops.rit_blocks(pts, scfg_16, seg=seg, num_seg=ns16)
+    bh = sp_k._rit_blocks(pts, seg, ns16, scfg_16)
+    br = sp_k._rit_blocks(pts, seg, ns16, dataclasses.replace(
+        scfg_16, capacity=1024))
+    pages_16 = torch.randn((3, scfg_16.num_mvoxels, scfg_16.halo_rows, 12),
+                           generator=gen4, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        per_seg_c4("edge 16, C = 12", pages_16.to(dt),
+                   [[2, 0, 2, 1], [1, -1, 0, 2]],
+                   (blocks.ids, blocks.weights),
+                   (bh.ids_mv, bh.w_mv, br.ids_mv, br.w_mv), ns16)
+    print(f"B4 / B5 at the C4 shapes, bit-equal to plain and to B1 / B3 on "
+          f"each valid page, NaN on the invalid: {json.dumps(c4_checks)}")
+    if not all(c4_checks.values()):
+        fail("B4 or B5 differs at a C4 shape")
     # B6 at the shapes arm F gives it (its first prefill, 2,048 tokens, and
     # its first decode tick, 4 slots at index 2,048 of a 2,084-row cache),
     # a ragged prefill through ops.mha (kv_len masks the padding) and a
@@ -1545,6 +1680,57 @@ def main() -> int:
                         for a, b in zip(x.frames, y.frames))
         if staged_db < 40.0:
             fail(f"arm E: staged and fused frames differ ({staged_db:.2f} dB)")
+        # C4 end to end: the short fleet at 40 channels, fused and staged.
+        # Two fp32 [729, 40] blocks exceed shared memory, so B4 and B5 read
+        # every page block in place. The padded channels are zero and the
+        # direct decoder reads channels 0-3, so only float-order noise in
+        # the dense fallback may part it from the 4-channel run
+        c40 = cfg.replace(channels=40)
+        ren40 = api.make_renderer(c40)
+        wide = {}
+        for fused in (True, False):
+            e = RenderServeEngine(
+                ren40.model, ren40.params,
+                config=c40.replace(fused_tick=fused),
+                scene_loader=lambda name: scenes.bake_dense_table(
+                    scenes.make_scene(name), c40.grid_res, c40.channels,
+                    device=dev))
+            reset()
+            torch.cuda.synchronize()
+            sess = arm_e_sessions(4, n_frames // 2)
+            m = e.run(sess)
+            wide[fused] = (sess, m, counts())
+        counters = ("hits", "misses", "evictions", "uploads", "hit_rate",
+                    "resident_scenes")
+        scale = c40.channels / cfg.channels  # page bytes grow with C
+        wide_db = math.inf
+        for fused, (s40, m40, l40) in wide.items():
+            s4, m4, _ = short[fused]
+            sc4, sc40 = m4["scene_cache"], m40["scene_cache"]
+            if m40["ticks"] != m4["ticks"] or not m40["complete"] \
+                    or any(sc40[k] != sc4[k] for k in counters) \
+                    or any(sc40[k] != scale * sc4[k] for k in (
+                        "evicted_bytes", "uploaded_bytes", "resident_bytes")):
+                fail(f"arm E at 40 channels (fused {fused}): ticks "
+                     f"{m40['ticks']} vs {m4['ticks']}, scene cache {sc40} "
+                     f"vs {sc4}")
+            if any(stats_of(a) != stats_of(b) for a, b in zip(s40, s4)):
+                fail(f"arm E at 40 channels (fused {fused}): session stats "
+                     "differ from the 4-channel run")
+            if (fused and (l40["fused_gather_dual_per_seg"] != m40["ticks"]
+                           or l40["gather_trilerp_per_seg"] == 0)) \
+                    or (not fused and (l40["gather_trilerp_per_seg"] == 0
+                                       or l40["fused_gather_dual_per_seg"])) \
+                    or l40["gather_trilerp"] or l40["fused_gather_dual"]:
+                fail(f"arm E at 40 channels (fused {fused}): launches {l40}")
+            wide_db = min(wide_db, min(
+                float(psnr(a, b)) for x, y in zip(s40, s4)
+                for a, b in zip(x.frames, y.frames)))
+        print(f"C4 end to end: arm E's short fleet at 40 channels, fused and "
+              f"staged, {wide_db:.2f} dB from the 4-channel runs")
+        if wide_db < 60.0:
+            fail(f"arm E at 40 channels: frames {wide_db:.2f} dB from the "
+                 "4-channel run")
         fleet = lambda: eng.run(arm_e_sessions(n_sessions, n_frames))
         return {
             "sessions": n_sessions, "frames": n_sessions * n_frames,
@@ -1566,7 +1752,13 @@ def main() -> int:
                 "ticks": m_f["ticks"], "min_psnr_staged_vs_fused_db":
                 staged_db, "launches_fused": l_f, "launches_staged": l_s,
                 "fused_wall_s": m_f["wall_s"], "staged_wall_s": m_s["wall_s"],
-                "staged_b4_calls_by_shape": b4_staged_shapes}}
+                "staged_b4_calls_by_shape": b4_staged_shapes},
+            "short_fleet_40_channels": {
+                "min_psnr_vs_4_channels_db": wide_db,
+                "launches_fused": wide[True][2],
+                "launches_staged": wide[False][2],
+                "fused_wall_s": wide[True][1]["wall_s"],
+                "staged_wall_s": wide[False][1]["wall_s"]}}
 
 
     def to_dev(tree, device):
@@ -1844,8 +2036,13 @@ def main() -> int:
                   lambda a=a, n=n: sp_k.fused_gather_dual_plain(*a, n),
                   *b3_cost(*a),
                   f"table {list(a[0].shape)} holes {list(a[1].shape)} "
-                  f"refs {list(a[3].shape)} num_seg {n}")
-            for a, n in (shapes["B3_C"], shapes["B3_D"])]
+                  f"refs {list(a[3].shape)} num_seg {n}{label}")
+            for (a, n), label in (
+                (shapes["B3_C"], ""), (shapes["B3_D"], ""),
+                (shapes["B3_in_place C12"],
+                 " (edge-16 C = 12 block in fp32, read in place)"),
+                (shapes["B3_in_place C80"],
+                 " ([729, 80] block in fp32, read in place)"))]
     (b4_args, ns4), (b5_args, ns5) = shapes["B4_E"], shapes["B5_E"]
 
     def per_seg_timings(kernel_fn, plain_fn, cost, single_fn, single_plain,
@@ -1891,6 +2088,18 @@ def main() -> int:
         b5_cost, sp_k.fused_gather_dual, sp_k.fused_gather_dual_plain,
         b3_cost, b5_args, ns5,
         f"holes {list(b5_args[2].shape)} refs {list(b5_args[4].shape)}")
+    # B4 and B5 on arm E's captured map and rows with pages of 40 fp32
+    # channels: two blocks exceed shared memory, each is read in place
+    for t_k, fn, plain_fn, cost, key in (
+            (t_b4, gt_k.gather_trilerp_mvoxels_per_seg,
+             gt_k.gather_trilerp_per_seg_plain, b4_cost, "B4_in_place"),
+            (t_b5, sp_k.fused_gather_dual_per_seg,
+             sp_k.fused_gather_dual_per_seg_plain, b5_cost, "B5_in_place")):
+        a, n = shapes[key]
+        t_k.append(timed(lambda a=a, n=n, fn=fn: fn(*a, num_seg=n),
+                         lambda a=a, n=n, fn=plain_fn: fn(*a, n), *cost(*a),
+                         f"pages {list(a[0].shape)} map {a[1].tolist()}, "
+                         "arm E's captured rows (read in place)"))
     # B6: bf16 at the tensor-core rate, float32 at the CUDA-core rate; each
     # case under the kernel the wrapper routes it to. The decode's two
     # kernels are timed alone at arm F's first tick (no single PyTorch call
@@ -1943,6 +2152,9 @@ def main() -> int:
     path_launches["E_short_fused"] = arms["E"]["short_fleet"]["launches_fused"]
     path_launches["E_short_staged"] = \
         arms["E"]["short_fleet"]["launches_staged"]
+    wide = arms["E"]["short_fleet_40_channels"]
+    path_launches["E_c40_fused"] = wide["launches_fused"]
+    path_launches["E_c40_staged"] = wide["launches_staged"]
     path_launches["F1"] = arms["F"]["F1"]["launches"]
 
     def entry(name, key, source, replaces, err, t, **extra):
@@ -1974,21 +2186,23 @@ def main() -> int:
               "src/repro/kernels/streaming_pipeline.py:80", errs["B3"], t_b3,
               max_abs_err_bf16=errs["B3_bf16"],
               max_abs_err_vs_b1=errs["B3_vs_B1"],
-              bit_equal_to_b1=b3_bit_equal),
+              bit_equal_to_b1=b3_bit_equal,
+              bit_equal_to_plain=b3_plain_equal,
+              reference_and_in_place_shapes_checked=b3_cases),
         entry("gather_trilerp_mvoxels_per_seg (B4, mixed-scene Gathering "
               "Unit)", gt_k.KERNEL_PER_SEG.name,
               "src/repro_torch/csrc/gather_trilerp_per_seg.cu",
               "src/repro/kernels/gather_trilerp.py:143", errs["B4"], t_b4,
               max_abs_err_bf16=errs["B4_bf16"],
               bit_equal_to_b1_per_page=per_seg_bit_equal,
-              maps_checked=b4_map_checks),
+              maps_checked=b4_map_checks, c4_shapes_checked=c4_checks),
         entry("fused_gather_dual_per_seg (B5, mixed-scene fused tick dual "
               "gather)", sp_k.KERNEL_PER_SEG.name,
               "src/repro_torch/csrc/fused_gather_dual_per_seg.cu",
               "src/repro/kernels/streaming_pipeline.py:138", errs["B5"],
               t_b5, max_abs_err_bf16=errs["B5_bf16"],
               bit_equal_to_b3_per_page=per_seg_bit_equal,
-              maps_checked=b5_map_checks),
+              maps_checked=b5_map_checks, c4_shapes_checked=c4_checks),
     ]}
     b6_ptxas = [line.strip() for line in fa_k.KERNEL.log.read_text()
                 .splitlines() if "registers" in line or "spill" in line]

@@ -49,7 +49,12 @@
 //    invalid segment's rows are NaN.
 //  * C = 4 and C = 8 are template values (16-byte shared-memory reads and
 //    stores, 8-byte for bf16 C = 4); any other C is read at run time and
-//    gathered channel by channel.
+//    gathered channel by channel. Where two blocks do not fit in one
+//    CTA's shared memory (fp32 from C = 40 at P = 729, the reference's
+//    edge-16, C = 12 block in either dtype; the wrapper's
+//    per_seg_staging passes 0), the CTA stages nothing and reads each
+//    segment's page block in place, through L1 and L2, with the
+//    run-time-C code and no barrier.
 //  * The per-output arithmetic is B1's exactly: for v = 0..7 in order,
 //    acc = __fadd_rn(acc, __fmul_rn(w_v, x_v)) from 0.0f (no FMA
 //    contraction), so B5 on segment s is bit-equal to B3 run on page
@@ -260,7 +265,8 @@ __device__ __forceinline__ int next_page(const int* __restrict__ map, int s,
 }
 
 // CC: the channel count as a template value (4 or 8), 0 for any other,
-// read from c_rt at run time
+// read from c_rt at run time; staged: whether two blocks fit in shared
+// memory (uniform over the grid; always true for CC != 0)
 template <typename T, int CC>
 __global__ void __launch_bounds__(kMaxThreads)
     fused_gather_dual_per_seg_kernel(
@@ -269,9 +275,10 @@ __global__ void __launch_bounds__(kMaxThreads)
         const int* __restrict__ ids_r, const float* __restrict__ w_r,
         T* __restrict__ out_h, T* __restrict__ out_r, int num_pages,
         int num_mv, int num_seg, int p, int c_rt, int cap_h, int cap_r,
-        int tiles_h, size_t buf_stride) {
+        int tiles_h, size_t buf_stride, bool staged_rt) {
   extern __shared__ __align__(16) char smem[];
   const int c = CC ? CC : c_rt;
+  const bool staged = CC != 0 || staged_rt;
   const int m = blockIdx.y;
   // this CTA's set: columns [0, tiles_h) hold hole rows, the rest
   // reference rows
@@ -293,7 +300,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   int cur = 1;             // the buffer segments read; none staged yet
 
   // prologue: the first valid page into buffer 0
-  const int first = next_page(map, 0, num_seg, num_pages, -1);
+  const int first = staged ? next_page(map, 0, num_seg, num_pages, -1) : -1;
   if (first >= 0) {
     stage_block(buf[0],
                 reinterpret_cast<const char*>(blk_src + first * page_elems),
@@ -316,7 +323,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         row.w[v] = 0.0f;
       }
     }
-    if (valid && page != held[cur]) {
+    if (staged && valid && page != held[cur]) {
       // the page was prefetched into the other buffer: wait for it; the
       // barrier also frees this buffer for the next prefetch
       cp_async_wait_all();
@@ -331,8 +338,10 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     if (live) {
-      gather_row<T, CC>(reinterpret_cast<const T*>(buf[cur]), row, p, c,
-                        out + r * c);
+      // in place, an invalid page's rows read nothing (their ids are -1)
+      const T* blk = staged ? reinterpret_cast<const T*>(buf[cur])
+                            : blk_src + (valid ? page : 0) * page_elems;
+      gather_row<T, CC>(blk, row, p, c, out + r * c);
     }
   }
 }
@@ -342,10 +351,10 @@ int launch_c(const void* pages, const void* scene_of_seg, const void* ids_h,
              const void* w_h, const void* ids_r, const void* w_r, void* out_h,
              void* out_r, int num_pages, int num_mv, int num_seg, int p,
              int c, int cap_h, int cap_r, int grid_x, int tiles_h,
-             int threads, void* stream) {
+             int threads, bool staged, void* stream) {
   const size_t block_bytes = static_cast<size_t>(p) * c * sizeof(T);
   const size_t buf_stride = (block_bytes + 15) / 16 * 16;
-  const size_t smem = 2 * buf_stride;
+  const size_t smem = staged ? 2 * buf_stride : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         fused_gather_dual_per_seg_kernel<T, CC>,
@@ -359,19 +368,24 @@ int launch_c(const void* pages, const void* scene_of_seg, const void* ids_h,
           static_cast<const int*>(ids_h), static_cast<const float*>(w_h),
           static_cast<const int*>(ids_r), static_cast<const float*>(w_r),
           static_cast<T*>(out_h), static_cast<T*>(out_r), num_pages, num_mv,
-          num_seg, p, c, cap_h, cap_r, tiles_h, buf_stride);
+          num_seg, p, c, cap_h, cap_r, tiles_h, buf_stride, staged);
   return static_cast<int>(cudaGetLastError());
 }
 
 // grid_x = tiles_h + tiles_r CTAs of `threads` rows per MVoxel (the
-// wrapper's dual_grid) must cover cap_h and cap_r; ids and weights must
+// wrapper's dual_grid) must cover cap_h and cap_r; staging is the two
+// buffers' bytes when they fit in shared memory, 0 when each page's block
+// is read in place (the wrapper's per_seg_staging); ids and weights must
 // be 16-byte aligned (two int4 / float4 loads a row)
 template <typename T>
 int launch(const void* pages, const void* scene_of_seg, const void* ids_h,
            const void* w_h, const void* ids_r, const void* w_r, void* out_h,
            void* out_r, int num_pages, int num_mv, int num_seg, int p, int c,
            int cap_h, int cap_r, int grid_x, int tiles_h, int threads,
-           void* stream) {
+           int staging, void* stream) {
+  const bool staged = staging > 0;
+  const size_t buf_stride =
+      (static_cast<size_t>(p) * c * sizeof(T) + 15) / 16 * 16;
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(ids_h) | reinterpret_cast<uintptr_t>(w_h) |
       reinterpret_cast<uintptr_t>(ids_r) | reinterpret_cast<uintptr_t>(w_r);
@@ -379,23 +393,23 @@ int launch(const void* pages, const void* scene_of_seg, const void* ids_h,
       tiles_h < 0 || grid_x < tiles_h ||
       static_cast<long long>(tiles_h) * threads < cap_h ||
       static_cast<long long>(grid_x - tiles_h) * threads < cap_r ||
+      (staged && static_cast<size_t>(staging) != 2 * buf_stride) ||
       (align & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (c) {
-    case 4:
-      return launch_c<T, 4>(pages, scene_of_seg, ids_h, w_h, ids_r, w_r,
-                            out_h, out_r, num_pages, num_mv, num_seg, p, c,
-                            cap_h, cap_r, grid_x, tiles_h, threads, stream);
-    case 8:
-      return launch_c<T, 8>(pages, scene_of_seg, ids_h, w_h, ids_r, w_r,
-                            out_h, out_r, num_pages, num_mv, num_seg, p, c,
-                            cap_h, cap_r, grid_x, tiles_h, threads, stream);
-    default:
-      return launch_c<T, 0>(pages, scene_of_seg, ids_h, w_h, ids_r, w_r,
-                            out_h, out_r, num_pages, num_mv, num_seg, p, c,
-                            cap_h, cap_r, grid_x, tiles_h, threads, stream);
+  if (staged && c == 4) {
+    return launch_c<T, 4>(pages, scene_of_seg, ids_h, w_h, ids_r, w_r, out_h,
+                          out_r, num_pages, num_mv, num_seg, p, c, cap_h,
+                          cap_r, grid_x, tiles_h, threads, true, stream);
   }
+  if (staged && c == 8) {
+    return launch_c<T, 8>(pages, scene_of_seg, ids_h, w_h, ids_r, w_r, out_h,
+                          out_r, num_pages, num_mv, num_seg, p, c, cap_h,
+                          cap_r, grid_x, tiles_h, threads, true, stream);
+  }
+  return launch_c<T, 0>(pages, scene_of_seg, ids_h, w_h, ids_r, w_r, out_h,
+                        out_r, num_pages, num_mv, num_seg, p, c, cap_h, cap_r,
+                        grid_x, tiles_h, threads, staged, stream);
 }
 
 }  // namespace
@@ -404,20 +418,21 @@ extern "C" int fused_gather_dual_per_seg_f32(
     const void* pages, const void* scene_of_seg, const void* ids_h,
     const void* w_h, const void* ids_r, const void* w_r, void* out_h,
     void* out_r, int num_pages, int num_mv, int num_seg, int p, int c,
-    int cap_h, int cap_r, int grid_x, int tiles_h, int threads,
+    int cap_h, int cap_r, int grid_x, int tiles_h, int threads, int staging,
     void* stream) {
   return launch<float>(pages, scene_of_seg, ids_h, w_h, ids_r, w_r, out_h,
                        out_r, num_pages, num_mv, num_seg, p, c, cap_h, cap_r,
-                       grid_x, tiles_h, threads, stream);
+                       grid_x, tiles_h, threads, staging, stream);
 }
 
 extern "C" int fused_gather_dual_per_seg_bf16(
     const void* pages, const void* scene_of_seg, const void* ids_h,
     const void* w_h, const void* ids_r, const void* w_r, void* out_h,
     void* out_r, int num_pages, int num_mv, int num_seg, int p, int c,
-    int cap_h, int cap_r, int grid_x, int tiles_h, int threads,
+    int cap_h, int cap_r, int grid_x, int tiles_h, int threads, int staging,
     void* stream) {
   return launch<__nv_bfloat16>(pages, scene_of_seg, ids_h, w_h, ids_r, w_r,
                                out_h, out_r, num_pages, num_mv, num_seg, p, c,
-                               cap_h, cap_r, grid_x, tiles_h, threads, stream);
+                               cap_h, cap_r, grid_x, tiles_h, threads, staging,
+                               stream);
 }

@@ -48,6 +48,14 @@
 //  * The map entry is the same for every thread of the CTA, so every
 //    branch on it is uniform. Invalid pages are never prefetched; an
 //    invalid segment's rows are NaN.
+//  * C = 4 and C = 8 are template values (16-byte shared-memory reads and
+//    stores, 8-byte for bf16 C = 4); any other C is read at run time and
+//    gathered channel by channel, with no register array to bound it.
+//    Where two blocks do not fit in one CTA's shared memory (fp32 from
+//    C = 40 at P = 729, the reference's edge-16, C = 12 block in either
+//    dtype; the wrapper's per_seg_staging passes 0), the CTA stages
+//    nothing and reads each segment's page block in place, through L1
+//    and L2, with the run-time-C code and no barrier.
 //  * The per-output arithmetic is B1's exactly: for v = 0..7 in order,
 //    acc = __fadd_rn(acc, __fmul_rn(w_v, x_v)) from 0.0f (no FMA
 //    contraction), so B4 on segment s is bit-equal to B1 run on page
@@ -218,18 +226,17 @@ __device__ __forceinline__ int next_page(const int* __restrict__ map, int s,
 }
 
 // CC: the channel count as a template value (4 or 8), 0 for any other,
-// read from c at run time (up to kMaxC)
-constexpr int kMaxC = 32;
-
+// read from c_rt at run time; staged: whether two blocks fit in shared
+// memory (uniform over the grid; always true for CC != 0)
 template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads) gather_trilerp_per_seg_kernel(
     const T* __restrict__ pages, const int* __restrict__ map,
     const int* __restrict__ ids, const float* __restrict__ w,
     T* __restrict__ out, int num_pages, int num_mv, int num_seg, int p,
-    int c_rt, int cap, size_t buf_stride) {
+    int c_rt, int cap, size_t buf_stride, bool staged_rt) {
   extern __shared__ __align__(16) char smem[];
-  constexpr int C = CC ? CC : kMaxC;  // register arrays' size
   const int c = CC ? CC : c_rt;
+  const bool staged = CC != 0 || staged_rt;
   const int m = blockIdx.y;
   const int i = blockIdx.x * kThreads + threadIdx.x;  // this thread's row
   const bool live = i < cap;
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) gather_trilerp_per_seg_kernel(
   int cur = 1;             // the buffer segments read; none staged yet
 
   // prologue: the first valid page into buffer 0
-  const int first = next_page(map, 0, num_seg, num_pages, -1);
+  const int first = staged ? next_page(map, 0, num_seg, num_pages, -1) : -1;
   if (first >= 0) {
     stage_block(buf[0],
                 reinterpret_cast<const char*>(blk_src + first * page_elems),
@@ -256,7 +263,7 @@ __global__ void __launch_bounds__(kThreads) gather_trilerp_per_seg_kernel(
     // the row's ids and weights, in flight through a page switch's wait
     Row row;
     if (live && valid) load_row(ids, w, r, row);
-    if (valid && page != held[cur]) {
+    if (staged && valid && page != held[cur]) {
       // the page was prefetched into the other buffer: wait for it; the
       // barrier also frees this buffer for the next prefetch
       cp_async_wait_all();
@@ -270,44 +277,48 @@ __global__ void __launch_bounds__(kThreads) gather_trilerp_per_seg_kernel(
         held[cur ^ 1] = np;
       }
     }
-    if (live) {
+    if (!live) continue;
+    T* dst = out + r * c;
+    if constexpr (CC != 0) {
       const T* blk = reinterpret_cast<const T*>(buf[cur]);
-      float acc[C];
+      float acc[CC];
 #pragma unroll
-      for (int ch = 0; ch < C; ++ch) acc[ch] = 0.0f;
+      for (int ch = 0; ch < CC; ++ch) acc[ch] = 0.0f;
 #pragma unroll
       for (int v = 0; v < 8; ++v) {
-        float x[C];
+        float x[CC];
         if (valid && static_cast<unsigned>(row.id[v]) <
                          static_cast<unsigned>(p)) {
-          if constexpr (CC != 0) {
-            read_row<T, C>(blk, row.id[v], x);
-          } else {
-            for (int ch = 0; ch < c; ++ch) {
-              x[ch] = to_f32(blk[static_cast<size_t>(row.id[v]) * c + ch]);
-            }
-          }
+          read_row<T, CC>(blk, row.id[v], x);
         } else {
 #pragma unroll
-          for (int ch = 0; ch < C; ++ch) x[ch] = NAN;
+          for (int ch = 0; ch < CC; ++ch) x[ch] = NAN;
         }
         const float wv = valid ? row.w[v] : 0.0f;
-        if constexpr (CC != 0) {
 #pragma unroll
-          for (int ch = 0; ch < C; ++ch) {
-            acc[ch] = __fadd_rn(acc[ch], __fmul_rn(wv, x[ch]));
-          }
-        } else {
-          for (int ch = 0; ch < c; ++ch) {
-            acc[ch] = __fadd_rn(acc[ch], __fmul_rn(wv, x[ch]));
-          }
+        for (int ch = 0; ch < CC; ++ch) {
+          acc[ch] = __fadd_rn(acc[ch], __fmul_rn(wv, x[ch]));
         }
       }
-      T* dst = out + r * c;
-      if constexpr (CC != 0) {
-        store_row<T, C>(dst, acc);
-      } else {
-        for (int ch = 0; ch < c; ++ch) store(dst + ch, acc[ch]);
+      store_row<T, CC>(dst, acc);
+    } else {
+      // channel by channel, from the staged buffer or, in place, from the
+      // page's block in device memory; an invalid page's rows are NaN
+      const T* blk = staged ? reinterpret_cast<const T*>(buf[cur])
+                            : blk_src + (valid ? page : 0) * page_elems;
+      for (int ch = 0; ch < c; ++ch) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+          const float x =
+              valid && static_cast<unsigned>(row.id[v]) <
+                           static_cast<unsigned>(p)
+                  ? to_f32(blk[static_cast<size_t>(row.id[v]) * c + ch])
+                  : NAN;
+          const float wv = valid ? row.w[v] : 0.0f;
+          acc = __fadd_rn(acc, __fmul_rn(wv, x));
+        }
+        store(dst + ch, acc);
       }
     }
   }
@@ -316,10 +327,10 @@ __global__ void __launch_bounds__(kThreads) gather_trilerp_per_seg_kernel(
 template <typename T, int CC>
 int launch_c(const void* pages, const void* scene_of_seg, const void* ids,
              const void* w, void* out, int num_pages, int num_mv,
-             int num_seg, int p, int c, int cap, void* stream) {
+             int num_seg, int p, int c, int cap, bool staged, void* stream) {
   const size_t block_bytes = static_cast<size_t>(p) * c * sizeof(T);
   const size_t buf_stride = (block_bytes + 15) / 16 * 16;
-  const size_t smem = 2 * buf_stride;
+  const size_t smem = staged ? 2 * buf_stride : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         gather_trilerp_per_seg_kernel<T, CC>,
@@ -332,32 +343,36 @@ int launch_c(const void* pages, const void* scene_of_seg, const void* ids,
       static_cast<const T*>(pages), static_cast<const int*>(scene_of_seg),
       static_cast<const int*>(ids), static_cast<const float*>(w),
       static_cast<T*>(out), num_pages, num_mv, num_seg, p, c, cap,
-      buf_stride);
+      buf_stride, staged);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ids and weights must be 16-byte aligned (two int4 / float4 loads a
-// row), the channel count at most kMaxC
+// staging is the two buffers' bytes when they fit in shared memory, 0
+// when each page's block is read in place (the wrapper's
+// per_seg_staging); ids and weights must be 16-byte aligned (two int4 /
+// float4 loads a row)
 template <typename T>
 int launch(const void* pages, const void* scene_of_seg, const void* ids,
            const void* w, void* out, int num_pages, int num_mv, int num_seg,
-           int p, int c, int cap, void* stream) {
-  if (c < 1 || c > kMaxC ||
+           int p, int c, int cap, int staging, void* stream) {
+  const bool staged = staging > 0;
+  const size_t buf_stride =
+      (static_cast<size_t>(p) * c * sizeof(T) + 15) / 16 * 16;
+  if (c < 1 || (staged && static_cast<size_t>(staging) != 2 * buf_stride) ||
       ((reinterpret_cast<uintptr_t>(ids) | reinterpret_cast<uintptr_t>(w)) &
        15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (c) {
-    case 4:
-      return launch_c<T, 4>(pages, scene_of_seg, ids, w, out, num_pages,
-                            num_mv, num_seg, p, c, cap, stream);
-    case 8:
-      return launch_c<T, 8>(pages, scene_of_seg, ids, w, out, num_pages,
-                            num_mv, num_seg, p, c, cap, stream);
-    default:
-      return launch_c<T, 0>(pages, scene_of_seg, ids, w, out, num_pages,
-                            num_mv, num_seg, p, c, cap, stream);
+  if (staged && c == 4) {
+    return launch_c<T, 4>(pages, scene_of_seg, ids, w, out, num_pages,
+                          num_mv, num_seg, p, c, cap, true, stream);
   }
+  if (staged && c == 8) {
+    return launch_c<T, 8>(pages, scene_of_seg, ids, w, out, num_pages,
+                          num_mv, num_seg, p, c, cap, true, stream);
+  }
+  return launch_c<T, 0>(pages, scene_of_seg, ids, w, out, num_pages, num_mv,
+                        num_seg, p, c, cap, staged, stream);
 }
 
 }  // namespace
@@ -367,9 +382,10 @@ extern "C" int gather_trilerp_per_seg_f32(const void* pages,
                                           const void* ids, const void* w,
                                           void* out, int num_pages,
                                           int num_mv, int num_seg, int p,
-                                          int c, int cap, void* stream) {
+                                          int c, int cap, int staging,
+                                          void* stream) {
   return launch<float>(pages, scene_of_seg, ids, w, out, num_pages, num_mv,
-                       num_seg, p, c, cap, stream);
+                       num_seg, p, c, cap, staging, stream);
 }
 
 extern "C" int gather_trilerp_per_seg_bf16(const void* pages,
@@ -377,7 +393,8 @@ extern "C" int gather_trilerp_per_seg_bf16(const void* pages,
                                            const void* ids, const void* w,
                                            void* out, int num_pages,
                                            int num_mv, int num_seg, int p,
-                                           int c, int cap, void* stream) {
+                                           int c, int cap, int staging,
+                                           void* stream) {
   return launch<__nv_bfloat16>(pages, scene_of_seg, ids, w, out, num_pages,
-                               num_mv, num_seg, p, c, cap, stream);
+                               num_mv, num_seg, p, c, cap, staging, stream);
 }

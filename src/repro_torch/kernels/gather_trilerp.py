@@ -28,13 +28,12 @@ KERNEL = CudaKernel("gather_trilerp", {"gather_trilerp_f32": "ppppiiiiiiiip",
 _ENTRY = {torch.float32: "gather_trilerp_f32",
           torch.bfloat16: "gather_trilerp_bf16"}
 KERNEL_PER_SEG = CudaKernel(
-    "gather_trilerp_per_seg", {"gather_trilerp_per_seg_f32": "pppppiiiiiip",
-                               "gather_trilerp_per_seg_bf16": "pppppiiiiiip"})
+    "gather_trilerp_per_seg", {"gather_trilerp_per_seg_f32": "pppppiiiiiiip",
+                               "gather_trilerp_per_seg_bf16": "pppppiiiiiiip"})
 _ENTRY_PER_SEG = {torch.float32: "gather_trilerp_per_seg_f32",
                   torch.bfloat16: "gather_trilerp_per_seg_bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 MAX_GRID_Y = 65535  # CTA rows of a grid: one per MVoxel
-PER_SEG_MAX_C = 32  # B4's channel limit (kMaxC in its source)
 CTA_ROWS = 256  # RIT rows a CTA of B1 or B5 owns at the main path's caps
 
 
@@ -85,6 +84,16 @@ def per_seg_smem_bytes(p: int, c: int, elem_bytes: int) -> int:
     (the staged page and the prefetched next one), each rounded up to 16
     bytes."""
     return 2 * (-(-p * c * elem_bytes // 16) * 16)
+
+
+def per_seg_staging(p: int, c: int, elem_bytes: int) -> int:
+    """What B4's and B5's wrappers hand their kernels: the two buffers'
+    bytes (:func:`per_seg_smem_bytes`) where they fit in one H100 block's
+    shared memory, else 0, and the kernel reads each segment's page
+    block in place (through L1 and L2) instead; the twin of
+    :func:`gather_smem_bytes`."""
+    nbytes = per_seg_smem_bytes(p, c, elem_bytes)
+    return nbytes if nbytes <= _SMEM_LIMIT else 0
 
 
 def gather_trilerp_plain(mv_table: torch.Tensor, ids: torch.Tensor,
@@ -187,7 +196,8 @@ def gather_trilerp_mvoxels_per_seg(pages: torch.Tensor,
     C]``. CPU tensors take the plain version; CUDA tensors launch the
     kernel (anything else raises). The map stays on the device: the
     kernel walks it, prefetching the next page's block into a second
-    shared buffer."""
+    shared buffer, or reads each page's block in place where two blocks
+    do not fit in shared memory (:func:`per_seg_staging`)."""
     if pages.device.type == "cpu":
         return gather_trilerp_per_seg_plain(pages, scene_of_seg, ids,
                                             weights, num_seg)
@@ -215,12 +225,6 @@ def gather_trilerp_mvoxels_per_seg(pages: torch.Tensor,
         if t.device != pages.device:
             raise ValueError("gather_trilerp_per_seg: inputs on different "
                              "devices")
-    if per_seg_smem_bytes(p, c, pages.element_size()) > _SMEM_LIMIT:
-        raise ValueError(f"gather_trilerp_per_seg: two halo blocks [{p}, "
-                         f"{c}] exceed shared memory")
-    if c > PER_SEG_MAX_C:
-        raise ValueError(f"gather_trilerp_per_seg: {c} channels, the kernel "
-                         f"takes at most {PER_SEG_MAX_C}")
     pages, scene_of_seg = pages.contiguous(), scene_of_seg.contiguous()
     ids, weights = aligned16(ids), aligned16(weights)
     out = torch.empty((rows, cap, c), dtype=pages.dtype, device=pages.device)
@@ -231,5 +235,6 @@ def gather_trilerp_mvoxels_per_seg(pages: torch.Tensor,
             _ENTRY_PER_SEG[pages.dtype], pages.data_ptr(),
             scene_of_seg.data_ptr(), ids.data_ptr(), weights.data_ptr(),
             out.data_ptr(), k, num_mv, num_seg, p, c, cap,
+            per_seg_staging(p, c, pages.element_size()),
             torch.cuda.current_stream().cuda_stream)
     return out

@@ -28,29 +28,30 @@ import torch
 from repro_torch.core import streaming
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.gather_trilerp import MAX_GRID_Y, LaunchPlan, \
-    aligned16, cta_rows, gather_trilerp_per_seg_plain, gather_trilerp_plain, \
-    per_seg_smem_bytes
+    aligned16, cta_rows, gather_smem_bytes, gather_trilerp_per_seg_plain, \
+    gather_trilerp_plain, per_seg_smem_bytes, per_seg_staging
 from repro_torch.nerf import grids
 
 KERNEL = CudaKernel("fused_gather_dual",
-                    {"fused_gather_dual_f32": "pppppppiiiiiip",
-                     "fused_gather_dual_bf16": "pppppppiiiiiip"})
+                    {"fused_gather_dual_f32": "pppppppiiiiiiiiiip",
+                     "fused_gather_dual_bf16": "pppppppiiiiiiiiiip"})
 _ENTRY = {torch.float32: "fused_gather_dual_f32",
           torch.bfloat16: "fused_gather_dual_bf16"}
 KERNEL_PER_SEG = CudaKernel(
     "fused_gather_dual_per_seg",
-    {"fused_gather_dual_per_seg_f32": "ppppppppiiiiiiiiiip",
-     "fused_gather_dual_per_seg_bf16": "ppppppppiiiiiiiiiip"})
+    {"fused_gather_dual_per_seg_f32": "ppppppppiiiiiiiiiiip",
+     "fused_gather_dual_per_seg_bf16": "ppppppppiiiiiiiiiiip"})
 _ENTRY_PER_SEG = {torch.float32: "fused_gather_dual_per_seg_f32",
                   torch.bfloat16: "fused_gather_dual_per_seg_bf16"}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 
 def dual_grid(num_mv: int, cap_h: int, cap_r: int) -> LaunchPlan:
-    """B5's grid: ``tiles_h + tiles_r`` CTA columns per MVoxel, ``tiles_x
-    = ceil(cap_x / R)`` with R = ``cta_rows(max(cap_h, cap_r))`` (256 at
-    the main path's caps); columns below ``tiles_h`` own hole rows (set
-    0), the others reference rows (set 1), so no CTA mixes the sets."""
+    """B3's and B5's grid: ``tiles_h + tiles_r`` CTA columns per MVoxel,
+    ``tiles_x = ceil(cap_x / R)`` with R = ``cta_rows(max(cap_h, cap_r))``
+    (256 at the main path's caps); columns below ``tiles_h`` own hole rows
+    (set 0), the others reference rows (set 1), so no CTA mixes the
+    sets."""
     r = cta_rows(max(cap_h, cap_r))
     tiles_h, tiles_r = -(-cap_h // r), -(-cap_r // r)
     columns = tuple((0, x * r) for x in range(tiles_h)) \
@@ -104,22 +105,26 @@ def fused_gather_dual(mv_table: torch.Tensor, ids_h: torch.Tensor,
         if ids.device != mv_table.device or w.device != mv_table.device:
             raise ValueError("fused_gather_dual: inputs on different "
                              "devices")
-    if p * c * 4 > _SMEM_LIMIT:
-        raise ValueError(f"fused_gather_dual: halo block [{p}, {c}] exceeds "
-                         "shared memory")
-    mv_table, ids_h, w_h, ids_r, w_r = (
-        t.contiguous() for t in (mv_table, ids_h, w_h, ids_r, w_r))
+    if num_mv > MAX_GRID_Y:
+        raise ValueError(f"fused_gather_dual: {num_mv} MVoxels, the grid "
+                         f"takes at most {MAX_GRID_Y}")
+    mv_table = mv_table.contiguous()
+    ids_h, w_h, ids_r, w_r = (aligned16(t) for t in (ids_h, w_h, ids_r, w_r))
     out_h = torch.empty((rows, cap_h, c), dtype=mv_table.dtype,
                         device=mv_table.device)
     out_r = torch.empty((rows, cap_r, c), dtype=mv_table.dtype,
                         device=mv_table.device)
     if rows == 0 or (cap_h == 0 and cap_r == 0):
         return out_h, out_r
+    plan = dual_grid(num_mv, cap_h, cap_r)
+    tiles_h = sum(1 for kind, _ in plan.columns if kind == 0)
     with torch.cuda.device(mv_table.device):
         KERNEL.call(_ENTRY[mv_table.dtype], mv_table.data_ptr(),
                     ids_h.data_ptr(), w_h.data_ptr(), ids_r.data_ptr(),
                     w_r.data_ptr(), out_h.data_ptr(), out_r.data_ptr(),
-                    num_mv, num_seg, p, c, cap_h, cap_r,
+                    num_mv, num_seg, p, c, cap_h, cap_r, plan.grid[0],
+                    tiles_h, plan.threads,
+                    gather_smem_bytes(p, c, mv_table.element_size()),
                     torch.cuda.current_stream().cuda_stream)
     return out_h, out_r
 
@@ -181,9 +186,6 @@ def fused_gather_dual_per_seg(pages: torch.Tensor, scene_of_seg: torch.Tensor,
         if ids.device != pages.device or w.device != pages.device:
             raise ValueError("fused_gather_dual_per_seg: inputs on "
                              "different devices")
-    if per_seg_smem_bytes(p, c, pages.element_size()) > _SMEM_LIMIT:
-        raise ValueError(f"fused_gather_dual_per_seg: two halo blocks [{p}, "
-                         f"{c}] exceed shared memory")
     if num_mv > MAX_GRID_Y:
         raise ValueError(f"fused_gather_dual_per_seg: {num_mv} MVoxels, the "
                          f"grid takes at most {MAX_GRID_Y}")
@@ -204,6 +206,7 @@ def fused_gather_dual_per_seg(pages: torch.Tensor, scene_of_seg: torch.Tensor,
             ids_r.data_ptr(), w_r.data_ptr(), out_h.data_ptr(),
             out_r.data_ptr(), k, num_mv, num_seg, p, c, cap_h, cap_r,
             plan.grid[0], tiles_h, plan.threads,
+            per_seg_staging(p, c, pages.element_size()),
             torch.cuda.current_stream().cuda_stream)
     return out_h, out_r
 

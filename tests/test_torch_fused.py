@@ -1,7 +1,8 @@
 """Slice 2 of the port, the fused streaming tick: kernel B3's plain version,
 the dual-RIT gather, the analytic traffic counts, one streaming tick and
 the fused trajectory, each against the JAX package (interpret-mode Pallas)
-on the same numpy inputs; plus the port's own fused == staged and
+on the same numpy inputs (B3 also at blocks over 32 channels and over
+one H100 block's shared memory); plus the port's own fused == staged and
 bank_interleaved == identity contracts and the ``fused_tick`` config
 validation."""
 import dataclasses
@@ -81,6 +82,31 @@ def test_fused_gather_dual_plain_matches_pallas(dtype, layout, num_seg):
         assert g.dtype == t_tab.dtype and tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.float().numpy(),
                                    np.asarray(w, dtype=np.float32), **tol)
+
+
+@pytest.mark.parametrize("edge,c", [(8, 40), (16, 12)])
+def test_fused_gather_dual_plain_matches_pallas_wide_blocks(edge, c):
+    """B3's plain version against the Pallas kernel (interpret mode) at the
+    blocks fault C4 was about, fp32, grid 16: [729, 40] (C over 32) and
+    the edge-16, C = 12 block [4913, 12] (too large for one H100 block's
+    shared memory, which the kernel reads in place)."""
+    rng = np.random.default_rng(edge + c)
+    jc, _ = _cfgs(grid_res=16, mvoxel_edge=edge, capacity=32)
+    table = rng.standard_normal((16**3, c)).astype(np.float32)
+    mv_table = np.array(j_streaming.build_mvoxel_table(jnp.asarray(table),
+                                                         jc))
+    num_mv, p, _ = mv_table.shape
+    assert p == (edge + 1) ** 3
+    ids_h, w_h = _rit_set(rng, 2 * num_mv, 32, p)
+    ids_r, w_r = _rit_set(rng, 2 * num_mv, 64, p)
+    args = (mv_table, ids_h, w_h, ids_r, w_r)
+    want = j_sp.fused_gather_dual(*(jnp.asarray(a) for a in args),
+                                  num_seg=2, interpret=True)
+    got = t_sp.fused_gather_dual(*(torch.as_tensor(a) for a in args),
+                                 num_seg=2)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL)
 
 
 def test_fused_gather_dual_takes_plain_only_for_cpu_tensors():

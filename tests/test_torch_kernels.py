@@ -4,8 +4,9 @@ interpret mode on the CPU), on the same numpy inputs; and the wrappers'
 device rule (CPU tensors -> plain version, CUDA -> kernel, else raise).
 Also B2's tensor-core arithmetic (the 3xTF32 split and the folded heads,
 emulated in plain PyTorch) against the reference; B4's and B5's plain
-versions under the segment->page maps the card is checked with; and B1's
-and B5's launch plans, shared-memory rules and 16-byte realignment."""
+versions under the segment->page maps the card is checked with; and B1's,
+B3's and B5's launch plans, the shared-memory rules of B1, B3, B4 and B5,
+and 16-byte realignment."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -445,7 +446,8 @@ def test_dual_per_seg_shared_memory_rule():
     """B5 stages two halo blocks in the pages' own dtype (B4's rule,
     ``per_seg_smem_bytes``): arm E's fp32 [729, 4] pair takes 23,328 B,
     its bf16 pair 11,680 B; two [4913, 12] blocks do not fit in either
-    dtype, and the wrapper raises for them."""
+    dtype, and the kernel reads them in place (``per_seg_staging`` is 0
+    for them)."""
     assert t_sp.per_seg_smem_bytes is t_gt.per_seg_smem_bytes
     assert t_sp.per_seg_smem_bytes(729, 4, 4) == 23328
     assert t_sp.per_seg_smem_bytes(729, 4, 2) == 11680
@@ -471,3 +473,50 @@ def test_aligned16_copies_only_misaligned_tensors(dtype):
     got = t_gt.aligned16(base[:64].reshape(8, 8).t())
     assert got.is_contiguous() and got.data_ptr() % 16 == 0
     assert torch.equal(got, base[:64].reshape(8, 8).t())
+
+
+# ---------------------------------------------------------------------------
+# the shared-memory rules and launch plans behind the C4 repair (B3, B4 and
+# B5 take every block and channel count the reference takes) and B3's
+# redesign
+# ---------------------------------------------------------------------------
+
+
+def test_per_seg_staging_rule():
+    """B4's and B5's wrappers hand their kernels the two buffers' bytes
+    where they fit in one H100 block's shared memory, else 0 (each page's
+    block is read in place): 23,328 B at arm E's fp32 [729, 4] (its main
+    path, unchanged); 0 for fp32 [729, 40] (2 x 116,640 B) and for the
+    edge-16, C = 12 block in either dtype; the two bf16 [729, 36] buffers
+    (2 x 52,496 B) are staged, with the run-time-C code above 32
+    channels."""
+    assert t_gt.per_seg_staging(729, 4, 4) == 23328
+    assert t_gt.per_seg_staging(729, 40, 4) == 0
+    assert t_gt.per_seg_staging(4913, 12, 4) == 0
+    assert t_gt.per_seg_staging(4913, 12, 2) == 0
+    assert t_gt.per_seg_staging(729, 36, 2) == \
+        t_gt.per_seg_smem_bytes(729, 36, 2) == 2 * 52496
+    assert t_sp.per_seg_staging is t_gt.per_seg_staging
+    assert not hasattr(t_gt, "PER_SEG_MAX_C")
+
+
+def test_b3_shared_memory_rule():
+    """B3 stages one halo block in the table's own dtype (B1's rule,
+    ``gather_smem_bytes``): fp32 [729, 80] (233,280 B) exceeds one H100
+    block's shared memory and is read in place; its bf16 copy (116,640 B)
+    is staged."""
+    assert t_sp.gather_smem_bytes is t_gt.gather_smem_bytes
+    assert t_sp.gather_smem_bytes(729, 80, 4) == 0
+    assert t_sp.gather_smem_bytes(729, 80, 2) == 116640
+    assert t_sp.gather_smem_bytes(729, 79, 4) == 729 * 79 * 4
+
+
+@pytest.mark.parametrize("num_mv", [216, 512])
+def test_b3_launch_plan_at_the_fused_arms_shapes(num_mv):
+    """B3's grid at arm C's (216 MVoxels) and arm D's (512) fused tick,
+    caps 512 / 1024: 2 hole and 4 reference CTAs of 256 threads per
+    MVoxel, 1,296 and 3,072 CTAs in all."""
+    plan = t_sp.dual_grid(num_mv, 512, 1024)
+    assert plan.grid == (6, num_mv) and plan.threads == 256
+    assert [kind for kind, _ in plan.columns] == [0, 0, 1, 1, 1, 1]
+    assert plan.grid[0] * plan.grid[1] == {216: 1296, 512: 3072}[num_mv]

@@ -1,8 +1,8 @@
 """Slice 3 of the port, multi-scene serving below the engine: the plain
 versions of kernels B4 (``gather_trilerp_mvoxels_per_seg``) and B5
 (``fused_gather_dual_per_seg``) against the JAX package's Pallas kernels
-(interpret mode) on the same numpy inputs and, bit for bit, against B1/B3
-on each segment's page; the ``scene_of_seg`` branch of
+(interpret mode) on the same numpy inputs (also at 40 channels) and, bit
+for bit, against B1/B3 on each segment's page; the ``scene_of_seg`` branch of
 ``gather_features_streaming`` and ``gather_features_tick_scenes`` (RIT,
 overflow and dump-segment cases); ``SceneCache``; and the model's
 stacked-page pass-through."""
@@ -124,6 +124,38 @@ def test_fused_gather_dual_per_seg_plain_matches_pallas(dtype, layout,
     for g, wt in zip(got, want):
         assert g.dtype == t_tab.dtype
         _assert_close(g, wt, dtype)
+
+
+@pytest.mark.parametrize("kernel", ["B4", "B5"])
+def test_per_seg_plain_matches_pallas_at_40_channels(kernel):
+    """Plain B4 and B5 against their Pallas kernels (interpret mode) at
+    C = 40, fp32, grid 16: two [729, 40] blocks exceed one H100 block's
+    shared memory and C exceeds the old kernels' 32 (fault C4)."""
+    rng = np.random.default_rng(40)
+    jc, _ = _cfgs(grid_res=16, capacity=32)
+    tables = rng.standard_normal((K, 16**3, 40)).astype(np.float32)
+    pages = np.stack([np.asarray(j_streaming.build_mvoxel_table(
+        jnp.asarray(t), jc)) for t in tables])
+    num_mv, p = pages.shape[1:3]
+    scn = np.asarray(SCENE_MAPS[3], np.int32)
+    sets = _rit_set(rng, 3 * num_mv, 32, p)
+    if kernel == "B5":
+        sets += _rit_set(rng, 3 * num_mv, 64, p)
+    j_tab = jnp.asarray(pages)[jnp.asarray(scn)]
+    t_args = [torch.as_tensor(a) for a in (pages, scn) + sets]
+    if kernel == "B4":
+        want = (j_gt.gather_trilerp_mvoxels_per_seg(
+            j_tab, *(jnp.asarray(a) for a in sets), num_seg=3,
+            interpret=True),)
+        got = (t_gt.gather_trilerp_mvoxels_per_seg(*t_args, num_seg=3),)
+    else:
+        want = j_sp.fused_gather_dual_per_seg(
+            j_tab, *(jnp.asarray(a) for a in sets), num_seg=3,
+            interpret=True)
+        got = t_sp.fused_gather_dual_per_seg(*t_args, num_seg=3)
+    for g, wt in zip(got, want):
+        assert g.dtype == torch.float32
+        _assert_close(g, wt, "float32")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
