@@ -54,7 +54,10 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    1e-4: float32 sums of up to a split's length in another order), a
    ragged prefill (S = 1000) through ``ops.mha``, a top-left causal
    sq = 64, sk = 128 case, and the decode shape with Sq = 2, which runs it
-   through the prefill kernel instead. Tolerances are the reference's
+   through the prefill kernel instead; and (phase C5) B2 at S = 131,072 on
+   the widths fault C5 made raise, [C, H] = [8, 48] and [8, 96] (padded to
+   the 64- and 128-wide templates) and [8, 160] and [96, 128] (the
+   run-time-H mode), biases drawn non-zero. Tolerances are the reference's
    kernel tolerances: atol 2e-5 / rtol 1e-5 (float32; attention 2e-5 /
    1e-4), 3e-2 (bfloat16; attention atol 8e-3 / rtol 1e-2, a few bfloat16
    steps at the outputs' scale);
@@ -70,7 +73,8 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    Arm B: ``make_model("dvgo", backend="streaming", decoder="mlp")`` at
    ``NerfConfig``'s defaults (grid 64, 8 channels, hidden 64, 64 samples)
    with random parameters from numpy seed 0, 16 frames at res 64; sparse
-   pixels within 1%.
+   pixels within 1%. Arm B48 (phase C5): arm B's model at
+   ``mlp_hidden=48``, 8 frames; equal stats, B2 on its padded template.
    Arm C: arm A's config with ``fused_tick=True``, 32 frames; sparse
    pixels within 1%, and B3 launched once per fused tick.
    Arm D: arm B's model served (``Renderer.serve``) with
@@ -95,6 +99,26 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    and again at ``RenderConfig(channels=40)``, where B4 and B5 read every
    block in place: >= 60 dB from the 4-channel runs, equal ticks,
    per-session stats and scene-cache counters (byte counters 10x).
+   Arm D adaptive: arm D's fleet served staged with
+   ``adaptive_sampling=True`` (one run): the staged fleet's ticks; each
+   session rendered alone on the card within 40 dB of its served frames,
+   with equal stats and, in sum, equal fine holes; the first session's
+   first window alone on the card and on the CPU (the staged fill at 4
+   slots costs minutes of host CPU): >= 40 dB, equal buckets, hole and
+   fine counts and stats. Recorded, not gated: each frame's PSNR against
+   the full render of its pose beside the non-adaptive staged fleet's
+   (the reference gates that delta at 1.0 dB on baked scenes, arm G;
+   these weights are random); samples per tick beside the non-adaptive
+   fleet's, B2's call shapes.
+   Arm G: arm A's config with ``adaptive_sampling=True``,
+   ``coarse_factor=4``, 32 frames: >= 40 dB from the CPU run, equal
+   ``fine_counts`` per window and ``RenderStats``, the same 1.0 dB gate
+   against arm A's frames; samples per window against arm A's.
+   Arm H (the paper's baselines) at arm A's config, 16 frames: the full
+   NeRF render of every frame, the host loop (``engine="host"``), TEMP-16
+   (``engine="host", mode="temporal"``) and DS-2 (``render_ds2``), each
+   >= 40 dB from the CPU run (host loop and TEMP-16 with equal stats),
+   with its mean PSNR against the full render and its warm wall.
    Where the card and CPU runs part (``c2_tables``): each of the six
    tables the loader bakes, on the card against its CPU bake, and the
    fleet served on the card from the CPU's bakes against the CPU run.
@@ -127,7 +151,8 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    unequal positions, so the shared decode index matters) on the card and
    on the CPU: equal token streams and stats, prefill logits within
    1e-3; it runs B6's float32 kernels (tile prefill, split-KV decode);
-5. time each kernel and its plain version at the arms' shapes (B1 also
+5. time each kernel and its plain version at the arms' shapes (B2 also
+   at the four C5 shapes; B1 also
    on arm A's ``bank_interleaved`` table; B3 also at the two float32
    blocks read in place; B4 also
    at the shape of arm E's staged per-scene fill, captured in a spied
@@ -217,11 +242,13 @@ def check_close_nan(name: str, got, want, tol) -> float:
     return check_close(name, got[ok], want[ok], tol)
 
 
-def mlp_ref_inputs(n: int, c: int, h: int, device, seed: int = 0) -> tuple:
+def mlp_ref_inputs(n: int, c: int, h: int, device, seed: int = 0,
+                   biases: bool = False) -> tuple:
     """B2's arguments at [S = n, C = c, H = h]: weights at the reference
-    initializer's scales (N(0, 1) / sqrt(fan_in), zero biases) drawn from
-    numpy ``seed`` as ``arm_b_params`` draws them, features N(0, 1) and
-    the direction code of random unit directions."""
+    initializer's scales (N(0, 1) / sqrt(fan_in), zero biases, or N(0,
+    0.1^2) ones with ``biases``) drawn from numpy ``seed`` as
+    ``arm_b_params`` draws them, features N(0, 1) and the direction code
+    of random unit directions."""
     import numpy as np
     import torch
 
@@ -233,6 +260,9 @@ def mlp_ref_inputs(n: int, c: int, h: int, device, seed: int = 0) -> tuple:
     w = {"w1": normal(c, h), "b1": f32(np.zeros(h)), "w2": normal(h, h),
          "b2": f32(np.zeros(h)), "w_sigma": normal(h, 1),
          "w_rgb": normal(h + 9, 3), "b_rgb": f32(np.zeros(3))}
+    if biases:
+        for k, m in (("b1", h), ("b2", h), ("b_rgb", 3)):
+            w[k] = f32(0.1 * rng.standard_normal(m))
     feats = f32(rng.standard_normal((n, c)))
     d = rng.standard_normal((n, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -244,6 +274,10 @@ def mlp_ref_inputs(n: int, c: int, h: int, device, seed: int = 0) -> tuple:
 
 # the reference's B2 shapes (tests/test_kernels.py::test_fused_mlp_shapes)
 B2_REF_SHAPES = [(1000, 8, 64), (555, 16, 32), (64, 4, 128)]
+# fault C5's [C, H]: padded to a template ([8, 48], [8, 96]) and the
+# run-time-H mode ([8, 160], [96, 128]), at arm B's reference chunk
+C5_SHAPES = [(8, 48), (8, 96), (8, 160), (96, 128)]
+C5_ROWS = 131072
 # the reference's Gathering Unit shapes (res, edge, cap, points, C):
 # tests/test_kernels.py::test_gather_trilerp_shapes
 B1_REF_SHAPES = [(32, 8, 128, 1500, 4), (48, 8, 256, 3000, 8),
@@ -554,13 +588,14 @@ def c2_compare_warps(card: list, host: list) -> list:
     return rows
 
 
-def arm_b_params(seed: int = 0) -> dict:
-    """Random (untrained) parameters at NerfConfig's defaults, with the
-    reference initializer's scales, drawn from numpy."""
+def arm_b_params(seed: int = 0, hidden: int = 64) -> dict:
+    """Random (untrained) parameters at NerfConfig's defaults (hidden
+    width ``hidden``), with the reference initializer's scales, drawn from
+    numpy."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    c, h, res = 8, 64, 64
+    c, h, res = 8, hidden, 64
     f32 = lambda a: np.asarray(a, np.float32)
     normal = lambda rows, cols: f32(rng.standard_normal((rows, cols))
                                     / np.sqrt(rows))
@@ -1041,6 +1076,33 @@ def main() -> int:
         errs["B2"] = max(errs["B2"], check_close(
             f"B2 {label}", mlp_k.fused_nerf_mlp(*a),
             mlp_k.fused_nerf_mlp_plain(*a), F32_TOL))
+    # C5: the widths the templates do not take as they are, each through
+    # the route mlp_plan gives it (the entry point's count shows which)
+    c5 = {}
+    errs["B2_C5"] = 0.0
+    for c, h in C5_SHAPES:
+        a = mlp_ref_inputs(C5_ROWS, c, h, dev, seed=c + h, biases=True)
+        plan = mlp_k.mlp_plan(c, h, 9)
+        before = dict(mlp_k.KERNEL.entry_launches)
+        got = mlp_k.fused_nerf_mlp(*a)
+        torch.cuda.synchronize()
+        entry = [e for e, n in mlp_k.KERNEL.entry_launches.items()
+                 if n != before[e]]
+        want_entry = ("fused_nerf_mlp_f32" if plan.mode == "tensor"
+                      else "fused_nerf_mlp_rt_f32")
+        if entry != [want_entry]:
+            fail(f"B2 C5 [{c}, {h}]: launched {entry}, plan {plan}")
+        err = check_close(f"B2 C5 C={c} H={h} S={C5_ROWS} ({plan.mode}, "
+                          f"width {plan.width}, tile {plan.tile}, smem "
+                          f"{plan.smem} B)", got,
+                          mlp_k.fused_nerf_mlp_plain(*a), F32_TOL)
+        errs["B2_C5"] = max(errs["B2_C5"], err)
+        c5[(c, h)] = {"args": a, "plan": plan._asdict(), "entry": entry[0],
+                      "max_abs_err": err}
+    if [c5[k]["plan"]["mode"] for k in C5_SHAPES] != \
+            ["tensor", "tensor", "runtime", "runtime"]:
+        fail(f"B2 C5 routes: {[c5[k]['plan'] for k in C5_SHAPES]}")
+    errs["B2"] = max(errs["B2"], errs["B2_C5"])
     # B3 at arm D's shape: a 4-session fused tick of arm B's model
     eng_d = DeviceSparwEngine(model_b, params_b, config=cfg_d)
     (tbl, ih, wh, ir, wr), ns = capture_b3_inputs(eng_d, 4)
@@ -1420,7 +1482,12 @@ def main() -> int:
                   for n, m in fa_k.launches_by_kernel().items()})
         return c
 
-    def run_arm(name, cfg, n_frames, model=None, np_params=None):
+    def all_stats(st):
+        """Every field of a RenderStats, per-frame hole fractions too."""
+        return dataclasses.asdict(st)
+
+    def run_arm(name, cfg, n_frames, model=None, np_params=None,
+                profile=True, exact_stats=False):
         arm_poses = orbit_trajectory(n_frames)
         req = RenderRequest(poses=tuple(arm_poses))
         extra = ({} if model is None else
@@ -1449,9 +1516,13 @@ def main() -> int:
                 0.01 * max(sc.sparse_pixels, 1):
             fail(f"arm {name}: sparse pixels {sg.sparse_pixels} vs CPU "
                  f"{sc.sparse_pixels}")
+        if exact_stats and all_stats(sg) != all_stats(sc):
+            fail(f"arm {name}: stats differ from the CPU run "
+                 f"({all_stats(sg)} vs {all_stats(sc)})")
         return {"frames": n_frames, "ticks": math.ceil(n_frames / cfg.window),
                 "launches": launches,
-                "profile": profile_run(lambda: gpu.render(req)),
+                "profile": (profile_run(lambda: gpu.render(req)) if profile
+                            else "not run"),
                 "min_psnr_vs_cpu_db": worst,
                 "reference_renders": sg.reference_renders,
                 "sparse_pixels": sg.sparse_pixels,
@@ -1900,10 +1971,289 @@ def main() -> int:
             "max_memory_allocated": peak, "profile": prof,
             "F1": f1, "F2": f2}
 
+    # the adaptive-sampling and baseline arms (G, D adaptive, H)
+    def window_spy(renderer):
+        """Record each window the renderer's device engine renders: its
+        pool buckets, hole counts and fine counts (device tensors, read
+        after the run)."""
+        eng = renderer.pipeline.device_engine
+        log = []
+        inner = eng.render_window
+
+        def spy(ref_pose, tgt):
+            buckets = eng._current_buckets()
+            res = inner(ref_pose, tgt)
+            log.append((buckets, res.hole_counts, res.fine_counts))
+            return res
+
+        eng.render_window = spy
+        return log
+
+    def read_windows(log):
+        return [(b, h.tolist(), f.tolist()) for b, h, f in log]
+
+    def psnr_delta(frames_a, frames_b, gt):
+        """The reference's adaptive gate: each frame's PSNR against the
+        full render of its pose, one run against the other, worst frame."""
+        return max(abs(float(psnr(a, g)) - float(psnr(b, g)))
+                   for a, b, g in zip(frames_a, frames_b, gt))
+
+    def run_adaptive_arm(cfg, n_frames):
+        """Arm G: staged adaptive trajectory (see the module docstring)."""
+        arm_poses = orbit_trajectory(n_frames)
+        req = RenderRequest(poses=tuple(arm_poses))
+        gpu = api.make_renderer(cfg)
+        spy = window_spy(gpu)
+        reset()
+        cold = gpu.render(req)
+        launches = counts()
+        wins = read_windows(spy)
+        warm = gpu.render(req)
+        cpu_ren = api.make_renderer(cfg, device="cpu")
+        spy_cpu = window_spy(cpu_ren)
+        t_cpu = time.perf_counter()
+        cpu = cpu_ren.render(req)
+        cpu_s = time.perf_counter() - t_cpu
+        wins_cpu = read_windows(spy_cpu)
+        frames = [f.cpu() for f in cold.frames]
+        for f in frames:
+            if f.shape != (cfg.res, cfg.res, 3) or not torch.isfinite(f).all():
+                fail("arm G: a frame is not finite [res]^2 x 3")
+        worst = min(float(psnr(f, c)) for f, c in zip(frames, cpu.frames))
+        if worst < 40.0:
+            fail(f"arm G: a frame is {worst:.2f} dB from the CPU run")
+        if wins != wins_cpu:
+            fail(f"arm G: windows (buckets, hole counts, fine counts) "
+                 f"differ from the CPU run: {wins} vs {wins_cpu}")
+        if all_stats(cold.stats) != all_stats(cpu.stats):
+            fail(f"arm G: stats differ from the CPU run ({cold.stats} vs "
+                 f"{cpu.stats})")
+        coarse = sum(sum(h) - sum(f) for _, h, f in wins)
+        if coarse == 0:
+            fail("arm G: no hole took the coarse pool")
+        # arm A's config (the same run as arm A) and the full renders
+        base = api.make_renderer(cfg.replace(adaptive_sampling=False))
+        spy_base = window_spy(base)
+        base_frames = [f.cpu() for f in base.render(req).frames]
+        wins_base = read_windows(spy_base)
+        gt = [f.cpu() for f in base.render_baseline(arm_poses)]
+        delta = psnr_delta(frames, base_frames, gt)
+        if delta > 1.0:
+            fail(f"arm G: a frame is {delta:.3f} dB further from the full "
+                 "render than arm A's (gate 1.0 dB)")
+        ns, cf = cfg.num_samples, cfg.coarse_factor
+        spw = [b * ns + bc * (ns // cf) for (b, bc), _, _ in wins]
+        spw_base = [b * ns for (b, _), _, _ in wins_base]
+        # the profile covers the first window (a 32-frame trace of ~130k
+        # device events takes about a minute to reduce)
+        first = RenderRequest(poses=tuple(arm_poses[:cfg.window]))
+        return {"frames": n_frames, "ticks": len(wins),
+                "launches": launches,
+                "profile_first_window": profile_run(
+                    lambda: gpu.render(first)),
+                "min_psnr_vs_cpu_db": worst,
+                "max_abs_psnr_delta_vs_non_adaptive_db": delta,
+                "mean_psnr_vs_full_db": float(np.mean(
+                    [float(psnr(f, g)) for f, g in zip(frames, gt)])),
+                "mean_psnr_vs_full_db_non_adaptive": float(np.mean(
+                    [float(psnr(f, g)) for f, g in zip(base_frames, gt)])),
+                "windows": wins, "windows_non_adaptive": wins_base,
+                "pool_samples_per_window": spw,
+                "pool_samples_per_window_non_adaptive": spw_base,
+                "hole_total": sum(sum(h) for _, h, _ in wins),
+                "coarse_holes": coarse,
+                "reference_renders": cold.stats.reference_renders,
+                "sparse_pixels": cold.stats.sparse_pixels,
+                "fallback_pixels": cold.stats.fallback_pixels,
+                "cold_wall_s": cold.wall_s, "warm_wall_s": warm.wall_s,
+                "warm_fps": warm.fps, "cpu_wall_s": cpu_s}
+
+    def run_adaptive_serving(cfg, fleet, staged_frames, m_staged_warm):
+        """Arm D adaptive: arm D's fleet served staged with adaptive
+        sampling, held against each session rendered alone on the card
+        and the first session's first window on the CPU (see the module
+        docstring)."""
+        gpu = api.make_renderer(cfg, model=model_b,
+                                params=params_from_numpy(np_params_b, dev))
+        b2_calls = {}
+        inner = mlp_k.fused_nerf_mlp
+
+        def b2_spy(*a):
+            key = str(list(a[0].shape))
+            b2_calls[key] = b2_calls.get(key, 0) + 1
+            return inner(*a)
+
+        mlp_k.fused_nerf_mlp = b2_spy
+        try:
+            served, m, launches = serve_fleet(gpu, fleet)
+        finally:
+            mlp_k.fused_nerf_mlp = inner
+        slots_cfg = gpu.config.replace(num_slots=cfg.num_slots)
+        log = list(gpu.pipeline.serve_engine_for(slots_cfg)._pool_log)
+        if not m["complete"] or m["ticks"] != m_staged_warm["ticks"]:
+            fail(f"arm D adaptive: {m['ticks']} ticks (staged "
+                 f"{m_staged_warm['ticks']}), or a session did not complete")
+        if launches[mlp_k.KERNEL.name] == 0 \
+                or launches[gt_k.KERNEL.name] == 0:
+            fail(f"arm D adaptive: B1 or B2 unlaunched: {launches}")
+        if not any(e["fine_total"] < e["hole_total"] for e in log):
+            fail("arm D adaptive: no hole took the coarse pool")
+        # every session alone on the card: the same frames, stats and, in
+        # sum, fine counts as served
+        spy = window_spy(gpu)
+        worst_alone, fine_alone = math.inf, 0
+        for req, rs in zip(fleet, served):
+            alone = gpu.render(req)
+            if all_stats(alone.stats) != all_stats(rs.stats):
+                fail(f"arm D adaptive: session {rs.sid} stats served "
+                     f"{rs.stats} vs alone {alone.stats}")
+            for f, a in zip(rs.frames, alone.frames):
+                if f.shape != (cfg.res, cfg.res, 3) \
+                        or not torch.isfinite(f).all():
+                    fail("arm D adaptive: a frame is not finite")
+                worst_alone = min(worst_alone, float(psnr(f, a)))
+        wins_alone = read_windows(spy)
+        fine_alone = sum(sum(f) for _, _, f in wins_alone)
+        if worst_alone < 40.0 or fine_alone != sum(e["fine_total"]
+                                                   for e in log):
+            fail(f"arm D adaptive: served vs alone {worst_alone:.2f} dB, "
+                 f"fine holes {sum(e['fine_total'] for e in log)} vs "
+                 f"{fine_alone}")
+        # the CPU: the first session's first window alone (the staged
+        # fill at 4 slots costs minutes on the host's CPU; see PERF.md)
+        first = RenderRequest(poses=fleet[0].poses[:cfg.window])
+        spy_gpu = window_spy(gpu)
+        one = gpu.render(first)
+        cpu_ren = api.make_renderer(
+            cfg, model=model_b, params=params_from_numpy(np_params_b, "cpu"),
+            device="cpu")
+        spy_cpu = window_spy(cpu_ren)
+        t_cpu = time.perf_counter()
+        one_cpu = cpu_ren.render(first)
+        cpu_s = time.perf_counter() - t_cpu
+        worst = min(float(psnr(f.cpu(), c)) for f, c in zip(one.frames,
+                                                            one_cpu.frames))
+        if worst < 40.0 or read_windows(spy_gpu) != read_windows(spy_cpu) \
+                or all_stats(one.stats) != all_stats(one_cpu.stats):
+            fail(f"arm D adaptive: session 0's first window {worst:.2f} dB "
+                 f"from the CPU run, windows {read_windows(spy_gpu)} vs "
+                 f"{read_windows(spy_cpu)}, stats {one.stats} vs "
+                 f"{one_cpu.stats}")
+        # against the non-adaptive staged fleet, each frame's PSNR to the
+        # full render of its pose (recorded: the reference gates it on
+        # baked scenes, arm G; these weights are random)
+        deltas = []
+        for req, ra, rs in zip(fleet, served, staged_frames):
+            gt = gpu.render_baseline(req.poses)
+            deltas += [(abs(float(psnr(a, g)) - float(psnr(b, g))),
+                        float(psnr(a, g)), float(psnr(b, g)))
+                       for a, b, g in zip(ra.frames, rs.frames, gt)]
+        worst_delta = max(deltas)
+        return {"sessions": len(fleet),
+                "frames": sum(len(r.poses) for r in fleet),
+                "slots": cfg.num_slots, "ticks": m["ticks"],
+                "launches": launches, "b2_call_shapes": b2_calls,
+                "min_psnr_served_vs_alone_db": worst_alone,
+                "min_psnr_vs_cpu_db": worst,
+                "windows_session0_first": read_windows(spy_gpu),
+                "max_abs_psnr_delta_vs_non_adaptive_db": worst_delta[0],
+                "worst_delta_frame_psnr_vs_full_db": worst_delta[1:],
+                "mean_psnr_vs_full_db": float(np.mean(
+                    [d[1] for d in deltas])),
+                "mean_psnr_vs_full_db_non_adaptive": float(np.mean(
+                    [d[2] for d in deltas])),
+                "frames_over_1db": sum(d[0] > 1.0 for d in deltas),
+                "pool": m["pool"],
+                "pool_non_adaptive_staged": m_staged_warm["pool"],
+                "pool_log": log,
+                # one (cold) run only: the staged fleet runs ~15 s a serve
+                "cold_wall_s": m["wall_s"],
+                "cold_fps": m["aggregate_fps"], "cpu_wall_s": cpu_s}
+
+    def run_baselines_arm(cfg, n_frames):
+        """Arm H: the paper's baselines (see the module docstring)."""
+        arm_poses = orbit_trajectory(n_frames)
+        req = RenderRequest(poses=tuple(arm_poses))
+        host = {"host": cfg.replace(engine="host"),
+                "temporal": cfg.replace(engine="host", mode="temporal")}
+        full = api.make_renderer(cfg)
+        full_cpu = api.make_renderer(cfg, device="cpu")
+        runs = {
+            "full": (lambda: (full.render_baseline(arm_poses), None),
+                     lambda: full_cpu.render_baseline(arm_poses)),
+            "ds2": (lambda: (full.render_ds2(arm_poses), None),
+                    lambda: full_cpu.render_ds2(arm_poses))}
+        for name, c in host.items():
+            gpu_r = api.make_renderer(c)
+            cpu_r = api.make_renderer(c, device="cpu")
+            runs[name] = (lambda r=gpu_r: (lambda x: (x.frames, x.stats))(
+                r.render(req)), lambda r=cpu_r: r.render(req))
+        out, gt = {}, None
+        for name in ("full", "host", "temporal", "ds2"):
+            gpu_fn, cpu_fn = runs[name]
+            reset()
+            torch.cuda.synchronize()
+            frames, stats = gpu_fn()
+            torch.cuda.synchronize()
+            launches = counts()
+            t0 = time.perf_counter()
+            gpu_fn()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = cpu_fn()
+            cpu_s = time.perf_counter() - t0
+            cpu_frames = cpu if stats is None else cpu.frames
+            frames = [f.cpu() for f in frames]
+            for f in frames:
+                if f.shape != (cfg.res, cfg.res, 3) \
+                        or not torch.isfinite(f).all():
+                    fail(f"arm H {name}: a frame is not finite")
+            worst = min(float(psnr(f, c)) for f, c in zip(frames,
+                                                          cpu_frames))
+            if worst < 40.0:
+                fail(f"arm H {name}: a frame is {worst:.2f} dB from the "
+                     "CPU run")
+            if stats is not None and all_stats(stats) != all_stats(
+                    cpu.stats):
+                fail(f"arm H {name}: stats differ from the CPU run "
+                     f"({stats} vs {cpu.stats})")
+            if launches[gt_k.KERNEL.name] == 0:
+                fail(f"arm H {name}: B1 never launched: {launches}")
+            if name == "full":
+                gt = frames
+            out[name] = {
+                "launches": launches, "min_psnr_vs_cpu_db": worst,
+                "mean_psnr_vs_full_db": (None if name == "full" else float(
+                    np.mean([float(psnr(f, g)) for f, g in zip(frames,
+                                                               gt)]))),
+                "reference_renders": (None if stats is None
+                                      else stats.reference_renders),
+                "mean_hole_fraction": (None if stats is None
+                                       else stats.mean_hole_fraction),
+                "warm_wall_s": warm_s, "warm_fps": n_frames / warm_s,
+                "cpu_wall_s": cpu_s}
+        if out["temporal"]["reference_renders"] != 1 \
+                or out["host"]["reference_renders"] != -(-n_frames
+                                                         // cfg.window):
+            fail(f"arm H: reference renders host "
+                 f"{out['host']['reference_renders']}, TEMP "
+                 f"{out['temporal']['reference_renders']}")
+        return {"frames": n_frames, "baselines": out}
+
     arms = {"A": run_arm("A", cfg_a, 32)}
     phase_done("arm A")
     arms["B"] = run_arm("B", cfg_b, 16, model_b, np_params_b)
     phase_done("arm B")
+    # C5 end to end: arm B's model at hidden width 48 (B2 padded to 64)
+    model_b48, _ = models.make_model("dvgo", backend="streaming",
+                                     decoder="mlp", mlp_hidden=48)
+    arms["B48"] = run_arm("B48", cfg_b, 8, model_b48,
+                          arm_b_params(0, hidden=48), profile=False,
+                          exact_stats=True)
+    if arms["B48"]["launches"][mlp_k.KERNEL.name] == 0:
+        fail(f"arm B48 never launched B2: {arms['B48']['launches']}")
+    phase_done("C5")
     arms["C"] = run_arm("C", cfg_c, 32)
     phase_done("arm C")
     fused_frames, arms["D"], fleet = run_serving_arm("D", cfg_d, 6, 32)
@@ -1939,8 +2289,17 @@ def main() -> int:
         "warm_wall_s": m_staged_warm["wall_s"],
         "warm_fps": m_staged_warm["aggregate_fps"]}
     phase_done("arm D")
+    arms["D_adaptive"] = run_adaptive_serving(
+        cfg_d.replace(fused_tick=False, adaptive_sampling=True), fleet,
+        staged, m_staged_warm)
+    phase_done("arm D adaptive")
     arms["E"] = run_scenes_arm(cfg_e, 12, 32)
     phase_done("arm E")
+    arms["G"] = run_adaptive_arm(
+        cfg_a.replace(adaptive_sampling=True, coarse_factor=4), 32)
+    phase_done("arm G")
+    arms["H"] = run_baselines_arm(cfg_a, 32)
+    phase_done("arm H")
     arms["F"] = run_lm_arm()
     phase_done("arm F")
     for name, arm in arms.items():
@@ -1951,6 +2310,29 @@ def main() -> int:
           f"{launches_staged}")
     print(f"arm D serving: fused warm {m_warm_line(arms['D'])}; staged warm "
           f"{m_warm_line(arms['D']['staged'])}")
+    b48, g, da = arms["B48"], arms["G"], arms["D_adaptive"]
+    print(f"C5: arm B48 (mlp_hidden=48) {b48['min_psnr_vs_cpu_db']:.1f} dB "
+          f"from the CPU run, B2 launches {b48['launches']['fused_nerf_mlp']}")
+    print(f"arm G adaptive: warm {m_warm_line(g)}; pool samples per window "
+          f"{g['pool_samples_per_window']} vs arm A "
+          f"{g['pool_samples_per_window_non_adaptive']}; worst PSNR delta "
+          f"{g['max_abs_psnr_delta_vs_non_adaptive_db']:.3f} dB; busy "
+          f"{g['profile_first_window']['device_busy_share']} (first "
+          f"window); B1 launches "
+          f"{g['launches']['gather_trilerp']}")
+    print(f"arm D adaptive: cold {da['cold_wall_s']:.3f} s "
+          f"({da['cold_fps']:.1f} frames/s); samples per tick "
+          f"{da['pool']['samples_per_tick']} (mean "
+          f"{da['pool']['samples_per_tick_mean']:.0f}) vs staged "
+          f"{da['pool_non_adaptive_staged']['samples_per_tick']} (mean "
+          f"{da['pool_non_adaptive_staged']['samples_per_tick_mean']:.0f});"
+          f" worst PSNR delta "
+          f"{da['max_abs_psnr_delta_vs_non_adaptive_db']:.3f} dB; B2 calls "
+          f"{da['b2_call_shapes']}")
+    for n, b in arms["H"]["baselines"].items():
+        print(f"arm H {n}: mean PSNR vs full {b['mean_psnr_vs_full_db']} dB,"
+              f" warm {b['warm_wall_s']:.3f} s ({b['warm_fps']:.1f} frames/s)"
+              f", {b['min_psnr_vs_cpu_db']:.1f} dB from the CPU run")
     print(f"arm E multi-scene serving: warm {m_warm_line(arms['E'])}; "
           f"scene cache {arms['E']['scene_cache']}; launches "
           f"{arms['E']['launches']}")
@@ -2032,6 +2414,18 @@ def main() -> int:
     for t in t_b2:
         t["bound_ms_3xtf32_tensor"] = 1e3 * max(
             t["bytes"] / HBM_BYTES_PER_S, 3 * t["flops"] / TF32_FLOP_PER_S)
+    # C5's shapes; the bound is the function's operations (unpadded H) on
+    # the fp32 CUDA cores
+    for c, h in C5_SHAPES:
+        rec, a = c5[(c, h)], c5[(c, h)]["args"]
+        plan = rec["plan"]
+        t = timed(lambda a=a: mlp_k.fused_nerf_mlp(*a),
+                  lambda a=a: mlp_k.fused_nerf_mlp_plain(*a), *b2_cost(a),
+                  f"S={C5_ROWS} C={c} H={h} (C5: {plan['mode']}, width "
+                  f"{plan['width']}, tile {plan['tile']})")
+        t_b2.append(t)
+        rec.update({k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "shape")})
     t_b3 = [timed(lambda a=a, n=n: sp_k.fused_gather_dual(*a, num_seg=n),
                   lambda a=a, n=n: sp_k.fused_gather_dual_plain(*a, n),
                   *b3_cost(*a),
@@ -2147,7 +2541,10 @@ def main() -> int:
     card = f"{smi} (torch.cuda: {kind})"
     # every path's launches: each arm's measured run, plus the staged
     # comparison runs of arms D and E (counts reset before each)
-    path_launches = {n: a["launches"] for n, a in arms.items()}
+    path_launches = {n: a["launches"] for n, a in arms.items()
+                     if "launches" in a}
+    path_launches.update({f"H_{n}": b["launches"]
+                          for n, b in arms["H"]["baselines"].items()})
     path_launches["D_staged"] = arms["D"]["staged"]["launches"]
     path_launches["E_short_fused"] = arms["E"]["short_fleet"]["launches_fused"]
     path_launches["E_short_staged"] = \
@@ -2179,7 +2576,11 @@ def main() -> int:
               mlp_k.KERNEL.name, "src/repro_torch/csrc/fused_nerf_mlp.cu",
               "src/repro/kernels/fused_nerf_mlp.py:54", errs["B2"], t_b2,
               bound_ms_3xtf32_tensor=t_b2[0]["bound_ms_3xtf32_tensor"],
-              sass_tf32_hmma=len(b2_hmma)),
+              sass_tf32_hmma=len(b2_hmma),
+              c5_shapes=[dict({k: v for k, v in c5[s].items()
+                               if k != "args"}, c=s[0], h=s[1])
+                         for s in C5_SHAPES],
+              max_abs_err_c5=errs["B2_C5"]),
         entry("fused_gather_dual (B3, fused tick dual gather)",
               sp_k.KERNEL.name,
               "src/repro_torch/csrc/fused_gather_dual.cu",
@@ -2230,7 +2631,11 @@ def main() -> int:
     print(json.dumps({"arms_wall": {
         n: {"frames": a["frames"], "warm_wall_s": a["warm_wall_s"],
             "warm_fps": a["warm_fps"], "cold_wall_s": a["cold_wall_s"]}
-        for n, a in arms.items() if n != "F"}, "lm_serving_F": {
+        for n, a in arms.items() if n not in ("F", "H", "D_adaptive")},
+        "baselines_H": {n: {k: b[k] for k in ("warm_wall_s", "warm_fps",
+                                               "mean_psnr_vs_full_db")}
+                        for n, b in arms["H"]["baselines"].items()},
+        "lm_serving_F": {
             k: lm_arm[k] for k in ("warm_wall_s", "cold_wall_s",
                                    "generated_tok_per_s",
                                    "prefill_prompt_tok_per_s", "ticks")},

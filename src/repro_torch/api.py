@@ -8,6 +8,13 @@
     results, metrics = renderer.serve([RenderRequest(poses=tuple(t))
                                        for t in trajs], policy="priority")
 
+``RenderConfig`` carries every knob: ``adaptive_sampling`` (with
+``adaptive_var_threshold`` and ``coarse_factor``) splits the pooled holes
+into a full-budget and a coarse sub-pool; ``engine="host"`` and
+``mode="temporal"`` (TEMP-N) take the per-frame host loop;
+``Renderer.render_baseline`` and ``render_ds2`` are the paper's full-NeRF
+and DS-2 baselines.
+
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, or ``RenderConfig(device="cpu")``), where the kernels'
 plain PyTorch versions run; with no card and no explicit CPU they raise.
@@ -73,9 +80,14 @@ class Renderer:
         return self.pipeline.serve(requests, policy=policy,
                                    num_slots=num_slots)
 
+    # the paper's comparison baselines (full NeRF every frame; DS-2)
     def render_baseline(self, poses: Sequence[torch.Tensor]
                         ) -> List[torch.Tensor]:
         return self.pipeline.render_baseline(list(poses))
+
+    def render_ds2(self, poses: Sequence[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+        return self.pipeline.render_ds2(list(poses))
 
 
 def make_renderer(config: RenderConfig, *,

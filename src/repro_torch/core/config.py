@@ -5,8 +5,7 @@ pooled hole-capacity controller (port of ``repro.core.config``).
 and of the serving engine (multi-scene paging included); ``device`` takes
 the place of the reference's Pallas interpret flag (None = the CUDA card,
 which must exist; "cpu" runs the plain PyTorch versions of the kernels).
-The reference's legacy-kwarg shims and its sharding and adaptive-sampling
-knobs are not ported.
+The reference's legacy-kwarg shims and its sharding knobs are not ported.
 """
 from __future__ import annotations
 
@@ -120,6 +119,8 @@ class RenderConfig:
     num_slots: int = 4  # serving: concurrent session slots
     phi_deg: Optional[float] = None  # warp angular threshold (Eq. 4)
     hole_cap: Optional[int] = None  # per-frame sparse-ray capacity
+    mode: str = "offtraj"  # offtraj | temporal (the TEMP-N baseline)
+    engine: str = "device"  # device | host (the per-frame host loop)
     # rays per NeRF call of a flat stage; each stage chunks at
     # min(ray_chunk, ceil(quantum / 2)) exactly as the reference does, so
     # every chunk's RIT (and its overflow set) matches
@@ -130,6 +131,14 @@ class RenderConfig:
     pool_min_bucket: int = 128
     pool_safety: float = 1.25
     pool_ewma_alpha: float = 0.4
+    # adaptive sampling of the pooled hole batch: holes whose warped 3x3
+    # neighbourhood agrees (>= 3 warped neighbours, radiance variance <=
+    # adaptive_var_threshold) render at num_samples // coarse_factor in a
+    # coarse sub-pool with its own controller; the others keep the full
+    # budget
+    adaptive_sampling: bool = False
+    adaptive_var_threshold: float = 0.0002
+    coarse_factor: int = 4
     mvoxel_layout: str = "identity"  # identity | bank_interleaved
     # --- unified streaming tick -------------------------------------------
     # fused_tick=True renders each window's pooled holes and the NEXT
@@ -154,6 +163,12 @@ class RenderConfig:
     device: Optional[str] = None  # None: the CUDA card; "cpu": plain path
 
     def __post_init__(self) -> None:
+        if self.mode not in ("offtraj", "temporal"):
+            raise ValueError(f"mode must be offtraj|temporal, got "
+                             f"{self.mode!r}")
+        if self.engine not in ("device", "host"):
+            raise ValueError(f"engine must be device|host, got "
+                             f"{self.engine!r}")
         if self.window < 1:
             raise ValueError(f"window must be >= 1, got {self.window}")
         if self.num_slots < 1:
@@ -178,6 +193,17 @@ class RenderConfig:
         if not 0.0 < self.pool_ewma_alpha <= 1.0:
             raise ValueError(f"pool_ewma_alpha must be in (0, 1], got "
                              f"{self.pool_ewma_alpha}")
+        if self.adaptive_sampling and not self.pool_holes:
+            raise ValueError("adaptive_sampling requires pool_holes=True "
+                             "(it subdivides the pooled hole batch)")
+        if self.coarse_factor < 2:
+            raise ValueError(f"coarse_factor must be >= 2, got "
+                             f"{self.coarse_factor}")
+        if self.adaptive_sampling and \
+                self.num_samples % self.coarse_factor != 0:
+            raise ValueError(
+                f"adaptive_sampling needs num_samples ({self.num_samples}) "
+                f"divisible by coarse_factor ({self.coarse_factor})")
         if self.mvoxel_layout not in ("identity", "bank_interleaved"):
             raise ValueError(f"mvoxel_layout must be identity|"
                              f"bank_interleaved, got {self.mvoxel_layout!r}")
@@ -187,6 +213,10 @@ class RenderConfig:
         if self.fused_tick and not self.pool_holes:
             raise ValueError("fused_tick=True requires pool_holes=True (the "
                              "fused tick renders the pooled hole batch)")
+        if self.fused_tick and self.adaptive_sampling:
+            raise ValueError(
+                "fused_tick=True does not support adaptive_sampling: the "
+                "fused sweep carries one hole RIT, not a fine/coarse split")
         if self.scene_cache_bytes < 0:
             raise ValueError(
                 f"scene_cache_bytes must be >= 0 (0 disables the byte "

@@ -8,7 +8,11 @@ window's holes into one pooled ``[bucket]`` batch
 segment-scatter it back, with a dense re-render of the window when it
 overflows its capacity. The NeRF calls chunk exactly as the reference's
 ``lax.map`` does, so every chunk's RIT — and its overflow set — is the one
-the reference builds.
+the reference builds. With ``RenderConfig.adaptive_sampling`` step (4)
+splits the holes by warped-neighbourhood disagreement
+(:func:`sparw.warp_disagreement`): the fine ones fill one pool at the full
+sample budget, the coarse ones a second pool at ``num_samples //
+coarse_factor``, each sized by its own controller.
 
 Fused path (``RenderConfig.fused_tick``): after one staged priming
 reference render, each window is one unified streaming tick
@@ -19,8 +23,8 @@ in its multi-scene mode ``params`` hold the stacked scene pages and a
 ``scene_of_seg`` map, which every flat stage carries to the gathers with
 the rays' segment ids (kernels B4 and B5).
 
-Not ported yet: adaptive sampling, session sharding and the autotune
-cache (``ref_cap_factor`` is the reference's default, 2).
+Not ported yet: session sharding and the autotune cache
+(``ref_cap_factor`` is the reference's default, 2).
 """
 from __future__ import annotations
 
@@ -40,12 +44,15 @@ class WindowResult(NamedTuple):
     frames: torch.Tensor  # [N, H, W, 3]
     hole_counts: torch.Tensor  # [N] true (uncapped) hole counts
     overflowed: torch.Tensor  # [] bool — capacity exceeded, dense fill ran
+    fine_counts: torch.Tensor  # [N] full-budget holes (== hole_counts
+    #                            unless adaptive sampling split the pool)
 
 
 class BatchedWindowResult(NamedTuple):
     frames: torch.Tensor  # [S, N, H, W, 3]
     hole_counts: torch.Tensor  # [S, N]
     overflowed: torch.Tensor  # [S] bool — per-session dense-fallback flag
+    fine_counts: torch.Tensor  # [S, N] full-budget holes (feeds pool_ctl)
 
 
 class DeviceSparwEngine:
@@ -68,14 +75,27 @@ class DeviceSparwEngine:
         self._seg_aware = model.cfg.backend == "streaming"
         self.pool_holes = bool(config.pool_holes)
         self.pool_min_bucket = int(config.pool_min_bucket)
-        self.pool_ctl = HoleCapController(
-            worst=self.window * self.hole_cap, min_bucket=self.pool_min_bucket,
-            safety=config.pool_safety, alpha=config.pool_ewma_alpha,
-            fixed=config.pool_bucket)
-        # every pool bucket this engine has run at (the reference counts
-        # them as compile targets; serving reports the per-run delta)
+        self.adaptive_sampling = bool(config.adaptive_sampling)
+        self.adaptive_var_threshold = float(config.adaptive_var_threshold)
+        self.coarse_factor = int(config.coarse_factor)
+        if self.adaptive_sampling and \
+                model.cfg.num_samples % self.coarse_factor != 0:
+            raise ValueError(
+                f"adaptive_sampling needs the model's num_samples "
+                f"({model.cfg.num_samples}) divisible by coarse_factor "
+                f"({self.coarse_factor})")
+        ctl_kw = dict(worst=self.window * self.hole_cap,
+                      min_bucket=self.pool_min_bucket,
+                      safety=config.pool_safety, alpha=config.pool_ewma_alpha,
+                      fixed=config.pool_bucket)
+        self.pool_ctl = HoleCapController(**ctl_kw)
+        self.pool_ctl_coarse = HoleCapController(**ctl_kw)
+        # every (bucket, bucket_coarse) this engine has run at (the
+        # reference counts them as compile targets; serving reports the
+        # per-run delta)
         self.pool_buckets_used: set = set()
         self.num_window_calls = 0
+        self._staged: Dict[Tuple[int, int], torch.Tensor] = {}
         # the fused tick's reference-set RIT capacity factor; the reference
         # may override it from an autotune cache, which the port never reads
         self.ref_cap_factor = 2
@@ -86,18 +106,31 @@ class DeviceSparwEngine:
 
     @property
     def pool_ladder_size(self) -> int:
-        """Bound on the distinct pool buckets this engine can run at."""
-        return self.pool_ctl.ladder_size
+        """Bound on the distinct (bucket, bucket_coarse) pairs this engine
+        can run at."""
+        fine = self.pool_ctl.ladder_size
+        return fine * (self.pool_ctl_coarse.ladder_size
+                       if self.adaptive_sampling else 1)
+
+    def _current_buckets(self) -> Tuple[int, int]:
+        """The pool bucket(s) the next window runs at (0 disables the
+        pooled path / the coarse sub-pool)."""
+        if not self.pool_holes:
+            return 0, 0
+        return (self.pool_ctl.bucket,
+                self.pool_ctl_coarse.bucket if self.adaptive_sampling else 0)
 
     def _render_rays_flat(self, params: dict, o: torch.Tensor,
                           d: torch.Tensor, seg: Optional[torch.Tensor],
-                          num_seg: int, quantum: int
+                          num_seg: int, quantum: int,
+                          num_samples: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """A flat [F, 3] ray batch in chunks of ``min(ray_chunk,
         ceil(quantum / 2), F)`` rays, the last chunk padded with zero rays
         tagged with the dump segment ``num_seg``. ``quantum`` is the stage's
         per-session ray count; the chunk rule is the reference's, kept so
-        each chunk's RIT holds the same samples."""
+        each chunk's RIT holds the same samples. ``num_samples`` overrides
+        the model's samples per ray."""
         n = o.shape[0]
         c = min(self.ray_chunk, max(-(-quantum // 2), 1), n)
         npad = round_up(n, c)
@@ -111,7 +144,8 @@ class DeviceSparwEngine:
         for i in range(0, npad, c):
             col, dep = self.model.render_rays(
                 params, o[i:i + c], d[i:i + c],
-                seg=None if seg is None else seg[i:i + c], num_seg=num_seg)
+                seg=None if seg is None else seg[i:i + c], num_seg=num_seg,
+                num_samples=num_samples)
             cols.append(col)
             deps.append(dep)
         return torch.cat(cols)[:n], torch.cat(deps)[:n]
@@ -131,11 +165,13 @@ class DeviceSparwEngine:
         return col.reshape(s, n, hw, 3)
 
     def _pooled_fill(self, params: dict, tgt_poses: torch.Tensor,
-                     holes: torch.Tensor, live: torch.Tensor, bucket: int
+                     holes: torch.Tensor, live: torch.Tensor, bucket: int,
+                     num_samples: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One sparse fill over a pooled [S * bucket] hole batch, chunked at
         ``quantum = pool_min_bucket`` (bucket-independent, as in the
-        reference). Returns ([S, N, HW, 3] sparse frames, [S] totals)."""
+        reference), at ``num_samples`` samples per ray (default: the
+        model's). Returns ([S, N, HW, 3] sparse frames, [S] totals)."""
         s, n = tgt_poses.shape[:2]
         hw = self.cam.height * self.cam.width
         addr, totals = sparw.compact_holes_pooled(holes, bucket, live)
@@ -144,7 +180,7 @@ class DeviceSparwEngine:
         fill, _ = self._render_rays_flat(
             params, batch.origins, batch.dirs,
             batch.seg if self._seg_aware else None, s,
-            quantum=self.pool_min_bucket)
+            quantum=self.pool_min_bucket, num_samples=num_samples)
         valid = (torch.arange(bucket, device=self.device)[None, :]
                  < totals[:, None]).reshape(-1)
         sparse = raybatch.scatter_segments(fill, flat_addr, valid, s * n * hw)
@@ -153,14 +189,17 @@ class DeviceSparwEngine:
     def _render_windows(self, params: dict, ref_poses: torch.Tensor,
                         tgt_poses: torch.Tensor, win_lens: torch.Tensor,
                         caps: torch.Tensor, pool_caps: torch.Tensor,
-                        bucket: int) -> BatchedWindowResult:
+                        pool_caps_coarse: torch.Tensor, bucket: int,
+                        bucket_coarse: int) -> BatchedWindowResult:
         """S sessions' windows through the staged stages (1)-(4).
 
         ``win_lens`` [S] masks padded frames out of the overflow decision,
-        ``caps`` [S] are per-frame hole capacities and ``pool_caps`` [S]
-        per-session pool capacities. ``bucket == 0`` selects the per-frame
-        fixed-capacity hole batch instead of the pooled one. A session that
-        overflows takes its frames from the dense fill.
+        ``caps`` [S] are per-frame hole capacities and ``pool_caps`` /
+        ``pool_caps_coarse`` [S] per-session capacities of the fine and
+        coarse pools. ``bucket == 0`` selects the per-frame fixed-capacity
+        hole batch instead of the pooled one; ``bucket_coarse == 0`` turns
+        the adaptive coarse sub-pool off. A session that overflows any of
+        them takes its frames from the dense fill.
         """
         s, n = tgt_poses.shape[:2]
         h, w = self.cam.height, self.cam.width
@@ -180,6 +219,7 @@ class DeviceSparwEngine:
         live = torch.arange(n, device=self.device)[None, :] < win_lens[:, None]
         counts = torch.sum(holes & live[:, :, None], dim=2)  # [S, N]
         frame_over = torch.amax(torch.where(live, counts, 0), dim=1) > caps
+        fine_counts = counts
         if bucket == 0:
             # (4) per-frame fixed-capacity flat hole batch [S*N*cap]
             idx, _ = sparw.compact_holes_flat(holes, cap)
@@ -192,11 +232,29 @@ class DeviceSparwEngine:
             sparse = raybatch.scatter_segments(
                 fill, addr, valid.reshape(-1), s * n * hw).reshape(s, n, hw, 3)
             overflowed = frame_over
-        else:
+        elif bucket_coarse == 0:
             # (4) pooled: the window's holes share one [S*bucket] batch
             sparse, totals = self._pooled_fill(params, tgt_poses, holes, live,
                                                bucket)
             overflowed = frame_over | (totals > pool_caps)
+        else:
+            # (4) pooled + adaptive sampling: holes with few warped
+            # neighbours or disagreeing ones keep the full sample budget,
+            # the others fill a coarse pool at num_samples / coarse_factor
+            var, cnt = sparw.warp_disagreement(warped.rgb, warped.holes)
+            fine_m = warped.holes & ((cnt < 3)
+                                     | (var > self.adaptive_var_threshold))
+            fine = fine_m.reshape(s, n, hw) & live[:, :, None]
+            coarse = holes & live[:, :, None] & ~fine
+            sparse_f, tot_f = self._pooled_fill(params, tgt_poses, fine,
+                                                live, bucket)
+            sparse_c, tot_c = self._pooled_fill(
+                params, tgt_poses, coarse, live, bucket_coarse,
+                num_samples=self.model.cfg.num_samples // self.coarse_factor)
+            sparse = sparse_f + sparse_c  # disjoint masks: no overlap
+            overflowed = (frame_over | (tot_f > pool_caps)
+                          | (tot_c > pool_caps_coarse))
+            fine_counts = torch.sum(fine, dim=2)
         fill = sparse
         if bool(overflowed.any()):
             dense = self._dense_fill_flat(params, tgt_poses)
@@ -204,51 +262,69 @@ class DeviceSparwEngine:
         frames = torch.where(holes[..., None], fill,
                              warped.rgb.reshape(s, n, hw, 3))
         return BatchedWindowResult(frames.reshape(s, n, h, w, 3), counts,
-                                   overflowed)
-
-    def _bucket(self) -> int:
-        return self.pool_ctl.bucket if self.pool_holes else 0
+                                   overflowed, fine_counts)
 
     def _full(self, s: int, value: int) -> torch.Tensor:
-        return torch.full((s,), value, device=self.device)
+        """The default per-session mask or capacity ``[s]`` of ``value``,
+        staged on the device once per (s, value) (the reference's
+        ``_staged_masks`` / ``_staged_pool_caps``); never written to."""
+        staged = self._staged.get((s, value))
+        if staged is None:
+            staged = torch.full((s,), value, device=self.device)
+            self._staged[(s, value)] = staged
+        return staged
 
     def render_windows(self, ref_poses: torch.Tensor, tgt_poses: torch.Tensor,
                        win_lens: Optional[torch.Tensor] = None,
                        caps: Optional[torch.Tensor] = None,
                        pool_caps: Optional[torch.Tensor] = None,
-                       bucket: Optional[int] = None) -> BatchedWindowResult:
+                       pool_caps_coarse: Optional[torch.Tensor] = None,
+                       bucket: Optional[int] = None,
+                       bucket_coarse: Optional[int] = None
+                       ) -> BatchedWindowResult:
         """S sessions' windows ([S,4,4] references vs [S,N,4,4] targets).
 
-        ``win_lens``/``caps``/``pool_caps`` [S] are the per-session window
-        lengths, hole capacities and pool capacities (the serving engine's
-        per-slot masks); omitted, they default to the full window and the
-        engine's capacities. ``bucket`` defaults to the pool controller's.
+        ``win_lens``/``caps``/``pool_caps``/``pool_caps_coarse`` [S] are
+        the per-session window lengths, hole capacities and fine / coarse
+        pool capacities (the serving engine's per-slot masks); omitted,
+        they default to the full window and the engine's capacities.
+        ``bucket``/``bucket_coarse`` default to the pool controllers'.
         """
         s, n = tgt_poses.shape[:2]
-        if bucket is None:
-            bucket = self._bucket()
+        cur = self._current_buckets()
+        bucket = cur[0] if bucket is None else bucket
+        bucket_coarse = cur[1] if bucket_coarse is None else bucket_coarse
         win_lens = self._full(s, n) if win_lens is None else win_lens
         caps = self._full(s, self.hole_cap) if caps is None else caps
         pool_caps = self._full(s, bucket) if pool_caps is None else pool_caps
-        self.pool_buckets_used.add(bucket)
+        pool_caps_coarse = (self._full(s, bucket_coarse)
+                            if pool_caps_coarse is None else pool_caps_coarse)
+        self.pool_buckets_used.add((bucket, bucket_coarse))
         self.num_window_calls += 1
+        dev = self.device
         with torch.no_grad():
             return self._render_windows(
-                self.params, ref_poses.to(self.device),
-                tgt_poses.to(self.device), win_lens.to(self.device),
-                caps.to(self.device), pool_caps.to(self.device), bucket)
+                self.params, ref_poses.to(dev), tgt_poses.to(dev),
+                win_lens.to(dev), caps.to(dev), pool_caps.to(dev),
+                pool_caps_coarse.to(dev), bucket, bucket_coarse)
 
     def render_window(self, ref_pose: torch.Tensor, tgt_poses: torch.Tensor
                       ) -> WindowResult:
         """One warp window: N target poses vs a shared reference pose."""
         res = self.render_windows(ref_pose[None], tgt_poses[None])
         return WindowResult(res.frames[0], res.hole_counts[0],
-                            res.overflowed[0])
+                            res.overflowed[0], res.fine_counts[0])
 
-    def _observe_window(self, res: WindowResult) -> None:
-        """Feed a finished window's hole total to the pool controller."""
-        if self.pool_holes:
-            self.pool_ctl.observe(int(res.hole_counts.sum()))
+    def _observe_window(self, res) -> None:
+        """Feed a finished window's fine hole total to the pool controller
+        and, with adaptive sampling, its coarse total to the coarse one."""
+        if not self.pool_holes:
+            return
+        total, fine = torch.stack([res.hole_counts.sum(),
+                                   res.fine_counts.sum()]).tolist()
+        self.pool_ctl.observe(fine)
+        if self.adaptive_sampling:
+            self.pool_ctl_coarse.observe(total - fine)
 
     # ------------------------------------------------------------------
     # unified streaming tick (fused reference -> warp -> hole fill)
@@ -323,14 +399,14 @@ class DeviceSparwEngine:
         :meth:`render_windows`."""
         s, n = tgt_poses.shape[:2]
         if bucket is None:
-            bucket = self._bucket()
+            bucket = self._current_buckets()[0]
         if bucket == 0:
             raise ValueError("the fused streaming tick requires a pooled "
                              "hole bucket (pool_holes=True)")
         win_lens = self._full(s, n) if win_lens is None else win_lens
         caps = self._full(s, self.hole_cap) if caps is None else caps
         pool_caps = self._full(s, bucket) if pool_caps is None else pool_caps
-        self.pool_buckets_used.add(bucket)
+        self.pool_buckets_used.add((bucket, 0))
         self.num_window_calls += 1
         dev = self.device
         with torch.no_grad():
@@ -359,7 +435,7 @@ class DeviceSparwEngine:
         s = int(sessions)
         hw = self.cam.height * self.cam.width
         if bucket is None:
-            bucket = self._bucket()
+            bucket = self._current_buckets()[0]
         scfg = self.model.streaming_cfg
         table_bytes = scfg.num_mvoxels * scfg.halo_rows \
             * self.model.cfg.channels * 4
@@ -408,6 +484,7 @@ class DeviceSparwEngine:
         stats = RenderStats()
         results = []
         self.pool_ctl.reset()
+        self.pool_ctl_coarse.reset()
         pending: List[WindowResult] = []
         for win in plan:
             if self.pool_holes and len(pending) >= 2:
@@ -439,6 +516,7 @@ class DeviceSparwEngine:
         stats = RenderStats()
         results = []
         self.pool_ctl.reset()
+        self.pool_ctl_coarse.reset()
         pending: List[raybatch.StreamingTickResult] = []
         ref_pose = plan[0]["ref_pose"][None]
         rgb_ref, dep_ref = self.prime_reference(ref_pose)

@@ -96,6 +96,8 @@ class StreamingTickResult(NamedTuple):
     frames: torch.Tensor  # [S, N, H, W, 3]
     hole_counts: torch.Tensor  # [S, N] true (uncapped) hole counts
     overflowed: torch.Tensor  # [S] bool — per-session dense-fallback flag
+    fine_counts: torch.Tensor  # [S, N] (== hole_counts: the fused tick has
+    #                            no adaptive split)
     next_rgb_ref: torch.Tensor  # [S, H, W, 3] — tick t+1's references
     next_dep_ref: torch.Tensor  # [S, H, W]
 
@@ -178,7 +180,8 @@ def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
     frames = torch.where(holes[..., None], fill,
                          warped.rgb.reshape(s, n, hw, 3))
     return StreamingTickResult(frames.reshape(s, n, h, w, 3), counts,
-                               overflowed, ref_col.reshape(s, h, w, 3),
+                               overflowed, counts,
+                               ref_col.reshape(s, h, w, 3),
                                ref_dep.reshape(s, h, w))
 
 

@@ -109,3 +109,11 @@ class WarpSchedule:
             out.append({"window_start": k, "ref_pose": ref_pose,
                         "ref_frame_idx": ref_idx, "frames": frames})
         return out
+
+    def plan(self, poses: List[torch.Tensor]) -> List[dict]:
+        """Per-frame records {frame, window_start, ref_pose, ref_frame_idx}
+        (the host loop's view of :meth:`windows`)."""
+        return [{"frame": f, "window_start": win["window_start"],
+                 "ref_pose": win["ref_pose"],
+                 "ref_frame_idx": win["ref_frame_idx"]}
+                for win in self.windows(poses) for f in win["frames"]]

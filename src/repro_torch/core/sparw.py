@@ -191,5 +191,37 @@ def compact_holes_pooled(holes: torch.Tensor, bucket: int,
     return _compact(hf, bucket), hf.sum(dim=1)
 
 
+def warp_disagreement(rgb: torch.Tensor, holes: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warped-neighbourhood radiance disagreement (adaptive sampling's
+    signal). ``rgb`` [..., H, W, 3] warped colours, ``holes`` [..., H, W]
+    -> (var [..., H, W], the variance of the warped (non-hole) colours in
+    each pixel's zero-padded 3x3 neighbourhood averaged over the channels;
+    cnt [..., H, W] int32, the warped neighbours). The box sums add the
+    nine shifted slices in the reference's order (row offset, then column
+    offset), and the channel mean sums r, g, b in order, so ``var``
+    matches the reference's float32 arithmetic."""
+    h, w = holes.shape[-2:]
+    wgt = (~holes).to(rgb.dtype)[..., None]  # [..., H, W, 1]
+
+    def box3(a: torch.Tensor) -> torch.Tensor:
+        p = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
+        out = p[..., 0:h, 0:w, :]
+        for i in range(3):
+            for j in range(3):
+                if i or j:
+                    out = out + p[..., i:i + h, j:j + w, :]
+        return out
+
+    cnt = box3(wgt)
+    s1 = box3(rgb * wgt)
+    s2 = box3(rgb * rgb * wgt)
+    denom = torch.clamp(cnt, min=1.0)
+    mean = s1 / denom
+    v = torch.clamp(s2 / denom - mean * mean, min=0.0)
+    var = (v[..., 0] + v[..., 1] + v[..., 2]) / 3.0
+    return var, cnt[..., 0].to(torch.int32)
+
+
 def hole_fraction(holes: torch.Tensor) -> torch.Tensor:
     return holes.float().mean()

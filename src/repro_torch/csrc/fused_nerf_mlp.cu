@@ -51,6 +51,23 @@
 //    chains); each finished n tile is at once the heads' k tile, so the
 //    second hidden layer is never held whole.
 // softplus is fmaxf(x, 0) + log1pf(expf(-|x|)), i.e. logaddexp(x, 0).
+//
+// The templates take H = 32, 64 or 128, a direction code of at most 16 and
+// weights that stage in one block's shared memory; the wrapper pads a
+// narrower H up to the next template with zero units (exact: a padded unit
+// is relu(0) = 0 and its outgoing weights are 0). Everything else (H over
+// 128, staged fragments over 232,448 B, from C = 89 at H = 128) runs the
+// run-time-H mode below, fp32 on the CUDA cores, bound there by its
+// operations (67 TFLOP/s): a CTA of 256 threads takes 64 samples; each
+// layer is a register-tiled product (every thread 4 samples x 4 units,
+// 16 FMAs per two 16-byte shared loads) over k chunks of 16 staged in
+// shared memory, the weights read once per CTA and chunk; the first
+// hidden layer of the 64 samples stays in shared memory (k-major), or in
+// global scratch where it does not fit (H over 816); each finished block
+// of 64 second-layer units goes straight into per-thread head sums,
+// reduced across the 16 threads of a row group by shuffles. The wrapper's
+// routing rule (kernels/fused_nerf_mlp.py mlp_plan) chooses; each entry
+// point checks the plan's bytes against its own.
 
 #include <cuda_runtime.h>
 
@@ -360,16 +377,222 @@ int launch(const void* feats, const void* direnc, const void* w1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// run-time-H mode: a CTA of kRtThreads threads computes kRtRows samples;
+// thread (ty, tx) = (tid / 16, tid % 16) owns rows 4 ty .. 4 ty + 3 and,
+// in each kRtCols-wide column block, columns 4 tx .. 4 tx + 3
+constexpr int kRtRows = 64;
+constexpr int kRtCols = 64;
+constexpr int kRtK = 16;            // k rows staged per chunk
+constexpr int kRtLd = kRtRows + 4;  // row stride of the k-major A tiles
+constexpr int kRtThreads = 256;
+constexpr int kRtStage = kRtK * kRtLd + kRtK * kRtCols;  // floats
+
+__host__ __device__ constexpr int rt_hidden_rows(int h) {
+  return (h + kRtK - 1) / kRtK * kRtK;
+}
+
+// acc[i][j] = sum_k A(k, 4 ty + i) B(k, n0 + 4 tx + j), k in order from
+// zero. A is k-major with row stride kRtLd: chunk by chunk from `x`
+// (row-major [n, kn], rows from row0, zero past n and kn) into sa when x
+// is not null, else the hidden tile `a` (kn rows, zero-padded to a
+// multiple of kRtK). B(k, c) = w[k * ldw + c], zero past kn rows and
+// ncols columns, staged into sb; the last chunk reads A's rows up to the
+// next multiple of kRtK. Every chunk ends at a barrier, so the caller may
+// overwrite sa and sb once it returns.
+__device__ __forceinline__ void rt_gemm(
+    const float* __restrict__ x, int row0, int n, const float* a, int kn,
+    const float* __restrict__ w, int ldw, int n0, int ncols, float* sa,
+    float* sb, float (&acc)[4][4]) {
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  for (int k0 = 0; k0 < kn; k0 += kRtK) {
+#pragma unroll
+    for (int u = 0; u < kRtK * kRtCols / kRtThreads; ++u) {
+      const int e = tid + u * kRtThreads;
+      const int kk = e / kRtCols;
+      const int cc = e % kRtCols;
+      sb[kk * kRtCols + cc] =
+          (k0 + kk < kn && n0 + cc < ncols)
+              ? __ldg(w + static_cast<size_t>(k0 + kk) * ldw + n0 + cc)
+              : 0.0f;
+    }
+    if (x != nullptr) {
+#pragma unroll
+      for (int u = 0; u < kRtK * kRtRows / kRtThreads; ++u) {
+        const int e = tid + u * kRtThreads;
+        const int r = e / kRtK;
+        const int kk = e % kRtK;
+        sa[kk * kRtLd + r] =
+            (row0 + r < n && k0 + kk < kn)
+                ? __ldg(x + static_cast<size_t>(row0 + r) * kn + k0 + kk)
+                : 0.0f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kRtK; ++kk) {
+      const float4 av = x != nullptr
+          ? *reinterpret_cast<const float4*>(sa + kk * kRtLd + 4 * ty)
+          : *reinterpret_cast<const float4*>(
+                a + static_cast<size_t>(k0 + kk) * kRtLd + 4 * ty);
+      const float4 bv =
+          *reinterpret_cast<const float4*>(sb + kk * kRtCols + 4 * tx);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// kScratch: the hidden tile [rt_hidden_rows(h)][kRtLd] lives in global
+// scratch (one per CTA) instead of shared memory
+template <bool kScratch>
+__global__ void __launch_bounds__(kRtThreads) fused_nerf_mlp_rt_kernel(
+    const float* __restrict__ feats, const float* __restrict__ direnc,
+    const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2,
+    const float* __restrict__ ws, const float* __restrict__ wr,
+    const float* __restrict__ br, float* __restrict__ out,
+    float* __restrict__ scratch, int n, int c, int h, int dd) {
+  extern __shared__ float4 rt_smem4[];
+  float* rt_smem = reinterpret_cast<float*>(rt_smem4);
+  float* sa = rt_smem;                   // [kRtK][kRtLd]
+  float* sb = sa + kRtK * kRtLd;         // [kRtK][kRtCols]
+  const int hp = rt_hidden_rows(h);
+  float* hid = kScratch
+                   ? scratch + static_cast<size_t>(blockIdx.x) * hp * kRtLd
+                   : sb + kRtK * kRtCols;  // [hp][kRtLd], k-major
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  // the padding rows h .. hp are zero for good (never written below)
+  for (int e = tid; e < (hp - h) * kRtLd; e += kRtThreads) {
+    hid[h * kRtLd + e] = 0.0f;
+  }
+  float acc[4][4];
+  for (int row0 = blockIdx.x * kRtRows; row0 < n;
+       row0 += gridDim.x * kRtRows) {
+    // layer 1: hid = relu(x W1 + b1), one column block at a time, each
+    // column's four rows stored as one float4
+    for (int n0 = 0; n0 < h; n0 += kRtCols) {
+      rt_gemm(feats, row0, n, nullptr, c, w1, h, n0, h, sa, sb, acc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + 4 * tx + j;
+        if (col < h) {
+          const float b = __ldg(b1 + col);
+          *reinterpret_cast<float4*>(hid + static_cast<size_t>(col) * kRtLd +
+                                     4 * ty) =
+              make_float4(fmaxf(acc[0][j] + b, 0.0f),
+                          fmaxf(acc[1][j] + b, 0.0f),
+                          fmaxf(acc[2][j] + b, 0.0f),
+                          fmaxf(acc[3][j] + b, 0.0f));
+        }
+      }
+    }
+    __syncthreads();  // the hidden tile is whole
+    // layer 2 and the heads: each finished column block goes straight
+    // into this thread's partial sigma / rgb sums of its four rows
+    float hs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float hr[4][3] = {};
+    for (int n0 = 0; n0 < h; n0 += kRtCols) {
+      rt_gemm(nullptr, row0, n, hid, h, w2, h, n0, h, sa, sb, acc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + 4 * tx + j;
+        if (col < h) {
+          const float b = __ldg(b2 + col);
+          const float wsj = __ldg(ws + col);
+          const float r0 = __ldg(wr + col * 3);
+          const float r1 = __ldg(wr + col * 3 + 1);
+          const float r2 = __ldg(wr + col * 3 + 2);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float v = fmaxf(acc[i][j] + b, 0.0f);
+            hs[i] = fmaf(v, wsj, hs[i]);
+            hr[i][0] = fmaf(v, r0, hr[i][0]);
+            hr[i][1] = fmaf(v, r1, hr[i][1]);
+            hr[i][2] = fmaf(v, r2, hr[i][2]);
+          }
+        }
+      }
+    }
+    // the 16 lanes of a row group (tx) hold partial sums of the same rows
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hs[i] += __shfl_xor_sync(0xffffffffu, hs[i], off);
+        hr[i][0] += __shfl_xor_sync(0xffffffffu, hr[i][0], off);
+        hr[i][1] += __shfl_xor_sync(0xffffffffu, hr[i][1], off);
+        hr[i][2] += __shfl_xor_sync(0xffffffffu, hr[i][2], off);
+      }
+    }
+    if (tx == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + 4 * ty + i;
+        if (row < n) {
+          const float* d = direnc + static_cast<size_t>(row) * dd;
+          float q0 = hr[i][0], q1 = hr[i][1], q2 = hr[i][2];
+          for (int k = 0; k < dd; ++k) {
+            const float dk = __ldg(d + k);
+            const float* wk = wr + static_cast<size_t>(h + k) * 3;
+            q0 = fmaf(dk, __ldg(wk), q0);
+            q1 = fmaf(dk, __ldg(wk + 1), q1);
+            q2 = fmaf(dk, __ldg(wk + 2), q2);
+          }
+          *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * 4) =
+              make_float4(softplus(hs[i]), sigmoid(q0 + __ldg(br)),
+                          sigmoid(q1 + __ldg(br + 1)),
+                          sigmoid(q2 + __ldg(br + 2)));
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites the hidden tile
+  }
+}
+
+int smem_optin_limit(int* limit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
-// hidden width: 32, 64 or 128 (the reference's tested range); any other
-// width returns cudaErrorInvalidValue without launching
+// the tensor-core templates: hidden width 32, 64 or 128, direction code
+// at most kMaxDt * 8 wide, and `smem` (the wrapper's plan) equal to this
+// layout's bytes and within the card's per-block limit; any other plan
+// returns cudaErrorInvalidValue without launching
 extern "C" int fused_nerf_mlp_f32(const void* feats, const void* direnc,
                                   const void* w1, const void* b1,
                                   const void* w2, const void* b2,
                                   const void* ws, const void* wr,
                                   const void* br, void* out, int n, int c,
-                                  int h, int dd, void* stream) {
+                                  int h, int dd, int smem, void* stream) {
+  int limit = 0;
+  const int err = smem_optin_limit(&limit);
+  if (err != 0) return err;
+  if (dd > kMaxDt * 8 || static_cast<size_t>(smem) != smem_bytes(c, h, dd) ||
+      smem > limit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (h) {
     case 32:
       return launch<32>(feats, direnc, w1, b1, w2, b2, ws, wr, br, out, n, c,
@@ -383,4 +606,47 @@ extern "C" int fused_nerf_mlp_f32(const void* feats, const void* direnc,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the run-time-H mode: `grid` CTAs of kRtThreads threads, kRtRows samples
+// a tile; `smem` is the k-chunk staging plus, without `scratch`, the
+// [rt_hidden_rows(h)][kRtLd] hidden tile; with `scratch` (grid times that
+// many floats of global memory) the staging only. A plan that does not add
+// up returns cudaErrorInvalidValue.
+extern "C" int fused_nerf_mlp_rt_f32(const void* feats, const void* direnc,
+                                     const void* w1, const void* b1,
+                                     const void* w2, const void* b2,
+                                     const void* ws, const void* wr,
+                                     const void* br, void* out,
+                                     void* scratch, int n, int c, int h,
+                                     int dd, int smem, int grid,
+                                     void* stream) {
+  int limit = 0;
+  const int err = smem_optin_limit(&limit);
+  if (err != 0) return err;
+  if (h < 1 || c < 1 || dd < 0 || grid < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t stage = sizeof(float) * kRtStage;
+  const size_t hidden =
+      sizeof(float) * static_cast<size_t>(rt_hidden_rows(h)) * kRtLd;
+  const size_t want = scratch != nullptr ? stage : stage + hidden;
+  if (static_cast<size_t>(smem) != want || smem > limit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = scratch != nullptr ? fused_nerf_mlp_rt_kernel<true>
+                                         : fused_nerf_mlp_rt_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kRtThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(feats), static_cast<const float*>(direnc),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(ws), static_cast<const float*>(wr),
+      static_cast<const float*>(br), static_cast<float*>(out),
+      static_cast<float*>(scratch), n, c, h, dd);
+  return static_cast<int>(cudaGetLastError());
 }

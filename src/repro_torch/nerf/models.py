@@ -147,11 +147,15 @@ class NerfModel:
 
     def render_rays(self, params: dict, origins: torch.Tensor,
                     dirs: torch.Tensor, seg: Optional[torch.Tensor] = None,
-                    num_seg: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                    num_seg: int = 1, num_samples: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Render rays [R, 3] -> (colour [R, 3], depth [R]). ``seg`` [R]
-        tags each ray with its segment for the streaming RIT."""
+        tags each ray with its segment for the streaming RIT;
+        ``num_samples`` overrides the config's samples per ray (adaptive
+        sampling's coarse sub-pool renders at ``num_samples //
+        coarse_factor``)."""
         c = self.cfg
-        ns = c.num_samples
+        ns = int(num_samples) if num_samples is not None else c.num_samples
         pts, t_vals = rays.sample_along_rays(origins, dirs, c.near, c.far, ns)
         sample_seg = seg.repeat_interleave(ns) if seg is not None else None
         feats = self.query_features(params, pts.reshape(-1, 3),
@@ -166,11 +170,12 @@ class NerfModel:
     def render_rays_flat(self, params: dict, origins: torch.Tensor,
                          dirs: torch.Tensor,
                          seg: Optional[torch.Tensor] = None,
-                         num_seg: int = 1
+                         num_seg: int = 1, num_samples: Optional[int] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Rays of any leading shape flattened into one call."""
         return self.render_rays(params, origins.reshape(-1, 3),
-                                dirs.reshape(-1, 3), seg=seg, num_seg=num_seg)
+                                dirs.reshape(-1, 3), seg=seg, num_seg=num_seg,
+                                num_samples=num_samples)
 
     def render_image(self, params: dict, cam: rays.Camera, c2w: torch.Tensor,
                      chunk: int = 1 << 14

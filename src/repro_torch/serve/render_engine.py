@@ -10,7 +10,9 @@ session (chosen by a :mod:`~repro_torch.serve.policies` policy).
 * **Staged tick** — :meth:`~repro_torch.core.engine.DeviceSparwEngine.
   render_windows` with per-slot window lengths and capacities: ragged
   sessions batch into one fixed ``[num_slots, window]`` shape by pose
-  padding and masking.
+  padding and masking. With ``RenderConfig.adaptive_sampling`` each slot
+  also carries a coarse-pool controller (``ctl_c``), fed the window's
+  holes that are not fine.
 * **Fused tick** (``RenderConfig.fused_tick``) — :meth:`~repro_torch.core.
   engine.DeviceSparwEngine.render_windows_streaming`: the engine threads a
   ``[num_slots, H, W]`` cross-tick reference recurrence from tick to tick
@@ -114,6 +116,7 @@ class _Slot:
     cursor: int = 0  # next un-rendered pose index
     extrapolator: Optional[schedule.RefPoseExtrapolator] = None
     ctl: Optional[HoleCapController] = None  # fresh at admit
+    ctl_c: Optional[HoleCapController] = None  # adaptive coarse sub-pool
     # fused tick: pose of the reference held in this slot's recurrence row
     ref_pose: Optional[torch.Tensor] = None
     # multi-scene: the occupant's scene key (pins its page while the slot
@@ -152,15 +155,20 @@ class RenderServeEngine:
         self._occupancy_log: List[int] = []
         # idle slots render a self-warp (reference == target: no holes)
         self._idle_pose = torch.eye(4)
-        # per-slot (window, cap, pool cap) signature and its device arrays,
-        # rebuilt only when admission, draining or a ladder step changes it
-        self._slot_sig: Optional[Tuple[Tuple[int, int, int], ...]] = None
+        # per-slot (window, cap, pool cap, coarse pool cap) signature and
+        # its device arrays, rebuilt only when admission, draining or a
+        # ladder step changes it
+        self._slot_sig: Optional[Tuple[Tuple[int, int, int, int],
+                                       ...]] = None
         self._win_lens: Optional[torch.Tensor] = None
         self._caps: Optional[torch.Tensor] = None
         self._pool_caps: Optional[torch.Tensor] = None
+        self._pool_caps_c: Optional[torch.Tensor] = None
         self._tick_bucket = 0
-        # deferred readback: (assignments, result, bucket) per tick, where
-        # assignments[s] = (session, [frame indices], ctl) or None
+        self._tick_bucket_c = 0
+        # deferred readback: (assignments, result, (bucket, bucket_coarse))
+        # per tick, where assignments[s] = (session, [frame indices], ctl,
+        # ctl_c) or None
         self._pending: List[tuple] = []
         self._last_result = None
         self._last_event = None  # marks the end of the last tick's work
@@ -351,16 +359,18 @@ class RenderServeEngine:
                 sess.admitted_s = now
                 win, cap = self._effective(sess)
                 cfg = self.engine.config
+                ctl_kw = dict(worst=win * cap,
+                              min_bucket=self.engine.pool_min_bucket,
+                              safety=cfg.pool_safety,
+                              alpha=cfg.pool_ewma_alpha,
+                              fixed=(sess.pool_bucket
+                                     if sess.pool_bucket is not None
+                                     else cfg.pool_bucket))
                 slot = _Slot(
                     session=sess, window=win, cap=cap,
                     extrapolator=schedule.RefPoseExtrapolator(window=win),
-                    ctl=HoleCapController(
-                        worst=win * cap,
-                        min_bucket=self.engine.pool_min_bucket,
-                        safety=cfg.pool_safety, alpha=cfg.pool_ewma_alpha,
-                        fixed=(sess.pool_bucket
-                               if sess.pool_bucket is not None
-                               else cfg.pool_bucket)))
+                    ctl=HoleCapController(**ctl_kw),
+                    ctl_c=HoleCapController(**ctl_kw))
                 if self.multi_scene:
                     # page the scene in now (upload on a miss); occupied
                     # slots pin their pages, so admission never steals one
@@ -405,16 +415,18 @@ class RenderServeEngine:
         the slot signature changed. Idle slots take the engine defaults
         and the minimum pool bucket (their self-warp has no holes)."""
         engine = self.engine
+        adaptive = engine.adaptive_sampling
         sig = []
         for slot in self.slots:
             if slot is None:
-                sig.append((self.window, engine.hole_cap,
-                            engine.pool_min_bucket if engine.pool_holes
-                            else 0))
+                bf = engine.pool_min_bucket if engine.pool_holes else 0
+                sig.append((self.window, engine.hole_cap, bf,
+                            bf if adaptive else 0))
             elif not engine.pool_holes:
-                sig.append((slot.window, slot.cap, 0))
+                sig.append((slot.window, slot.cap, 0, 0))
             else:
-                sig.append((slot.window, slot.cap, slot.ctl.bucket))
+                sig.append((slot.window, slot.cap, slot.ctl.bucket,
+                            slot.ctl_c.bucket if adaptive else 0))
         sig = tuple(sig)
         if sig != self._slot_sig:
             self._slot_sig = sig
@@ -422,7 +434,9 @@ class RenderServeEngine:
             self._win_lens = torch.tensor([e[0] for e in sig], device=dev)
             self._caps = torch.tensor([e[1] for e in sig], device=dev)
             self._pool_caps = torch.tensor([e[2] for e in sig], device=dev)
+            self._pool_caps_c = torch.tensor([e[3] for e in sig], device=dev)
             self._tick_bucket = max(e[2] for e in sig)
+            self._tick_bucket_c = max(e[3] for e in sig)
 
     def _stack(self, poses: List[torch.Tensor]) -> torch.Tensor:
         """Host-side pose batch (the engine moves it to the device)."""
@@ -471,7 +485,7 @@ class RenderServeEngine:
             # pad short windows with the last real pose; win_lens keeps the
             # pads out of the overflow decision, finalize drops them
             tgt_poses.append(win + [win[-1]] * (self.window - len(win)))
-            assignments.append((sess, idxs, slot.ctl))
+            assignments.append((sess, idxs, slot.ctl, slot.ctl_c))
             sess.stats.reference_renders += 1
             slot.cursor += len(idxs)
             if slot.cursor >= len(sess.poses):
@@ -497,8 +511,10 @@ class RenderServeEngine:
         else:
             result = self.engine.render_windows(
                 self._stack(ref_poses), tgt, self._win_lens, self._caps,
-                pool_caps=self._pool_caps, bucket=self._tick_bucket)
-        self._pending.append((assignments, result, self._tick_bucket))
+                pool_caps=self._pool_caps, pool_caps_coarse=self._pool_caps_c,
+                bucket=self._tick_bucket, bucket_coarse=self._tick_bucket_c)
+        self._pending.append((assignments, result,
+                              (self._tick_bucket, self._tick_bucket_c)))
         self._last_result = result
         if self.device.type == "cuda":
             self._last_event = torch.cuda.Event()
@@ -513,33 +529,41 @@ class RenderServeEngine:
         newest ticks pending."""
         hw = self.engine.cam.height * self.engine.cam.width
         pool = self.engine.pool_holes
+        adaptive = self.engine.adaptive_sampling
         split = max(len(self._pending) - keep, 0)
         done, self._pending = self._pending[:split], self._pending[split:]
-        for assignments, res, bucket in done:
-            counts = res.hole_counts.cpu().numpy()
+        for assignments, res, (bf, bc) in done:
+            counts, fine = torch.stack([res.hole_counts,
+                                        res.fine_counts]).cpu().numpy()
             overflowed = res.overflowed.cpu().numpy()
-            tick_holes = active = 0
+            tick_holes = tick_fine = active = 0
             for s, assign in enumerate(assignments):
                 if assign is None:
                     continue
-                sess, idxs, ctl = assign
+                sess, idxs, ctl, ctl_c = assign
                 ovf = bool(overflowed[s])
                 for j, f in enumerate(idxs):
                     sess.frames[f] = res.frames[s, j]
                     sess.stats.record_frame(int(counts[s, j]), ovf, hw)
                 if sess.frames.count(None) == 0:
                     sess.done = True
-                # no adaptive split here: the reference's fine counts are
-                # the hole counts
                 win_total = int(counts[s, :len(idxs)].sum())
+                fine_total = int(fine[s, :len(idxs)].sum())
                 tick_holes += win_total
+                tick_fine += fine_total
                 active += 1
+                # the fine total feeds the session's controller and, with
+                # adaptive sampling, the rest its coarse one; the readback
+                # runs a tick behind dispatch, so each observation lands
+                # two dispatches after its window (the reference's cadence)
                 if pool and ctl is not None:
-                    ctl.observe(win_total)
+                    ctl.observe(fine_total)
+                    if adaptive:
+                        ctl_c.observe(win_total - fine_total)
             if pool:
                 self._pool_log.append(dict(
-                    bucket=bucket, bucket_coarse=0, hole_total=tick_holes,
-                    fine_total=tick_holes, active_slots=active))
+                    bucket=bf, bucket_coarse=bc, hole_total=tick_holes,
+                    fine_total=tick_fine, active_slots=active))
 
     def _observe_tick(self, tick_t0: float, assignments: List[tuple],
                       done_event) -> None:
@@ -634,10 +658,14 @@ class RenderServeEngine:
         fixed_spt = self.num_slots * self.window * engine.hole_cap * ns
         entries = self._pool_log[log_start:]
         if engine.pool_holes and entries:
-            spt = [self.num_slots * e["bucket"] * ns for e in entries]
+            spt = [self.num_slots * (e["bucket"] * ns + e["bucket_coarse"]
+                                     * (ns // engine.coarse_factor))
+                   for e in entries]
             samples_last = spt[-1]
             samples_mean = float(np.mean(spt))
-            pool_slots = sum(self.num_slots * e["bucket"] for e in entries)
+            pool_slots = sum(self.num_slots * (e["bucket"]
+                                               + e["bucket_coarse"])
+                             for e in entries)
             util = float(sum(e["hole_total"] for e in entries)
                          / max(pool_slots, 1))
         else:
@@ -645,7 +673,7 @@ class RenderServeEngine:
                                                 float("nan"))
         pool_metrics = {
             "enabled": engine.pool_holes,
-            "adaptive_sampling": False,
+            "adaptive_sampling": engine.adaptive_sampling,
             "samples_per_tick": samples_last,
             "samples_per_tick_mean": samples_mean,
             "samples_per_tick_fixed_cap": fixed_spt,

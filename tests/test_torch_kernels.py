@@ -278,6 +278,188 @@ def test_mlp_staging_fits_shared_memory():
     for cin in (4, 8, 16):
         for hidden in t_mlp.HIDDEN_WIDTHS:
             assert t_mlp.smem_bytes(cin, hidden, 9) <= t_mlp._SMEM_LIMIT
+            assert t_mlp.mlp_plan(cin, hidden, 9) == (
+                "tensor", hidden, 16, t_mlp.smem_bytes(cin, hidden, 9), 0)
+    # the staging limit of fault C5: at H = 128 it fits up to C = 88
+    assert t_mlp.smem_bytes(88, 128, 9) <= t_mlp._SMEM_LIMIT
+    assert t_mlp.smem_bytes(89, 128, 9) > t_mlp._SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# C5: B2 at every [C, H] the reference takes (padding and the run-time mode)
+# ---------------------------------------------------------------------------
+
+
+# (C, H, DD) -> (mode, width, tile, shared-memory bytes, scratch floats);
+# the run-time mode stages 8,448 B of k chunks beside its hidden tile of
+# (H padded to 16) x 68 floats
+RT = 4 * (16 * 68 + 16 * 64)
+MLP_PLANS = [
+    ((8, 64, 9), ("tensor", 64, 16, (8 + 64 + 8 + 2) * 512 + 4 * 131, 0)),
+    ((8, 48, 9), ("tensor", 64, 16, (8 + 64 + 8 + 2) * 512 + 4 * 131, 0)),
+    ((8, 20, 9), ("tensor", 32, 16, (4 + 16 + 4 + 2) * 512 + 4 * 67, 0)),
+    ((8, 96, 9), ("tensor", 128, 16,
+                  (16 + 256 + 16 + 2) * 512 + 4 * 259, 0)),
+    ((88, 128, 9), ("tensor", 128, 16,
+                    (11 * 16 + 256 + 16 + 2) * 512 + 4 * 259, 0)),
+    ((89, 128, 9), ("runtime", 128, 64, RT + 4 * 128 * 68, 0)),
+    ((96, 128, 9), ("runtime", 128, 64, RT + 4 * 128 * 68, 0)),
+    ((96, 100, 9), ("runtime", 100, 64, RT + 4 * 112 * 68, 0)),
+    ((8, 160, 9), ("runtime", 160, 64, RT + 4 * 160 * 68, 0)),
+    ((8, 600, 9), ("runtime", 600, 64, RT + 4 * 608 * 68, 0)),
+    ((8, 816, 9), ("runtime", 816, 64, RT + 4 * 816 * 68, 0)),
+    ((8, 817, 9), ("runtime", 817, 64, RT, 832 * 68)),  # tile in scratch
+    ((8, 64, 17), ("runtime", 64, 64, RT + 4 * 64 * 68, 0)),  # code over 16
+]
+
+
+@pytest.mark.parametrize("shape,plan", MLP_PLANS,
+                         ids=[f"C{c}-H{h}-DD{dd}" for (c, h, dd), _
+                              in MLP_PLANS])
+def test_mlp_plan_routes_every_width(shape, plan):
+    """``mlp_plan``, the one routing rule: H up to 128 pads to the next
+    template width where the staged weights fit one block; the rest runs
+    the run-time-H mode, its hidden tile in shared memory within the
+    limit, else in global scratch."""
+    got = t_mlp.mlp_plan(*shape)
+    assert tuple(got) == plan
+    assert got.smem <= t_mlp._SMEM_LIMIT
+    if got.mode == "tensor":
+        assert got.width in t_mlp.HIDDEN_WIDTHS and got.width >= shape[1]
+        assert got.smem == t_mlp.smem_bytes(shape[0], got.width, shape[2])
+
+
+def _pallas_mlp(feats, enc, wt, block=128):
+    n = feats.shape[0]
+    pad = (-n) % block
+    args = [jnp.pad(jnp.asarray(feats), ((0, pad), (0, 0))),
+            jnp.pad(jnp.asarray(enc), ((0, pad), (0, 0)))]
+    args += [jnp.asarray(wt[k])[None] if wt[k].ndim == 1
+             else jnp.asarray(wt[k]) for k in wt]
+    return np.asarray(j_mlp.fused_nerf_mlp(*args, block=block,
+                                           interpret=True))[:n]
+
+
+@pytest.mark.parametrize("hidden,width", [(48, 64), (96, 128), (20, 32)])
+def test_padded_mlp_matches_pallas(hidden, width):
+    """The padded weights (``pad_hidden``: zero units, zero rows of
+    ``w_rgb`` between its H rows and the direction code) give the
+    reference's output at the unpadded width, 2e-5 / 1e-5."""
+    rng = np.random.default_rng(hidden)
+    feats, enc, wt = _mlp_inputs(rng, 300, 8, hidden)
+    wt["b1"] = rng.standard_normal(hidden).astype(np.float32) * 0.1
+    wt["b2"] = rng.standard_normal(hidden).astype(np.float32) * 0.1
+    wt["b_rgb"] = np.asarray([0.1, -0.2, 0.3], np.float32)
+    tw = {k: torch.as_tensor(v) for k, v in wt.items()}
+    names = ("w1", "b1", "w2", "b2", "w_sigma", "w_rgb")
+    padded = t_mlp.pad_hidden(*(tw[k] for k in names), width)
+    assert [tuple(t.shape) for t in padded] == [
+        (8, width), (width,), (width, width), (width,), (width, 1),
+        (width + 9, 3)]
+    assert not padded[5][hidden:width].any()
+    got = t_mlp.fused_nerf_mlp_plain(torch.as_tensor(feats),
+                                     torch.as_tensor(enc), *padded,
+                                     tw["b_rgb"])
+    np.testing.assert_allclose(got.numpy(), _pallas_mlp(feats, enc, wt),
+                               **F32_TOL)
+    # padded once per parameter set: a second lookup is the same tensors
+    weights = tuple(tw[k] for k in names)
+    first = t_mlp.padded(weights, width)
+    assert all(a is b for a, b in zip(first, t_mlp.padded(weights, width)))
+    tw["w1"].add_(0.0)  # an in-place update re-pads
+    assert t_mlp.padded(weights, width)[0] is not first[0]
+
+
+def _mlp_runtime_emulated(feats, enc, w1, b1, w2, b2, w_sigma, w_rgb, b_rgb,
+                          cols=64, lanes=16):
+    """The run-time-H kernel's arithmetic in plain PyTorch, in its order:
+    every hidden unit summed over k from zero, bias and relu after; lane t
+    of a row group sums the heads over columns ``n0 + 4t + j`` of each
+    ``cols``-wide block, the lanes' sums meet in a xor tree (8, 4, 2, 1);
+    the direction code last."""
+    n, h = feats.shape[0], w1.shape[1]
+    hid = feats.new_zeros((n, h))
+    for k in range(feats.shape[1]):
+        hid = hid + feats[:, k:k + 1] * w1[k]
+    hid = torch.relu(hid + b1)
+    h2 = feats.new_zeros((n, h))
+    for k in range(h):
+        h2 = h2 + hid[:, k:k + 1] * w2[k]
+    v = torch.relu(h2 + b2)
+    parts = []
+    for t in range(lanes):
+        sig, rgb = feats.new_zeros(n), feats.new_zeros((n, 3))
+        for n0 in range(0, h, cols):
+            for j in range(4):
+                col = n0 + 4 * t + j
+                if col < h:
+                    sig = sig + v[:, col] * w_sigma[col, 0]
+                    rgb = rgb + v[:, col:col + 1] * w_rgb[col]
+        parts.append((sig, rgb))
+    for off in (8, 4, 2, 1):
+        parts = [(parts[t][0] + parts[t ^ off][0],
+                  parts[t][1] + parts[t ^ off][1]) for t in range(lanes)]
+    sig, rgb = parts[0]
+    for k in range(enc.shape[1]):
+        rgb = rgb + enc[:, k:k + 1] * w_rgb[h + k]
+    return torch.cat([t_nerf_mlp.softplus(sig)[:, None],
+                      torch.sigmoid(rgb + b_rgb)], dim=-1)
+
+
+@pytest.mark.parametrize("cin,hidden", [(8, 160), (96, 128), (4, 50)])
+def test_mlp_runtime_arithmetic_matches_pallas(cin, hidden):
+    """The run-time-H mode's order of operations (emulated) against the
+    reference at shapes the templates cannot take, 2e-5 / 1e-5."""
+    rng = np.random.default_rng(cin + hidden)
+    feats, enc, wt = _mlp_inputs(rng, 200, cin, hidden)
+    wt["b1"] = rng.standard_normal(hidden).astype(np.float32) * 0.1
+    wt["b2"] = rng.standard_normal(hidden).astype(np.float32) * 0.1
+    got = _mlp_runtime_emulated(torch.as_tensor(feats), torch.as_tensor(enc),
+                                *(torch.as_tensor(wt[k]) for k in wt))
+    np.testing.assert_allclose(got.numpy(), _pallas_mlp(feats, enc, wt),
+                               **F32_TOL)
+
+
+def test_mlp_hidden_48_streaming_render_matches_reference():
+    """``make_model("dvgo", decoder="mlp", mlp_hidden=48)`` on the
+    streaming backend (the model fault C5 made raise on the card),
+    rendered through the facade against JAX: >= 40 dB, equal stats."""
+    from repro import api as j_api
+    from repro.core import config as j_config
+    from repro.core import pipeline as j_pipeline
+    from repro.nerf import models as j_models
+    from repro_torch import api as t_api
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import config as t_config
+    from repro_torch.core import pipeline as t_pipeline
+    from repro_torch.nerf import models as t_models
+    from repro_torch.utils import psnr
+
+    rng = np.random.default_rng(48)
+    feats, enc, dec = _mlp_inputs(rng, 1, 8, 48)
+    table = (0.3 * rng.standard_normal((16**3, 8))).astype(np.float32)
+    mk = dict(grid_res=16, channels=8, decoder="mlp", mlp_hidden=48,
+              num_samples=8, backend="streaming")
+    kw = dict(scene="lego", res=24, window=3, grid_res=16, channels=8,
+              decoder="mlp", num_samples=8, backend="streaming")
+    j_model, _ = j_models.make_model("dvgo", **mk)
+    t_model, _ = t_models.make_model("dvgo", **mk)
+    j_ren = j_api.make_renderer(
+        j_config.RenderConfig(**kw, pallas_interpret=True), model=j_model,
+        params={"table": jnp.asarray(table),
+                "decoder": {k: jnp.asarray(v) for k, v in dec.items()}})
+    t_ren = t_api.make_renderer(
+        t_config.RenderConfig(**kw), model=t_model,
+        params=params_from_numpy({"table": table, "decoder": dec}, "cpu"),
+        device="cpu")
+    want = j_ren.render(j_config.RenderRequest(
+        poses=tuple(j_pipeline.orbit_trajectory(4, step_deg=3.0))))
+    got = t_ren.render(t_config.RenderRequest(
+        poses=tuple(t_pipeline.orbit_trajectory(4, step_deg=3.0))))
+    for g, w in zip(got.frames, want.frames):
+        assert float(psnr(g, torch.as_tensor(np.array(w)))) >= 40.0
+    assert got.stats.hole_fractions == want.stats.hole_fractions
+    assert got.stats.reference_renders == want.stats.reference_renders
 
 
 # ---------------------------------------------------------------------------
