@@ -123,9 +123,28 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    tables the loader bakes, on the card against its CPU bake, and the
    fleet served on the card from the CPU's bakes against the CPU run.
    A further, profiled run of each arm (``torch.profiler``) reports the
-   device's busy share of the wall time and the busiest kernels and ops
-   (for arms D and E also the ops with the most device time by input
-   shape).
+   device's busy share of the wall time, the host's ``cudaLaunchKernel``
+   and ``cudaGraphLaunch`` calls, the run's peak of allocated device
+   memory and the busiest kernels and ops (for arms D and E also the ops
+   with the most device time by input shape). Each path's launches of
+   B1-B5 must equal the eager ticks' (``EAGER_LAUNCHES``): a kernel
+   launched inside a CUDA graph counts at each replay.
+   Phase S, the steady tick: each staged window and fused tick is a tick
+   program replayed as a CUDA graph from its second call on
+   (``core.engine.TickProgram``). At arms A, B, C, G and D's keys (D
+   fused, staged and adaptive, on the serving engine before it serves),
+   three calls on the same device inputs (eager, capture and replay,
+   replay inside ``torch.cuda.set_sync_debug_mode("error")``) must give
+   bit-equal outputs, next references and resolved frames, with one key
+   and one capture. Arm D's fleet served fused, staged and staged
+   adaptive, arm E's fleet fused and its short fleet staged: one or two
+   runs capture every key (captures = keys), then a further run whose
+   every tick that admits nothing runs under the sync error mode, with
+   no new key and no capture (arm E: across its scene churn); then one
+   of arm E's paged keys is replayed (under the sync error mode) against
+   the same call with the engine's graphs off. The spies of
+   the kernel checks and of C2 turn their engine's graphs off: they must
+   see, or read back, every call.
    Arm F: LM serving, ``repro_torch.serve.ServeEngine`` on qwen2.5-32b at
    full width (d_model 5120, 40 query and 8 KV heads, d_ff 27648, vocab
    152064, QKV bias), 16 of its 64 layers, bfloat16, random weights from
@@ -169,6 +188,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -288,29 +308,37 @@ TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
 def profile_run(fn) -> dict:
     """Where one warm run's time goes: wall time under the profiler, the
     device's busy time (the sum of its kernels and copies — one stream,
-    so they do not overlap) and the busiest kernels and host ops."""
+    so they do not overlap), the host's kernel launches and CUDA-graph
+    launches, the busiest kernels and host ops, and the run's peak of
+    allocated device memory (the caching allocator's reserve beside it:
+    it holds the tick programs' graph pools)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    peak = torch.cuda.max_memory_allocated()
     stats = prof.key_averages()
     dev = [e for e in stats if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     top = lambda evs, key: [
         {"name": e.key[:70], "count": e.count, "us": getattr(e, key)}
         for e in sorted(evs, key=lambda e: -getattr(e, key))[:8]]
-    launch = [e for e in stats if e.key == "cudaLaunchKernel"]
+    host_calls = lambda name: {
+        "count": sum(e.count for e in stats if e.key == name),
+        "us": sum(e.self_cpu_time_total for e in stats if e.key == name)}
     return {"profiled_wall_us": wall_us,
-            "host_cuda_launch_kernel": {
-                "count": sum(e.count for e in launch),
-                "us": sum(e.self_cpu_time_total for e in launch)},
+            "host_cuda_launch_kernel": host_calls("cudaLaunchKernel"),
+            "host_cuda_graph_launch": host_calls("cudaGraphLaunch"),
+            "peak_allocated_bytes": peak,
+            "reserved_bytes": torch.cuda.memory_reserved(),
             "device_busy_us": busy_us if dev else "not measured",
             "device_busy_share": busy_us / wall_us if dev else None,
             "device_events": sum(e.count for e in dev),
@@ -359,6 +387,7 @@ def capture_b3_inputs(engine, num_seg: int):
     rgb, dep = engine.prime_reference(ref)
     seen = []
     real = sp_k.fused_gather_dual
+    engine.cuda_graphs = False  # the spy must see the call itself
 
     def spy(*args, **kw):
         seen.append((args, kw["num_seg"]))
@@ -396,6 +425,7 @@ def capture_scened_inputs(engine, sessions):
 
     gt_k.gather_trilerp_mvoxels_per_seg = spy_b4
     sp_k.fused_gather_dual_per_seg = spy_b5
+    engine.engine.cuda_graphs = False  # the spies must see each call
     try:
         engine.submit(sessions)
         engine.step()
@@ -473,8 +503,9 @@ def c2_first_tick(engine, sessions) -> tuple:
     from repro_torch.nerf import volrend
 
     calls = []
-    cpu = lambda x: (x.detach().cpu() if torch.is_tensor(x) else
-                     tuple(cpu(y) for y in x) if isinstance(x, tuple) else x)
+    cpu = lambda x: (
+        x.detach().to("cpu", copy=True) if torch.is_tensor(x) else
+        tuple(cpu(y) for y in x) if isinstance(x, tuple) else x)
     spied = [(gt_k, "gather_trilerp_mvoxels_per_seg"),
              (sp_k, "fused_gather_dual_per_seg"),
              (sp_k, "gather_trilerp_ref_scened"), (volrend, "composite")]
@@ -490,6 +521,7 @@ def c2_first_tick(engine, sessions) -> tuple:
 
     for mod, name in spied:
         setattr(mod, name, spy(name))
+    engine.engine.cuda_graphs = False  # the spies read each call back
     try:
         engine.submit(sessions)
         engine.step()
@@ -542,26 +574,30 @@ def c2_compare(card: tuple, host: tuple) -> list:
                                        zip(frames_g, frames_c))}]
 
 
-def c2_warps(engine, sessions) -> list:
+def c2_warps(engine, sessions) -> tuple:
     """Serve ``sessions`` on ``engine``, recording every tick's warp
     (``sparw.warp_frames_flat``): its reference frames and depths, the
-    warped colours and the hole flags, on the CPU."""
+    warped colours and the hole flags, copied to the CPU (the references
+    live in a buffer each tick rewrites). Returns (records, the run's
+    metrics)."""
     from repro_torch.core import sparw
 
     real, rec = sparw.warp_frames_flat, []
+    copy = lambda t: t.to("cpu", copy=True)
 
     def spy(rgb_ref, dep_ref, *args, **kw):
         out = real(rgb_ref, dep_ref, *args, **kw)
-        rec.append({"rgb_ref": rgb_ref.cpu(), "dep_ref": dep_ref.cpu(),
-                    "rgb": out.rgb.cpu(), "holes": out.holes.cpu()})
+        rec.append({"rgb_ref": copy(rgb_ref), "dep_ref": copy(dep_ref),
+                    "rgb": copy(out.rgb), "holes": copy(out.holes)})
         return out
 
     sparw.warp_frames_flat = spy
+    engine.engine.cuda_graphs = False  # the spy reads every tick back
     try:
-        engine.run(sessions)
+        metrics = engine.run(sessions)
     finally:
         sparw.warp_frames_flat = real
-    return rec
+    return rec, metrics
 
 
 def c2_compare_warps(card: list, host: list) -> list:
@@ -872,7 +908,8 @@ def main() -> int:
     from repro_torch.kernels import gather_trilerp as gt_k
     from repro_torch.kernels import streaming_pipeline as sp_k
     from repro_torch.nerf import mlp, models, rays, scenes
-    from repro_torch.serve.render_engine import RenderServeEngine
+    from repro_torch.serve.render_engine import RenderServeEngine, \
+        RenderSession
     from repro_torch.utils import psnr
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1486,6 +1523,8 @@ def main() -> int:
         """Every field of a RenderStats, per-frame hole fractions too."""
         return dataclasses.asdict(st)
 
+    warm_render = {}  # the arms' renderers, reused warm in phase S
+
     def run_arm(name, cfg, n_frames, model=None, np_params=None,
                 profile=True, exact_stats=False):
         arm_poses = orbit_trajectory(n_frames)
@@ -1496,7 +1535,9 @@ def main() -> int:
         reset()
         cold = gpu.render(req)
         launches = counts()
+        gpu.render(req)  # captures the tick programs the cold run met once
         warm = gpu.render(req)
+        warm_render[name] = gpu
         extra_cpu = ({} if model is None else
                      dict(model=model,
                           params=params_from_numpy(np_params, "cpu")))
@@ -1532,6 +1573,11 @@ def main() -> int:
                 "cold_wall_s": cold.wall_s, "warm_wall_s": warm.wall_s,
                 "warm_fps": warm.fps, "cpu_wall_s": cpu.wall_s}
 
+    warm_serve = {}  # the arms' serving engines, reused warm in phase S
+
+    def serve_engine_of(renderer):
+        return renderer.pipeline.serve_engine_for(renderer.config)
+
     def serve_fleet(renderer, fleet):
         reset()
         torch.cuda.synchronize()
@@ -1545,6 +1591,7 @@ def main() -> int:
                                 params=params_from_numpy(np_params_b, dev))
         cold, m_cold, launches = serve_fleet(gpu, fleet)
         _, m_warm, _ = serve_fleet(gpu, fleet)
+        warm_serve[name] = serve_engine_of(gpu)
         t_cpu = time.perf_counter()
         cpu, m_cpu = api.make_renderer(
             cfg, model=model_b, params=params_from_numpy(np_params_b, "cpu"),
@@ -1613,9 +1660,11 @@ def main() -> int:
         launches = counts()
         del eng._stage_scene_map
         m_warm = eng.run(arm_e_sessions(n_sessions, n_frames))
+        # the CPU run, each tick's warp recorded for C2 below
         t_cpu = time.perf_counter()
         cpu = arm_e_sessions(n_sessions, n_frames)
-        m_cpu = scene_engine(api.make_renderer(cfg, device="cpu")).run(cpu)
+        warps_cpu, m_cpu = c2_warps(
+            scene_engine(api.make_renderer(cfg, device="cpu")), cpu)
         cpu_s = time.perf_counter() - t_cpu
         sc = m_cold["scene_cache"]
         if not (m_cold["complete"] and m_cpu["complete"]):
@@ -1662,14 +1711,12 @@ def main() -> int:
             ren.model, ren.params, config=ren.config,
             scene_loader=lambda name: scene_loader("cpu")(name).to(dev))
         sess_x = arm_e_sessions(n_sessions, n_frames)
-        warps_x = c2_warps(eng_x, sess_x)
+        warps_x, _ = c2_warps(eng_x, sess_x)
         if len(warps_x) != m_cpu["ticks"] or any(
                 stats_of(a) != stats_of(b) for a, b in zip(sess_x, cpu)):
             fail("arm E from the CPU's bakes: stats differ from the CPU run")
-        c2["warps"] = c2_compare_warps(warps_x, c2_warps(
-            scene_engine(api.make_renderer(cfg, device="cpu")),
-            arm_e_sessions(n_sessions, n_frames)))
-        del warps_x
+        c2["warps"] = c2_compare_warps(warps_x, warps_cpu)
+        del warps_x, warps_cpu
         for row in c2["warps"]:
             print(f"C2 warp {json.dumps(row)}")
         c2["min_psnr_vs_cpu_db_cpu_bakes"] = min(
@@ -1730,9 +1777,10 @@ def main() -> int:
             return real_b4(*args, **kw)
 
         gt_k.gather_trilerp_mvoxels_per_seg = spy_b4
+        spied = scene_engine(ren, fused_tick=False)
+        spied.engine.cuda_graphs = False  # the spy must see every call
         try:
-            scene_engine(ren, fused_tick=False).run(
-                arm_e_sessions(4, n_frames // 2))
+            spied.run(arm_e_sessions(4, n_frames // 2))
         finally:
             gt_k.gather_trilerp_mvoxels_per_seg = real_b4
         b4_by_shape = sorted(b4_calls.items(), key=lambda kv: -kv[1][0])
@@ -2003,6 +2051,7 @@ def main() -> int:
         arm_poses = orbit_trajectory(n_frames)
         req = RenderRequest(poses=tuple(arm_poses))
         gpu = api.make_renderer(cfg)
+        warm_render["G"] = gpu
         spy = window_spy(gpu)
         reset()
         cold = gpu.render(req)
@@ -2088,8 +2137,8 @@ def main() -> int:
             served, m, launches = serve_fleet(gpu, fleet)
         finally:
             mlp_k.fused_nerf_mlp = inner
-        slots_cfg = gpu.config.replace(num_slots=cfg.num_slots)
-        log = list(gpu.pipeline.serve_engine_for(slots_cfg)._pool_log)
+        warm_serve["D adaptive"] = serve_engine_of(gpu)
+        log = list(warm_serve["D adaptive"]._pool_log)
         if not m["complete"] or m["ticks"] != m_staged_warm["ticks"]:
             fail(f"arm D adaptive: {m['ticks']} ticks (staged "
                  f"{m_staged_warm['ticks']}), or a session did not complete")
@@ -2275,6 +2324,7 @@ def main() -> int:
                               params=params_from_numpy(np_params_b, dev))
     staged, m_staged, launches_staged = serve_fleet(gpu_s, fleet)
     _, m_staged_warm, _ = serve_fleet(gpu_s, fleet)
+    warm_serve["D staged"] = serve_engine_of(gpu_s)
     if m_staged["ticks"] != arms["D"]["ticks"] or not m_staged["complete"]:
         fail(f"arm D: staged serving ran {m_staged['ticks']} ticks, fused "
              f"{arms['D']['ticks']}")
@@ -2300,6 +2350,126 @@ def main() -> int:
     phase_done("arm G")
     arms["H"] = run_baselines_arm(cfg_a, 32)
     phase_done("arm H")
+
+    # S. the steady tick: graph replays bit-equal to eager on the same
+    # inputs and free of synchronizing calls, captures one per key
+    def same_outputs(label, got, want):
+        for name, t in tick_tensors(got).items():
+            if not torch.equal(t, tick_tensors(want)[name]):
+                fail(f"phase S {label}: {name} of a replay differs from "
+                     "the eager call on the same inputs")
+        if not torch.equal(got.frames, want.frames):
+            fail(f"phase S {label}: resolved frames differ")
+
+    def window_inputs(n_sessions, window):
+        trajs = [orbit_trajectory(window + 1, phase_deg=25.0 * i)
+                 for i in range(n_sessions)]
+        ref = torch.stack([t[0] for t in trajs]).to(dev)
+        tgt = torch.stack([torch.stack(t[:window]) for t in trajs]).to(dev)
+        nxt = torch.stack([t[window] for t in trajs]).to(dev)
+        return ref, tgt, nxt
+
+    def engine_call(eng, n_sessions, fused, **kw):
+        ref, tgt, nxt = window_inputs(n_sessions, eng.window)
+        if not fused:
+            return lambda: eng.render_windows(ref, tgt, **kw)
+        rgb, dep = eng.prime_reference(ref)
+        return lambda: eng.render_windows_streaming(rgb, dep, ref, tgt, nxt,
+                                                    **kw)
+
+    def warm_replay_check(label, eng, call):
+        """``call()`` at a captured key, replayed under ``sync_error``,
+        against the same call with the engine's graphs off: bit-equal
+        outputs and resolved frames, and no capture."""
+        caps = eng.num_captures
+        with sync_error():
+            graph = call()
+        graphs, eng.cuda_graphs = eng.cuda_graphs, False
+        eager = call()
+        eng.cuda_graphs = graphs
+        same_outputs(label, graph, eager)
+        if eng.num_captures != caps:
+            fail(f"phase S {label}: a warm key was captured again")
+
+    def steady_serving(label, serve, fleet):
+        """Serve ``fleet()`` until every key is captured (at most twice;
+        not at all on a warm engine), then once more with every tick that
+        admits nothing under ``sync_error``: no new key and no capture in
+        that run."""
+        eng = serve.engine
+        for _ in range(2):
+            if eng.tick_programs \
+                    and eng.num_captures == len(eng.tick_programs):
+                break
+            serve.run(fleet())
+        keys, caps = len(eng.tick_programs), eng.num_captures
+        if caps != keys:
+            fail(f"phase S {label}: {caps} captures for {keys} keys")
+        real, steady = serve.step, [0]
+
+        def guarded():
+            if serve.queue and any(x is None for x in serve.slots):
+                return real()  # admission: priming, paging, staging
+            with sync_error():
+                ran = real()
+            steady[0] += ran
+            return ran
+
+        serve.step = guarded
+        try:
+            t0 = time.perf_counter()
+            m = serve.run(fleet())
+            wall = time.perf_counter() - t0
+        finally:
+            del serve.step
+        if len(eng.tick_programs) != keys or eng.num_captures != caps \
+                or not m["complete"] or steady[0] < 1:
+            fail(f"phase S {label}: keys {keys} -> "
+                 f"{len(eng.tick_programs)}, captures {caps} -> "
+                 f"{eng.num_captures}, {steady[0]} steady ticks")
+        return {"keys": keys, "captures": caps, "ticks": m["ticks"],
+                "steady_ticks_checked": steady[0], "wall_s": wall}
+
+    steady = {"replay": {}, "serving": {}}
+    # the arms' renderers and serving engines as they left them, every key
+    # captured: each one's first key replayed against eager
+    for label, fused in (("A", False), ("B", False), ("C", True),
+                         ("G", False)):
+        eng = warm_render[label].pipeline.device_engine
+        warm_replay_check(label, eng, engine_call(eng, 1, fused))
+        steady["replay"][label] = {
+            "key": list(next(iter(eng.tick_programs)))}
+    # then arm D's fleet served fused, and staged and adaptive its first
+    # wave (4 sessions: an admitting tick, then a steady one), as a staged
+    # tick at 4 slots costs seconds
+    for label, fused, n_sessions in (("D fused", True, 6),
+                                     ("D staged", False, 4),
+                                     ("D adaptive", False, 4)):
+        serve = warm_serve["D" if label == "D fused" else label]
+        warm_replay_check(label, serve.engine,
+                          engine_call(serve.engine, 4, fused))
+        steady["replay"][label] = {
+            "key": list(next(iter(serve.engine.tick_programs)))}
+        steady["serving"][label] = steady_serving(
+            label, serve, lambda n=n_sessions: [
+                RenderSession.from_request(r, i)
+                for i, r in enumerate(fleet[:n])])
+    for label, fused, n_sessions, n_frames in (("E fused", True, 12, 32),
+                                               ("E staged", False, 4, 32)):
+        serve = scene_engine(api.make_renderer(cfg_e), fused_tick=fused)
+        steady["serving"][label] = steady_serving(
+            label, serve, lambda: arm_e_sessions(n_sessions, n_frames))
+        # a paged key of the run against eager, on the pages and map the
+        # fleet left
+        key = next(iter(serve.engine.tick_programs))
+        warm_replay_check(label, serve.engine, engine_call(
+            serve.engine, 4, fused, bucket=key[3],
+            **({} if fused else {"bucket_coarse": key[4]})))
+        steady["replay"][label] = {"key": list(key)}
+    for part, rows in steady.items():
+        for label, row in rows.items():
+            print(f"phase S {part} {label}: {json.dumps(row)}")
+    phase_done("S")
     arms["F"] = run_lm_arm()
     phase_done("arm F")
     for name, arm in arms.items():
@@ -2553,6 +2723,10 @@ def main() -> int:
     path_launches["E_c40_fused"] = wide["launches_fused"]
     path_launches["E_c40_staged"] = wide["launches_staged"]
     path_launches["F1"] = arms["F"]["F1"]["launches"]
+    for name, want in EAGER_LAUNCHES.items():
+        got = {k: path_launches[name][k] for k in want}
+        if got != want:
+            fail(f"path {name}: launches {got}, the eager ticks' {want}")
 
     def entry(name, key, source, replaces, err, t, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2639,12 +2813,54 @@ def main() -> int:
             k: lm_arm[k] for k in ("warm_wall_s", "cold_wall_s",
                                    "generated_tok_per_s",
                                    "prefill_prompt_tok_per_s", "ticks")},
+        "steady_tick_S": steady,
         "phase_s": phase_s, "total_s": sum(phase_s.values()),
         "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# each path's launches of B1-B5 as the eager ticks made them (PERF.md
+# section 6): the graph replays of the steady tick must count the same
+EAGER_LAUNCHES = {
+    name: dict(zip(("gather_trilerp", "fused_nerf_mlp", "fused_gather_dual",
+                    "gather_trilerp_per_seg", "fused_gather_dual_per_seg"),
+                   counts))
+    for name, counts in {
+        "A": (532, 0, 0, 0, 0), "B": (258, 258, 0, 0, 0),
+        "B48": (258, 258, 0, 0, 0), "C": (18, 0, 2, 0, 0),
+        "D": (16, 24, 4, 0, 0), "D_staged": (4128, 4128, 0, 0, 0),
+        "D_adaptive": (8224, 8224, 0, 0, 0), "E": (0, 0, 0, 216, 6),
+        "E_short_fused": (0, 0, 0, 72, 1),
+        "E_short_staged": (0, 0, 0, 1096, 0),
+        "E_c40_fused": (0, 0, 0, 72, 1),
+        "E_c40_staged": (0, 0, 0, 1096, 0), "G": (1044, 0, 0, 0, 0),
+        "H_full": (32, 0, 0, 0, 0), "H_host": (33, 0, 0, 0, 0),
+        "H_temporal": (33, 0, 0, 0, 0), "H_ds2": (32, 0, 0, 0, 0),
+        "F": (0, 0, 0, 0, 0), "F1": (0, 0, 0, 0, 0)}.items()}
+
+
+@contextlib.contextmanager
+def sync_error():
+    """Every synchronizing CUDA call inside the block raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def tick_tensors(res) -> dict:
+    """A window or tick result's device outputs (not the resolved frames:
+    resolving reads ``overflowed`` back)."""
+    names = ("sparse_frames", "holes", "hole_counts", "overflowed",
+             "fine_counts", "next_rgb_ref", "next_dep_ref")
+    return {n: getattr(res, n) for n in names if hasattr(res, n)}
 
 
 def m_warm_line(arm: dict) -> str:

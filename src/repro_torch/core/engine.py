@@ -23,36 +23,118 @@ in its multi-scene mode ``params`` hold the stacked scene pages and a
 ``scene_of_seg`` map, which every flat stage carries to the gathers with
 the rays' segment ids (kernels B4 and B5).
 
+Each staged window and fused tick is one *tick program* per key
+``(path, S, N, bucket, bucket_coarse)``, the key under which the reference
+compiles one XLA program (:class:`TickProgram`). It reads only
+fixed-address inputs the engine owns (:meth:`DeviceSparwEngine.tick_inputs`,
+:meth:`DeviceSparwEngine.recurrence`) and reads nothing back: the dense
+overflow fallback is decided where the frames are first read
+(:class:`raybatch.DeferredFrames`). On the card a steady call is one
+CUDA-graph replay and issues no synchronizing call.
+
 Not ported yet: session sharding and the autotune cache
 (``ref_cap_factor`` is the reference's default, 2).
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import gc
+from typing import Callable, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core import raybatch, schedule, sparw
 from repro_torch.core.config import HoleCapController, RenderConfig, \
     RenderStats
+from repro_torch.kernels import _build
 from repro_torch.nerf import rays
 from repro_torch.utils import round_up
 
 
-class WindowResult(NamedTuple):
-    frames: torch.Tensor  # [N, H, W, 3]
-    hole_counts: torch.Tensor  # [N] true (uncapped) hole counts
-    overflowed: torch.Tensor  # [] bool — capacity exceeded, dense fill ran
-    fine_counts: torch.Tensor  # [N] full-budget holes (== hole_counts
-    #                            unless adaptive sampling split the pool)
+class BatchedWindowResult(raybatch.DeferredFrames):
+    """S sessions' windows: ``hole_counts`` [S, N] true (uncapped) hole
+    counts, ``overflowed`` [S] the per-session dense-fallback flag,
+    ``fine_counts`` [S, N] full-budget holes (== ``hole_counts`` unless
+    adaptive sampling split the pool; they feed ``pool_ctl``); ``frames``
+    [S, N, H, W, 3] as in :class:`raybatch.DeferredFrames`."""
+
+    def __init__(self, sparse_frames: torch.Tensor, holes: torch.Tensor,
+                 hole_counts: torch.Tensor, overflowed: torch.Tensor,
+                 fine_counts: torch.Tensor,
+                 dense_fill: Optional[Callable[[], torch.Tensor]] = None):
+        super().__init__(sparse_frames, holes, overflowed, dense_fill)
+        self.hole_counts = hole_counts
+        self.fine_counts = fine_counts
 
 
-class BatchedWindowResult(NamedTuple):
-    frames: torch.Tensor  # [S, N, H, W, 3]
-    hole_counts: torch.Tensor  # [S, N]
-    overflowed: torch.Tensor  # [S] bool — per-session dense-fallback flag
-    fine_counts: torch.Tensor  # [S, N] full-budget holes (feeds pool_ctl)
+class WindowResult:
+    """One window: session 0 of a :class:`BatchedWindowResult`
+    (``frames`` [N, H, W, 3], ``hole_counts`` / ``fine_counts`` [N],
+    ``overflowed`` [] bool)."""
+
+    def __init__(self, batched: BatchedWindowResult):
+        self.batched = batched
+
+    frames = property(lambda self: self.batched.frames[0])
+    hole_counts = property(lambda self: self.batched.hole_counts[0])
+    overflowed = property(lambda self: self.batched.overflowed[0])
+    fine_counts = property(lambda self: self.batched.fine_counts[0])
+
+
+class TickProgram:
+    """One tick program: ``fn()`` reads its engine's fixed-address inputs
+    and returns a dict of output tensors.
+
+    Called with ``graphs`` (a CUDA engine), the first call runs ``fn``
+    eagerly: that builds the kernels, sets their attributes, pads B2's
+    weights and sizes the library workspaces. The second captures ``fn``
+    into a CUDA graph in the engine's memory pool and replays it; every
+    later call replays it. Each replay's outputs are copied out of the
+    pool, which the next replay overwrites. Without ``graphs`` (the CPU,
+    or an engine whose ``cuda_graphs`` is off) every call runs ``fn``
+    eagerly. The kernels' launch counts count every replay, not the
+    capture (``kernels._build``). A capture that fails raises.
+    """
+
+    def __init__(self, fn: Callable[[], Dict[str, torch.Tensor]],
+                 pool=None):
+        self.fn = fn
+        self.pool = pool
+        self.calls = 0
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self._static: Dict[str, torch.Tensor] = {}
+        self._launches: _build.LaunchCounts = []
+        self._keep: list = []  # what the graph reads by address
+
+    def __call__(self, graphs: bool) -> Dict[str, torch.Tensor]:
+        self.calls += 1
+        if not graphs or (self.graph is None and self.calls == 1):
+            return self.fn()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        _build.add_launches(self._launches)
+        return {k: v.clone() for k, v in self._static.items()}
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        before = _build.launch_snapshot()
+        # no garbage may be freed while capturing: releasing a pinned host
+        # block records an event on the stream it was copied on, which
+        # invalidates the capture; so collect first and pause the collector
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.kept_alive() as keep, \
+                    torch.cuda.graph(graph, pool=self.pool):
+                static = self.fn()
+        finally:
+            if gc_was_on:
+                gc.enable()
+        # the capture ran nothing: its counts belong to the replays
+        self._launches = _build.launches_since(before)
+        _build.add_launches(self._launches, sign=-1)
+        self.graph, self._static, self._keep = graph, static, keep
 
 
 class DeviceSparwEngine:
@@ -95,7 +177,15 @@ class DeviceSparwEngine:
         # per-run delta)
         self.pool_buckets_used: set = set()
         self.num_window_calls = 0
-        self._staged: Dict[Tuple[int, int], torch.Tensor] = {}
+        # tick programs by key (path, S, N, bucket, bucket_coarse), their
+        # inputs by (S, N), the fused recurrence by S; on a CUDA engine the
+        # programs replay CUDA graphs (off: every call eager, e.g. for a
+        # spy that must see each call), captured into one memory pool
+        self.tick_programs: Dict[tuple, TickProgram] = {}
+        self._inputs: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+        self._recurrence: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.cuda_graphs = self.device.type == "cuda"
+        self._graph_pool = None
         # the fused tick's reference-set RIT capacity factor; the reference
         # may override it from an autotune cache, which the port never reads
         self.ref_cap_factor = 2
@@ -190,8 +280,9 @@ class DeviceSparwEngine:
                         tgt_poses: torch.Tensor, win_lens: torch.Tensor,
                         caps: torch.Tensor, pool_caps: torch.Tensor,
                         pool_caps_coarse: torch.Tensor, bucket: int,
-                        bucket_coarse: int) -> BatchedWindowResult:
-        """S sessions' windows through the staged stages (1)-(4).
+                        bucket_coarse: int) -> Dict[str, torch.Tensor]:
+        """S sessions' windows through the staged stages (1)-(4): the
+        fields of a :class:`BatchedWindowResult`.
 
         ``win_lens`` [S] masks padded frames out of the overflow decision,
         ``caps`` [S] are per-frame hole capacities and ``pool_caps`` /
@@ -199,7 +290,8 @@ class DeviceSparwEngine:
         coarse pools. ``bucket == 0`` selects the per-frame fixed-capacity
         hole batch instead of the pooled one; ``bucket_coarse == 0`` turns
         the adaptive coarse sub-pool off. A session that overflows any of
-        them takes its frames from the dense fill.
+        them is flagged; its frames take the dense fill where they are
+        read.
         """
         s, n = tgt_poses.shape[:2]
         h, w = self.cam.height, self.cam.width
@@ -255,24 +347,105 @@ class DeviceSparwEngine:
             overflowed = (frame_over | (tot_f > pool_caps)
                           | (tot_c > pool_caps_coarse))
             fine_counts = torch.sum(fine, dim=2)
-        fill = sparse
-        if bool(overflowed.any()):
-            dense = self._dense_fill_flat(params, tgt_poses)
-            fill = torch.where(overflowed[:, None, None, None], dense, sparse)
-        frames = torch.where(holes[..., None], fill,
+        frames = torch.where(holes[..., None], sparse,
                              warped.rgb.reshape(s, n, hw, 3))
-        return BatchedWindowResult(frames.reshape(s, n, h, w, 3), counts,
-                                   overflowed, fine_counts)
+        return dict(sparse_frames=frames.reshape(s, n, h, w, 3),
+                    holes=warped.holes, hole_counts=counts,
+                    overflowed=overflowed, fine_counts=fine_counts)
 
-    def _full(self, s: int, value: int) -> torch.Tensor:
-        """The default per-session mask or capacity ``[s]`` of ``value``,
-        staged on the device once per (s, value) (the reference's
-        ``_staged_masks`` / ``_staged_pool_caps``); never written to."""
-        staged = self._staged.get((s, value))
-        if staged is None:
-            staged = torch.full((s,), value, device=self.device)
-            self._staged[(s, value)] = staged
-        return staged
+    # ------------------------------------------------------------------
+    # tick programs and their fixed-address inputs
+    # ------------------------------------------------------------------
+    def tick_inputs(self, s: int, n: int) -> Dict[str, torch.Tensor]:
+        """The inputs every tick program of ``s`` sessions x ``n`` targets
+        reads, kept for the engine's life and written in place: ``poses``
+        [s, n + 2, 4, 4] (row 0 the reference, rows 1..n the targets, row
+        n + 1 the next reference; ``ref_poses``, ``tgt_poses`` and
+        ``next_ref_poses`` are views of it, so one copy fills a tick's
+        poses) and ``win_lens``, ``caps``, ``pool_caps`` and
+        ``pool_caps_coarse`` [s] int64."""
+        bufs = self._inputs.get((s, n))
+        if bufs is None:
+            poses = torch.zeros((s, n + 2, 4, 4), device=self.device)
+            bufs = dict(poses=poses, ref_poses=poses[:, 0],
+                        tgt_poses=poses[:, 1:n + 1],
+                        next_ref_poses=poses[:, n + 1])
+            for name in ("win_lens", "caps", "pool_caps",
+                         "pool_caps_coarse"):
+                bufs[name] = torch.zeros((s,), dtype=torch.int64,
+                                         device=self.device)
+            self._inputs[(s, n)] = bufs
+        return bufs
+
+    def recurrence(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fused tick's cross-tick references for ``s`` sessions, [s,
+        H, W, 3] and [s, H, W]: every fused program of ``s`` sessions
+        warps them and then writes the next tick's references into them."""
+        rec = self._recurrence.get(s)
+        if rec is None:
+            h, w = self.cam.height, self.cam.width
+            rec = (torch.zeros((s, h, w, 3), device=self.device),
+                   torch.zeros((s, h, w), device=self.device))
+            self._recurrence[s] = rec
+        return rec
+
+    def upload(self, src: torch.Tensor) -> torch.Tensor:
+        """``src`` on the engine's device without a host sync: a host
+        tensor goes through pinned memory and a non-blocking copy (the
+        host allocator keeps the pinned block until the copy has run)."""
+        if self.device.type == "cuda" and src.device.type == "cpu":
+            return src.pin_memory().to(self.device, non_blocking=True)
+        return src.to(self.device)
+
+    def stage(self, dst: torch.Tensor, src: Optional[torch.Tensor],
+              default: Optional[int] = None) -> None:
+        """Write a tick input into its buffer ``dst`` without a host sync:
+        nothing when ``src`` is ``dst`` itself, ``default`` everywhere when
+        ``src`` is None."""
+        if src is None:
+            dst.fill_(default)
+        elif not (src.device == dst.device
+                  and src.data_ptr() == dst.data_ptr()
+                  and src.shape == dst.shape
+                  and src.stride() == dst.stride()):
+            src = src.to(dst.dtype)
+            if dst.device.type == "cuda" and src.device.type == "cpu":
+                src = src.pin_memory()
+            dst.copy_(src, non_blocking=True)
+
+    def _program(self, key: tuple,
+                 fn: Callable[[], Dict[str, torch.Tensor]]) -> TickProgram:
+        """The tick program of ``key``, made from ``fn`` at its first
+        call."""
+        prog = self.tick_programs.get(key)
+        if prog is None:
+            if self.cuda_graphs and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            prog = TickProgram(fn, self._graph_pool)
+            self.tick_programs[key] = prog
+        return prog
+
+    @property
+    def num_captures(self) -> int:
+        """Tick programs captured into a CUDA graph so far."""
+        return sum(p.graph is not None for p in self.tick_programs.values())
+
+    def _fallback(self, tgt_poses: torch.Tensor
+                  ) -> Callable[[], torch.Tensor]:
+        """The dense fill a result runs where its frames are read and a
+        session overflowed: :meth:`_dense_fill_flat` on this call's params
+        and targets, snapshotted on the device (serving re-stages the
+        targets and the scene map in place; it resolves pending results
+        before it rewrites a scene page)."""
+        params = self.params
+        if "scene_of_seg" in params:
+            params = dict(params, scene_of_seg=params["scene_of_seg"].clone())
+        tgt = tgt_poses.clone()
+
+        def fill() -> torch.Tensor:
+            with torch.no_grad():
+                return self._dense_fill_flat(params, tgt)
+        return fill
 
     def render_windows(self, ref_poses: torch.Tensor, tgt_poses: torch.Tensor,
                        win_lens: Optional[torch.Tensor] = None,
@@ -294,26 +467,31 @@ class DeviceSparwEngine:
         cur = self._current_buckets()
         bucket = cur[0] if bucket is None else bucket
         bucket_coarse = cur[1] if bucket_coarse is None else bucket_coarse
-        win_lens = self._full(s, n) if win_lens is None else win_lens
-        caps = self._full(s, self.hole_cap) if caps is None else caps
-        pool_caps = self._full(s, bucket) if pool_caps is None else pool_caps
-        pool_caps_coarse = (self._full(s, bucket_coarse)
-                            if pool_caps_coarse is None else pool_caps_coarse)
+        b = self.tick_inputs(s, n)
+        self.stage(b["ref_poses"], ref_poses)
+        self.stage(b["tgt_poses"], tgt_poses)
+        self.stage(b["win_lens"], win_lens, n)
+        self.stage(b["caps"], caps, self.hole_cap)
+        self.stage(b["pool_caps"], pool_caps, bucket)
+        self.stage(b["pool_caps_coarse"], pool_caps_coarse, bucket_coarse)
         self.pool_buckets_used.add((bucket, bucket_coarse))
         self.num_window_calls += 1
-        dev = self.device
+        prog = self._program(
+            ("staged", s, n, bucket, bucket_coarse),
+            lambda: self._render_windows(
+                self.params, b["ref_poses"], b["tgt_poses"], b["win_lens"],
+                b["caps"], b["pool_caps"], b["pool_caps_coarse"], bucket,
+                bucket_coarse))
         with torch.no_grad():
-            return self._render_windows(
-                self.params, ref_poses.to(dev), tgt_poses.to(dev),
-                win_lens.to(dev), caps.to(dev), pool_caps.to(dev),
-                pool_caps_coarse.to(dev), bucket, bucket_coarse)
+            out = prog(self.cuda_graphs)
+        return BatchedWindowResult(**out,
+                                   dense_fill=self._fallback(b["tgt_poses"]))
 
     def render_window(self, ref_pose: torch.Tensor, tgt_poses: torch.Tensor
                       ) -> WindowResult:
         """One warp window: N target poses vs a shared reference pose."""
-        res = self.render_windows(ref_pose[None], tgt_poses[None])
-        return WindowResult(res.frames[0], res.hole_counts[0],
-                            res.overflowed[0], res.fine_counts[0])
+        return WindowResult(self.render_windows(ref_pose[None],
+                                                tgt_poses[None]))
 
     def _observe_window(self, res) -> None:
         """Feed a finished window's fine hole total to the pool controller
@@ -344,8 +522,7 @@ class DeviceSparwEngine:
     def prime_reference(self, ref_poses: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         with torch.no_grad():
-            return self._prime_reference(self.params,
-                                         ref_poses.to(self.device))
+            return self._prime_reference(self.params, self.upload(ref_poses))
 
     def _prime_select(self, params: dict, prime_poses: torch.Tensor,
                       mask: torch.Tensor, rgb_ref: torch.Tensor,
@@ -364,22 +541,27 @@ class DeviceSparwEngine:
         rows where ``mask`` is True into the running recurrence; the other
         rows pass through bitwise."""
         with torch.no_grad():
-            return self._prime_select(self.params, prime_poses.to(self.device),
-                                      mask.to(self.device), rgb_ref, dep_ref)
+            return self._prime_select(self.params, self.upload(prime_poses),
+                                      self.upload(mask), rgb_ref, dep_ref)
 
-    def _tick_streaming(self, params: dict, rgb_ref: torch.Tensor,
-                        dep_ref: torch.Tensor, ref_poses: torch.Tensor,
-                        tgt_poses: torch.Tensor, next_ref_poses: torch.Tensor,
-                        win_lens: torch.Tensor, caps: torch.Tensor,
-                        pool_caps: torch.Tensor, bucket: int
-                        ) -> raybatch.StreamingTickResult:
-        return raybatch.render_tick_streaming(
+    def _tick_streaming(self, params: dict, b: Dict[str, torch.Tensor],
+                        rgb_ref: torch.Tensor, dep_ref: torch.Tensor,
+                        bucket: int) -> Dict[str, torch.Tensor]:
+        """One fused tick on the inputs ``b`` and the recurrence buffers:
+        the fields of a :class:`raybatch.StreamingTickResult`; the next
+        tick's references are also written into the recurrence, after the
+        warp has read this tick's."""
+        r = raybatch.render_tick_streaming(
             self.model, params, self.cam, phi_deg=self.phi_deg,
-            rgb_ref=rgb_ref, dep_ref=dep_ref, ref_poses=ref_poses,
-            tgt_poses=tgt_poses, next_ref_poses=next_ref_poses,
-            win_lens=win_lens, caps=caps, pool_caps=pool_caps,
-            bucket=bucket, ref_cap_factor=self.ref_cap_factor,
-            dense_fill=lambda tp: self._dense_fill_flat(params, tp))
+            rgb_ref=rgb_ref, dep_ref=dep_ref, ref_poses=b["ref_poses"],
+            tgt_poses=b["tgt_poses"], next_ref_poses=b["next_ref_poses"],
+            win_lens=b["win_lens"], caps=b["caps"], pool_caps=b["pool_caps"],
+            bucket=bucket, ref_cap_factor=self.ref_cap_factor)
+        rgb_ref.copy_(r.next_rgb_ref)
+        dep_ref.copy_(r.next_dep_ref)
+        return dict(sparse_frames=r.sparse_frames, holes=r.holes,
+                    hole_counts=r.hole_counts, overflowed=r.overflowed,
+                    next_rgb_ref=r.next_rgb_ref, next_dep_ref=r.next_dep_ref)
 
     def render_windows_streaming(self, rgb_ref: torch.Tensor,
                                  dep_ref: torch.Tensor,
@@ -395,7 +577,8 @@ class DeviceSparwEngine:
         rendered last tick (``rgb_ref``/``dep_ref`` at ``ref_poses``) into
         ``tgt_poses``, fill the pooled holes AND render ``next_ref_poses``
         through one fused MVoxel sweep; the result's ``next_rgb_ref`` /
-        ``next_dep_ref`` feed the next call. Defaults as in
+        ``next_dep_ref`` feed the next call, and :meth:`recurrence` holds
+        them too (pass it back to skip the copy in). Defaults as in
         :meth:`render_windows`."""
         s, n = tgt_poses.shape[:2]
         if bucket is None:
@@ -403,17 +586,27 @@ class DeviceSparwEngine:
         if bucket == 0:
             raise ValueError("the fused streaming tick requires a pooled "
                              "hole bucket (pool_holes=True)")
-        win_lens = self._full(s, n) if win_lens is None else win_lens
-        caps = self._full(s, self.hole_cap) if caps is None else caps
-        pool_caps = self._full(s, bucket) if pool_caps is None else pool_caps
+        b = self.tick_inputs(s, n)
+        rgb_buf, dep_buf = self.recurrence(s)
+        self.stage(rgb_buf, rgb_ref)
+        self.stage(dep_buf, dep_ref)
+        self.stage(b["ref_poses"], ref_poses)
+        self.stage(b["tgt_poses"], tgt_poses)
+        self.stage(b["next_ref_poses"], next_ref_poses)
+        self.stage(b["win_lens"], win_lens, n)
+        self.stage(b["caps"], caps, self.hole_cap)
+        self.stage(b["pool_caps"], pool_caps, bucket)
         self.pool_buckets_used.add((bucket, 0))
         self.num_window_calls += 1
-        dev = self.device
+        path = "fused_paged" if "scene_of_seg" in self.params else "fused"
+        prog = self._program(
+            (path, s, n, bucket, 0),
+            lambda: self._tick_streaming(self.params, b, rgb_buf, dep_buf,
+                                         bucket))
         with torch.no_grad():
-            return self._tick_streaming(
-                self.params, rgb_ref, dep_ref, ref_poses.to(dev),
-                tgt_poses.to(dev), next_ref_poses.to(dev), win_lens.to(dev),
-                caps.to(dev), pool_caps.to(dev), bucket)
+            out = prog(self.cuda_graphs)
+        return raybatch.StreamingTickResult(
+            **out, dense_fill=self._fallback(b["tgt_poses"]))
 
     # ------------------------------------------------------------------
     # per-tick bytes-moved accounting (staged vs fused MVoxel traffic)
@@ -529,7 +722,7 @@ class DeviceSparwEngine:
                          if i + 1 < len(plan) else ref_pose)
             res = self.render_windows_streaming(rgb_ref, dep_ref, ref_pose,
                                                 tgt, next_pose)
-            rgb_ref, dep_ref = res.next_rgb_ref, res.next_dep_ref
+            rgb_ref, dep_ref = self.recurrence(1)  # == res.next_*_ref
             ref_pose = next_pose
             results.append((win["frames"], res))
             pending.append(res)

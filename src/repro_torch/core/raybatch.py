@@ -88,18 +88,62 @@ def scatter_segments(values: torch.Tensor, addr: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-class StreamingTickResult(NamedTuple):
+class DeferredFrames:
+    """Frames whose dense overflow fallback is decided at their first host
+    read. The reference decides it inside its tick program (``lax.cond``);
+    the port's tick program reads nothing back, so it hands this decision
+    to whoever reads the frames.
+
+    ``sparse_frames`` [S, N, H, W, 3] hold the warped colours with the
+    sparse fill in the holes ``holes`` [S, N, H, W]. Where session ``s``
+    overflowed (``overflowed`` [S] bool), :attr:`frames` takes
+    ``dense_fill()`` ([S, N, H*W, 3], the dense re-render of every target,
+    run once for all S sessions) in its holes instead: bit for bit the
+    in-tick rule ``where(holes, where(overflowed, dense, sparse),
+    warped)``. The first read of :attr:`frames` syncs the host when a
+    fallback is possible; ``dense_fill`` None means no fallback.
+    """
+
+    def __init__(self, sparse_frames: torch.Tensor, holes: torch.Tensor,
+                 overflowed: torch.Tensor,
+                 dense_fill: Optional[Callable[[], torch.Tensor]]):
+        self.sparse_frames = sparse_frames
+        self.holes = holes
+        self.overflowed = overflowed
+        self._dense_fill = dense_fill
+        self._frames: Optional[torch.Tensor] = None
+
+    @property
+    def frames(self) -> torch.Tensor:
+        if self._frames is None:
+            frames = self.sparse_frames
+            if self._dense_fill is not None and bool(self.overflowed.any()):
+                s, n, h, w = self.holes.shape
+                dense = self._dense_fill().reshape(s, n, h, w, 3)
+                pick = (self.overflowed[:, None, None, None, None]
+                        & self.holes[..., None])
+                frames = torch.where(pick, dense, frames)
+            self._frames, self._dense_fill = frames, None
+        return self._frames
+
+
+class StreamingTickResult(DeferredFrames):
     """One fused tick's outputs plus the reference it hands to the next
     tick (tick ``t`` warps the reference tick ``t-1``'s sweep rendered and
-    renders tick ``t+1``'s in its own sweep)."""
+    renders tick ``t+1``'s in its own sweep): ``hole_counts`` [S, N] true
+    (uncapped) hole counts, ``fine_counts`` the same (the fused tick has
+    no adaptive split), ``next_rgb_ref`` [S, H, W, 3] and ``next_dep_ref``
+    [S, H, W]; the frames as in :class:`DeferredFrames`."""
 
-    frames: torch.Tensor  # [S, N, H, W, 3]
-    hole_counts: torch.Tensor  # [S, N] true (uncapped) hole counts
-    overflowed: torch.Tensor  # [S] bool — per-session dense-fallback flag
-    fine_counts: torch.Tensor  # [S, N] (== hole_counts: the fused tick has
-    #                            no adaptive split)
-    next_rgb_ref: torch.Tensor  # [S, H, W, 3] — tick t+1's references
-    next_dep_ref: torch.Tensor  # [S, H, W]
+    def __init__(self, sparse_frames: torch.Tensor, holes: torch.Tensor,
+                 hole_counts: torch.Tensor, overflowed: torch.Tensor,
+                 next_rgb_ref: torch.Tensor, next_dep_ref: torch.Tensor,
+                 dense_fill: Optional[Callable[[], torch.Tensor]] = None):
+        super().__init__(sparse_frames, holes, overflowed, dense_fill)
+        self.hole_counts = hole_counts
+        self.fine_counts = hole_counts
+        self.next_rgb_ref = next_rgb_ref
+        self.next_dep_ref = next_dep_ref
 
 
 def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
@@ -109,8 +153,7 @@ def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
                           next_ref_poses: torch.Tensor,
                           win_lens: torch.Tensor, caps: torch.Tensor,
                           pool_caps: torch.Tensor, bucket: int,
-                          ref_cap_factor: int = 2,
-                          dense_fill: Optional[Callable] = None
+                          ref_cap_factor: int = 2
                           ) -> StreamingTickResult:
     """The unified streaming tick: warp -> pooled compaction -> ONE fused
     gather (kernel B3; B5 when ``params`` carry a ``scene_of_seg`` map
@@ -120,9 +163,9 @@ def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
     ``rgb_ref``/``dep_ref`` (posed at ``ref_poses``) were rendered by the
     previous tick or by ``DeviceSparwEngine.prime_reference``. ``bucket``
     is the pooled hole capacity; ``win_lens``/``caps``/``pool_caps`` [S]
-    mean what they mean on the staged path. ``dense_fill`` (``tgt_poses
-    -> [S, N, HW, 3]``) is the per-session overflow fallback; it runs only
-    when a session overflowed (one host sync per tick).
+    mean what they mean on the staged path. Nothing is read back: the
+    result carries ``overflowed`` and the hole masks, and no dense
+    fallback (``DeviceSparwEngine`` attaches one).
     """
     s, n = tgt_poses.shape[:2]
     h, w = cam.height, cam.width
@@ -173,14 +216,10 @@ def render_tick_streaming(model, params: dict, cam: rays.Camera, *,
              < totals[:, None]).reshape(-1)
     fill = scatter_segments(fill_col, flat_addr, valid,
                             s * n * hw).reshape(s, n, hw, 3)
-    overflowed = frame_over | (totals > pool_caps)
-    if dense_fill is not None and bool(overflowed.any()):
-        fill = torch.where(overflowed[:, None, None, None],
-                           dense_fill(tgt_poses), fill)
     frames = torch.where(holes[..., None], fill,
                          warped.rgb.reshape(s, n, hw, 3))
-    return StreamingTickResult(frames.reshape(s, n, h, w, 3), counts,
-                               overflowed, counts,
+    return StreamingTickResult(frames.reshape(s, n, h, w, 3), warped.holes,
+                               counts, frame_over | (totals > pool_caps),
                                ref_col.reshape(s, h, w, 3),
                                ref_dep.reshape(s, h, w))
 

@@ -162,8 +162,11 @@ def build_rit(mv: torch.Tensor, cfg: StreamingCfg,
     s = mv.shape[0]
     dev = mv.device
     mv_sorted, order = torch.sort(mv, stable=True)
+    # each bucket's first position in the sorted ids, and the end of the
+    # last; their differences are the counts (``torch.bincount`` would
+    # read the ids' range back to the host)
     starts = torch.searchsorted(mv_sorted,
-                                torch.arange(n_slots, device=dev,
+                                torch.arange(n_slots + 1, device=dev,
                                              dtype=mv.dtype))
     rank = torch.arange(s, device=dev) \
         - starts[torch.clamp(mv_sorted, max=n_slots - 1)]
@@ -173,8 +176,7 @@ def build_rit(mv: torch.Tensor, cfg: StreamingCfg,
     dump = n_slots * cap  # one extra row takes every dropped write
     flat = torch.full((dump + 1,), -1, dtype=torch.int64, device=dev)
     flat[torch.where(keep, slot, dump)] = order
-    counts = torch.bincount(torch.clamp(mv, max=n_slots),
-                            minlength=n_slots + 1)[:n_slots]
+    counts = starts[1:] - starts[:-1]
     overflow = torch.zeros(s, dtype=torch.bool, device=dev)
     overflow[order] = ~keep & in_range
     return RIT(flat[:dump].reshape(n_slots, cap),

@@ -7,15 +7,21 @@ built when a module is imported: :meth:`CudaKernel.lib` builds at the first
 launch, and :func:`build_all` starts one ``nvcc`` per source in parallel
 (what ``chip_smoke.py`` does up front). A library is rebuilt when its
 source is newer.
+
+A launch recorded into a CUDA graph runs at each replay, not at capture:
+:func:`launch_snapshot`, :func:`launches_since` and :func:`add_launches`
+let the graph's owner (``core.engine.TickProgram``) take the counts a
+capture recorded back out and add them again at every replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -24,6 +30,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_KERNELS: List["CudaKernel"] = []  # every kernel, for launch accounting
+# objects a graph being captured reads by address; its owner keeps them
+_KEEP_ALIVE: Optional[list] = None
 
 
 def nvcc() -> str:
@@ -46,7 +55,9 @@ class CudaKernel:
     int, ``f`` for a float. Every entry returns ``cudaGetLastError()``
     after its launch.
     ``launches`` is incremented by the wrapper at each kernel launch and
-    nowhere else, so a run can show that it went through the kernel;
+    nowhere else (a launch captured into a CUDA graph counts at each
+    replay instead, see the module docstring), so a run can show that it
+    went through the kernel;
     ``entry_launches`` counts the launches of each entry point (a source
     with several kernels has one entry per kernel and dtype).
     """
@@ -56,6 +67,7 @@ class CudaKernel:
         self.entries = entries
         self._lib = None
         self.reset()
+        _KERNELS.append(self)
 
     def reset(self) -> None:
         """Set every launch count to 0."""
@@ -97,6 +109,49 @@ class CudaKernel:
                                "launch")
         self.launches += 1
         self.entry_launches[entry] += 1
+
+
+LaunchCounts = List[Tuple[CudaKernel, int, Dict[str, int]]]
+
+
+def launch_snapshot() -> LaunchCounts:
+    """Every kernel's launch counts now."""
+    return [(k, k.launches, dict(k.entry_launches)) for k in _KERNELS]
+
+
+def launches_since(snapshot: LaunchCounts) -> LaunchCounts:
+    """The launches each kernel counted after ``snapshot``."""
+    return [(k, k.launches - n, {e: k.entry_launches[e] - m
+                                 for e, m in per.items()})
+            for k, n, per in snapshot if k.launches != n]
+
+
+def add_launches(delta: LaunchCounts, sign: int = 1) -> None:
+    """Add (``sign`` -1: take back) the launches of ``delta``."""
+    for k, n, per in delta:
+        k.launches += sign * n
+        for e, m in per.items():
+            k.entry_launches[e] += sign * m
+
+
+def keep_alive(obj) -> None:
+    """Hold ``obj`` for the life of the CUDA graph being captured, if one
+    is: the graph reads its tensors by address, and a cache may drop
+    them."""
+    if _KEEP_ALIVE is not None:
+        _KEEP_ALIVE.append(obj)
+
+
+@contextlib.contextmanager
+def kept_alive() -> Iterator[list]:
+    """Collect what :func:`keep_alive` is handed inside the block (around
+    a capture) into the list it yields."""
+    global _KEEP_ALIVE
+    prev, _KEEP_ALIVE = _KEEP_ALIVE, []
+    try:
+        yield _KEEP_ALIVE
+    finally:
+        _KEEP_ALIVE = prev
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[CudaKernel]:

@@ -25,7 +25,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core.scene_cache import ParamsToken, SceneCache
-from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels._build import CudaKernel, keep_alive
 from repro_torch.nerf.mlp import softplus
 
 KERNEL = CudaKernel("fused_nerf_mlp",
@@ -182,7 +182,9 @@ def fused_nerf_mlp(feats, direnc, w1, b1, w2, b2, w_sigma, w_rgb,
     with torch.cuda.device(feats.device):
         if plan.mode == "tensor":
             if plan.width != h:
-                args = args[:2] + padded(args[2:8], plan.width) + args[8:]
+                pad = padded(args[2:8], plan.width)
+                keep_alive(pad)  # a captured graph reads it by address
+                args = args[:2] + pad + args[8:]
             KERNEL.call("fused_nerf_mlp_f32", *(t.data_ptr() for t in args),
                         out.data_ptr(), s, c, plan.width, dd, plan.smem,
                         stream)

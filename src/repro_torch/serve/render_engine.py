@@ -37,9 +37,16 @@ session (chosen by a :mod:`~repro_torch.serve.policies` policy).
   stream order, so this engine must not move work to a second stream.
 
 :meth:`RenderServeEngine.step` dispatches; frames and hole statistics are
-read back in :meth:`RenderServeEngine.finalize`. Unlike the reference's
-XLA program, a tick here syncs the host once, to decide whether any
-session overflowed into the dense fallback. Not ported: session sharding.
+read back in :meth:`RenderServeEngine.finalize`, which also runs the dense
+fallback for a session that overflowed (its frames are resolved there,
+:class:`~repro_torch.core.raybatch.DeferredFrames`). A steady tick (no
+admission, no page upload) reads nothing back and issues no synchronizing
+call: every tensor the tick reads lives at a fixed address and is
+rewritten in place, its poses go up in one non-blocking copy from a ring
+of pinned host buffers, and on the card the engine call is one CUDA-graph
+replay. The reference holds its poses on the device and transfers
+nothing; the port makes that one asynchronous upload per tick. Not
+ported: session sharding.
 """
 from __future__ import annotations
 
@@ -136,6 +143,8 @@ class RenderServeEngine:
     ``"table"``) sessions may name their scene (see the module docstring).
     """
 
+    POSE_RING = 3  # host pose buffers: run() keeps 2 ticks in flight
+
     def __init__(self, model, params: dict, *, config: RenderConfig,
                  policy: Union[None, str, SchedulingPolicy] = None,
                  scene_loader: Optional[Callable[[str], object]] = None):
@@ -155,15 +164,23 @@ class RenderServeEngine:
         self._occupancy_log: List[int] = []
         # idle slots render a self-warp (reference == target: no holes)
         self._idle_pose = torch.eye(4)
-        # per-slot (window, cap, pool cap, coarse pool cap) signature and
-        # its device arrays, rebuilt only when admission, draining or a
-        # ladder step changes it
+        # the engine's fixed-address tick inputs at [num_slots, window]:
+        # the per-slot (window, cap, pool cap, coarse pool cap) signature
+        # is rewritten into them only when admission, draining or a ladder
+        # step changes it; the poses arrive through a ring of host buffers
+        # (pinned on the card), one copy a tick, a buffer reused only once
+        # its copy has run
+        self._inputs = self.engine.tick_inputs(self.num_slots, self.window)
+        self._win_lens = self._inputs["win_lens"]
+        self._caps = self._inputs["caps"]
+        self._pool_caps = self._inputs["pool_caps"]
+        self._pool_caps_c = self._inputs["pool_caps_coarse"]
+        pinned = self.device.type == "cuda"
+        self._pose_ring = [
+            [torch.empty(self._inputs["poses"].shape, pin_memory=pinned),
+             None] for _ in range(self.POSE_RING)]
         self._slot_sig: Optional[Tuple[Tuple[int, int, int, int],
                                        ...]] = None
-        self._win_lens: Optional[torch.Tensor] = None
-        self._caps: Optional[torch.Tensor] = None
-        self._pool_caps: Optional[torch.Tensor] = None
-        self._pool_caps_c: Optional[torch.Tensor] = None
         self._tick_bucket = 0
         self._tick_bucket_c = 0
         # deferred readback: (assignments, result, (bucket, bucket_coarse))
@@ -173,11 +190,11 @@ class RenderServeEngine:
         self._last_result = None
         self._last_event = None  # marks the end of the last tick's work
         self._pool_log: List[dict] = []
-        # fused tick: row s of _rgb_ref/_dep_ref is the reference the next
-        # tick warps for slot s
+        # fused tick: row s of _rgb_ref/_dep_ref (the engine's recurrence)
+        # is the reference the next tick warps for slot s
         self.fused = self.engine.fused_tick
-        self._rgb_ref: Optional[torch.Tensor] = None
-        self._dep_ref: Optional[torch.Tensor] = None
+        self._rgb_ref, self._dep_ref = self.engine.recurrence(self.num_slots)
+        self._primed = False
         self._num_admission_ticks = 0
         # multi-scene paging: scene name -> page index, LRU under the byte
         # budget; the stacked [K, ...] tensors are the page storage
@@ -191,8 +208,7 @@ class RenderServeEngine:
                     "scene->segment map rides the flat batch's seg axis")
             base = dict(self.engine.params)
             self._default_table = base.pop("table")
-            self._default_mv = base.pop("mv_table")
-            self._base_params = base  # decoder etc., shared by all scenes
+            self._default_mv = base.pop("mv_table")  # base: the decoder
             k = self.num_slots
             self._table_stack = self._default_table.new_zeros(
                 (k,) + tuple(self._default_table.shape))
@@ -203,10 +219,14 @@ class RenderServeEngine:
                 budget_bytes=config.scene_cache_bytes, max_entries=k)
             self._num_uploads = 0
             self._uploaded_bytes = 0
-            # the staged slot->page map, re-uploaded only when it changes
+            # the slot->page map, rewritten in place only when it changes;
+            # the engine renders from the stacked pages from now on
             self._scene_sig: Optional[Tuple[int, ...]] = None
             self._scene_of_seg = torch.zeros((k,), dtype=torch.int32,
                                              device=self.device)
+            self.engine.params = dict(
+                base, table=self._table_stack, mv_table=self._mv_stack,
+                scene_of_seg=self._scene_of_seg)
 
     # ------------------------------------------------------------------
     def _effective(self, sess: RenderSession) -> Tuple[int, int]:
@@ -271,6 +291,8 @@ class RenderServeEngine:
                     "slot (more distinct scenes in flight than num_slots "
                     "pages — should be unreachable, slots == pages)")
         page = self._free_pages.pop()
+        # a pending tick's fallback may read the page about to be rewritten
+        self._resolve_pending()
         if skey is None:
             table, mv = self._default_table, self._default_mv
         else:
@@ -298,19 +320,22 @@ class RenderServeEngine:
                                            pinned=pinned))
         return page
 
+    def _resolve_pending(self) -> None:
+        """Run the dense fallback of every pending tick that needs one
+        (reads each tick's ``overflowed`` back)."""
+        for _assignments, res, _buckets in self._pending:
+            res.frames
+
     def _stage_scene_map(self) -> None:
-        """Re-upload the slot->page map iff it changed (admit, drain,
-        repage), then point the device engine at the stacked params; a
-        steady-state tick uploads nothing and reads nothing back."""
+        """Rewrite the slot->page map in place iff it changed (admit,
+        drain, repage), without a host sync; a steady-state tick uploads
+        nothing and reads nothing back."""
         sig = tuple(slot.page if slot is not None else 0
                     for slot in self.slots)
         if sig != self._scene_sig:
             self._scene_sig = sig
-            self._scene_of_seg = torch.tensor(sig, dtype=torch.int32,
-                                              device=self.device)
-        self.engine.params = dict(
-            self._base_params, table=self._table_stack,
-            mv_table=self._mv_stack, scene_of_seg=self._scene_of_seg)
+            self.engine.stage(self._scene_of_seg,
+                              torch.tensor(sig, dtype=torch.int32))
 
     def submit(self, sessions: List[RenderSession]) -> None:
         """Queue sessions for admission. The whole batch is validated
@@ -390,24 +415,24 @@ class RenderServeEngine:
         their first reference pose, the others at the idle pose, their
         output discarded), substituted row by row. The first call primes
         every row over a zero recurrence."""
-        first = self._rgb_ref is None
+        first = not self._primed
         if not newly and not first:
             return
         if first:
-            h, w = self.engine.cam.height, self.engine.cam.width
-            self._rgb_ref = torch.zeros((self.num_slots, h, w, 3),
-                                        device=self.device)
-            self._dep_ref = torch.zeros((self.num_slots, h, w),
-                                        device=self.device)
+            self._rgb_ref.zero_()
+            self._dep_ref.zero_()
+            self._primed = True
             mask = [True] * self.num_slots
         else:
             mask = [s in newly for s in range(self.num_slots)]
         poses = [self.slots[s].ref_pose
                  if mask[s] and self.slots[s] is not None
                  else self._idle_pose for s in range(self.num_slots)]
-        self._rgb_ref, self._dep_ref = self.engine.prime_reference_select(
-            torch.stack(poses), torch.tensor(mask), self._rgb_ref,
+        rgb, dep = self.engine.prime_reference_select(
+            self._stack(poses), torch.tensor(mask), self._rgb_ref,
             self._dep_ref)
+        self._rgb_ref.copy_(rgb)
+        self._dep_ref.copy_(dep)
         self._num_admission_ticks += 1
 
     def _stage_slot_masks(self) -> None:
@@ -430,17 +455,32 @@ class RenderServeEngine:
         sig = tuple(sig)
         if sig != self._slot_sig:
             self._slot_sig = sig
-            dev = self.device
-            self._win_lens = torch.tensor([e[0] for e in sig], device=dev)
-            self._caps = torch.tensor([e[1] for e in sig], device=dev)
-            self._pool_caps = torch.tensor([e[2] for e in sig], device=dev)
-            self._pool_caps_c = torch.tensor([e[3] for e in sig], device=dev)
+            cols = torch.tensor(sig).T  # [4, num_slots]
+            for buf, col in zip((self._win_lens, self._caps, self._pool_caps,
+                                 self._pool_caps_c), cols):
+                self.engine.stage(buf, col)
             self._tick_bucket = max(e[2] for e in sig)
             self._tick_bucket_c = max(e[3] for e in sig)
 
     def _stack(self, poses: List[torch.Tensor]) -> torch.Tensor:
         """Host-side pose batch (the engine moves it to the device)."""
         return torch.stack([p.to(self._idle_pose.device) for p in poses])
+
+    def _upload_poses(self, rows: List[List[torch.Tensor]]) -> None:
+        """Write the tick's poses ([num_slots] rows of reference, window
+        targets, next reference) into the next ring buffer and copy it to
+        the engine's pose input in one non-blocking copy. A buffer is
+        rewritten only once its last copy has run (under :meth:`run` it
+        has: its tick finished two ticks ago)."""
+        slot = self._pose_ring[self.num_ticks % self.POSE_RING]
+        host, done = slot
+        if done is not None and not done.query():
+            done.synchronize()
+        host.copy_(torch.stack([self._stack(r) for r in rows]))
+        self._inputs["poses"].copy_(host, non_blocking=True)
+        if self.device.type == "cuda":
+            slot[1] = torch.cuda.Event()
+            slot[1].record()
 
     def step(self) -> bool:
         """One tick: admit queued sessions into free slots, then one
@@ -464,13 +504,13 @@ class RenderServeEngine:
         if self.fused:
             self._prime_admitted(newly)
 
-        ref_poses, tgt_poses, next_refs, assignments = [], [], [], []
+        # each slot's row: reference, window targets, next reference
+        rows, assignments = [], []
+        idle = self._idle_pose
         for s in range(self.num_slots):
             slot = self.slots[s]
             if slot is None:
-                ref_poses.append(self._idle_pose)
-                tgt_poses.append([self._idle_pose] * self.window)
-                next_refs.append(self._idle_pose)
+                rows.append([idle] * (self.window + 2))
                 assignments.append(None)
                 continue
             sess = slot.session
@@ -478,39 +518,37 @@ class RenderServeEngine:
                               min(slot.cursor + slot.window,
                                   len(sess.poses))))
             win = [sess.poses[i] for i in idxs]
-            if self.fused:
-                ref_poses.append(slot.ref_pose)
-            else:
-                ref_poses.append(slot.extrapolator.next_reference(win))
+            ref = (slot.ref_pose if self.fused
+                   else slot.extrapolator.next_reference(win))
             # pad short windows with the last real pose; win_lens keeps the
             # pads out of the overflow decision, finalize drops them
-            tgt_poses.append(win + [win[-1]] * (self.window - len(win)))
+            row = [ref] + win + [win[-1]] * (self.window - len(win))
             assignments.append((sess, idxs, slot.ctl, slot.ctl_c))
             sess.stats.reference_renders += 1
             slot.cursor += len(idxs)
             if slot.cursor >= len(sess.poses):
-                next_refs.append(self._idle_pose)
+                row.append(idle)
                 self.slots[s] = None
             elif self.fused:
                 nxt = range(slot.cursor,
                             min(slot.cursor + slot.window, len(sess.poses)))
                 slot.ref_pose = slot.extrapolator.next_reference(
                     [sess.poses[i] for i in nxt])
-                next_refs.append(slot.ref_pose)
+                row.append(slot.ref_pose)
             else:
-                next_refs.append(self._idle_pose)
+                row.append(idle)
+            rows.append(row)
 
-        tgt = torch.stack([self._stack(t) for t in tgt_poses])
+        self._upload_poses(rows)
+        b = self._inputs
         if self.fused:
             result = self.engine.render_windows_streaming(
-                self._rgb_ref, self._dep_ref, self._stack(ref_poses), tgt,
-                self._stack(next_refs), self._win_lens, self._caps,
+                self._rgb_ref, self._dep_ref, b["ref_poses"], b["tgt_poses"],
+                b["next_ref_poses"], self._win_lens, self._caps,
                 pool_caps=self._pool_caps, bucket=self._tick_bucket)
-            self._rgb_ref = result.next_rgb_ref
-            self._dep_ref = result.next_dep_ref
         else:
             result = self.engine.render_windows(
-                self._stack(ref_poses), tgt, self._win_lens, self._caps,
+                b["ref_poses"], b["tgt_poses"], self._win_lens, self._caps,
                 pool_caps=self._pool_caps, pool_caps_coarse=self._pool_caps_c,
                 bucket=self._tick_bucket, bucket_coarse=self._tick_bucket_c)
         self._pending.append((assignments, result,
