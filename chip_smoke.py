@@ -57,7 +57,12 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    through the prefill kernel instead; and (phase C5) B2 at S = 131,072 on
    the widths fault C5 made raise, [C, H] = [8, 48] and [8, 96] (padded to
    the 64- and 128-wide templates) and [8, 160] and [96, 128] (the
-   run-time-H mode), biases drawn non-zero. Tolerances are the reference's
+   run-time-H mode), biases drawn non-zero; and (arm I's shapes, on one
+   real reference chunk of 2048 rays x 192 samples and each model's own
+   random weights) B1 at ``cicero-dvgo``'s block [8000, 729, 12] with
+   that chunk's ids [8000, 512, 8], bit for bit, and B2 at S = 131,072
+   with [C, H] = [12, 64] (DVGO), [16, 64] (NGP) and [27, 64] (TensoRF,
+   the first C that is not a multiple of 8). Tolerances are the reference's
    kernel tolerances: atol 2e-5 / rtol 1e-5 (float32; attention 2e-5 /
    1e-4), 3e-2 (bfloat16; attention atol 8e-3 / rtol 1e-2, a few bfloat16
    steps at the outputs' scale);
@@ -119,6 +124,21 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    (``engine="host", mode="temporal"``) and DS-2 (``render_ds2``), each
    >= 40 dB from the CPU run (host loop and TEMP-16 with equal stats),
    with its mean PSNR against the full render and its warm wall.
+   Arm I: the paper's three configs (``configs.cicero_nerf``) at their
+   published widths on the streaming backend: ``cicero-dvgo`` (grid 160,
+   12 channels), ``cicero-ngp`` (8 hash levels of 2^19 x 2, res 16-1024)
+   and ``cicero-tensorf`` (grid 300, rank 48, 27 channels), hidden 64,
+   192 samples, ``NerfModel.init`` weights from a ``torch.Generator``
+   seeded 0; ``RenderConfig(res=64, window=16)``, 16 frames of the "lego"
+   orbit, staged, each rendered cold, again and warm. ``cicero-ngp`` and
+   ``cicero-tensorf`` are held against the port's CPU run of the same
+   window, ``cicero-dvgo`` against the card's own ``backend="reference"``
+   render of the same poses (the CPU cannot hold its plain B1): >= 40
+   dB, equal ``RenderStats`` (hole counts); B2 launched by all three, B1
+   by the dense grid only. Its oracle sub-arm is the fig. 26 setup
+   (``CiceroRenderer(oracle, {}, ...)`` on "materials" with
+   ``specular=0.6``, res 48, window 4, 8 frames 4 degrees apart,
+   ``phi_deg=4``), card against CPU.
    Where the card and CPU runs part (``c2_tables``): each of the six
    tables the loader bakes, on the card against its CPU bake, and the
    fleet served on the card from the CPU's bakes against the CPU run.
@@ -142,7 +162,9 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    every tick that admits nothing runs under the sync error mode, with
    no new key and no capture (arm E: across its scene churn); then one
    of arm E's paged keys is replayed (under the sync error mode) against
-   the same call with the engine's graphs off. The spies of
+   the same call with the engine's graphs off; then arm I's
+   ``cicero-ngp`` and ``cicero-tensorf`` keys (captures = keys after the
+   arm's warm renders) likewise. The spies of
    the kernel checks and of C2 turn their engine's graphs off: they must
    see, or read back, every call.
    Arm F: LM serving, ``repro_torch.serve.ServeEngine`` on qwen2.5-32b at
@@ -171,9 +193,9 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    on the CPU: equal token streams and stats, prefill logits within
    1e-3; it runs B6's float32 kernels (tile prefill, split-KV decode);
 5. time each kernel and its plain version at the arms' shapes (B2 also
-   at the four C5 shapes; B1 also
-   on arm A's ``bank_interleaved`` table; B3 also at the two float32
-   blocks read in place; B4 also
+   at the four C5 shapes and arm I's three widths; B1 also on arm A's
+   ``bank_interleaved`` table and arm I's ``cicero-dvgo`` block; B3 also
+   at the two float32 blocks read in place; B4 also
    at the shape of arm E's staged per-scene fill, captured in a spied
    rerun of its staged fleet; B4 and B5 also on 40-channel pages, read
    in place; B2 also beside its 3xTF32 tensor-core
@@ -641,6 +663,148 @@ def arm_b_params(seed: int = 0, hidden: int = 64) -> dict:
                         "w_sigma": normal(h, 1),
                         "w_rgb": normal(h + 9, 3), "b_rgb": f32(np.zeros(3))}}
 
+# Arm I: the paper's three NeRF configs (configs.cicero_nerf) at their
+# published widths, random weights, 16 frames at res 64 (window 16), staged
+ARM_I_CONFIGS = ("cicero-dvgo", "cicero-ngp", "cicero-tensorf")
+ARM_I_FRAMES = 16
+# the fig. 26 setup: the oracle on the specular "materials" scene
+ARM_I_ORACLE = dict(scene="materials", specular=0.6, res=48, window=4,
+                    frames=8, step_deg=4.0, phi_deg=4.0, num_samples=32)
+
+
+def arm_i_model(name: str, device, configs=None):
+    """Config ``name`` (``configs.cicero_nerf.NERF_CONFIGS`` unless
+    ``configs`` is given) on the streaming backend, with ``NerfModel.init``
+    weights from a ``torch.Generator`` seeded 0 on ``device``."""
+    import torch
+    from repro_torch.configs.cicero_nerf import NERF_CONFIGS
+    from repro_torch.nerf import models
+
+    cfg = (configs or NERF_CONFIGS)[name]
+    model = models.NerfModel(dataclasses.replace(cfg, backend="streaming"))
+    gen = torch.Generator(device=device).manual_seed(0)
+    return model, model.init(gen, device=device)
+
+
+def run_arm_i(models_params: dict, reset, counts, profile, *, res: int = 64,
+              window: int = 16, n_frames: int = ARM_I_FRAMES) -> tuple:
+    """Arm I: each ``(model, params)`` of ``models_params`` rendered cold,
+    again (capturing its tick program) and warm through
+    ``make_renderer(...).render``, then profiled. ``ngp`` and ``tensorf``
+    are held against the port's CPU run of the same window; ``dvgo``
+    against the card's own ``backend="reference"`` render of the same
+    poses (the CPU cannot hold its plain B1: 8,000 MVoxels x 512 rows x 8
+    corners x 12 channels, ~1.6 GB a chunk). Each: >= 40 dB worst frame and
+    equal ``RenderStats`` (hole counts). Returns (rows, warm renderers)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core.config import RenderConfig, RenderRequest
+    from repro_torch.core.pipeline import orbit_trajectory
+    from repro_torch.kernels import fused_nerf_mlp as mlp_k
+    from repro_torch.kernels import gather_trilerp as gt_k
+    from repro_torch.nerf import models
+    from repro_torch.utils import psnr
+
+    cfg = RenderConfig(res=res, window=window, backend="streaming")
+    req = RenderRequest(poses=tuple(orbit_trajectory(n_frames)))
+    rows, warm_renderers = {}, {}
+    for name, (model, params) in models_params.items():
+        gpu = api.make_renderer(cfg, model=model, params=params)
+        reset()
+        cold = gpu.render(req)
+        launches = counts()
+        gpu.render(req)  # captures the tick program the cold run met once
+        warm = gpu.render(req)
+        prof = profile(lambda: gpu.render(req))
+        if model.cfg.kind == "dvgo":
+            against = "the card's backend='reference' render"
+            ref_model = models.NerfModel(dataclasses.replace(
+                model.cfg, backend="reference"))
+            t0 = time.perf_counter()
+            other = api.make_renderer(cfg, model=ref_model,
+                                      params=params).render(req)
+        else:
+            against = "the CPU run"
+            cpu_params = api._to_device(params, torch.device("cpu"))
+            t0 = time.perf_counter()
+            other = api.make_renderer(cfg, model=model, params=cpu_params,
+                                      device="cpu").render(req)
+        other_s = time.perf_counter() - t0
+        frames = [f.cpu() for f in cold.frames]
+        for f in frames:
+            if f.shape != (res, res, 3) or not torch.isfinite(f).all():
+                fail(f"arm I {name}: a frame is not finite [{res}]^2 x 3")
+        worst = min(float(psnr(f, o.cpu()))
+                    for f, o in zip(frames, other.frames))
+        if worst < 40.0:
+            fail(f"arm I {name}: a frame is {worst:.2f} dB from {against}")
+        sg, so = dataclasses.asdict(cold.stats), dataclasses.asdict(
+            other.stats)
+        if sg != so or cold.stats.frames != n_frames:
+            fail(f"arm I {name}: stats differ from {against} ({sg} vs "
+                 f"{so})")
+        b1, b2 = launches[gt_k.KERNEL.name], launches[mlp_k.KERNEL.name]
+        if b2 == 0 or (b1 > 0) != (model.cfg.kind == "dvgo"):
+            fail(f"arm I {name}: B1 launched {b1} times, B2 {b2} (B2 must "
+                 "run; B1 for the dense grid only)")
+        c = model.cfg
+        rows[name] = {
+            "kind": c.kind, "feat_channels": c.feat_channels,
+            "mlp_hidden": c.mlp_hidden, "num_samples": c.num_samples,
+            "feature_table_bytes": c.feature_table_bytes(),
+            "frames": n_frames, "res": res, "window": window,
+            "ticks": -(-n_frames // window), "launches": launches,
+            "profile": prof, "checked_against": against,
+            "min_psnr_db": worst, "check_wall_s": other_s,
+            "reference_renders": cold.stats.reference_renders,
+            "sparse_pixels": cold.stats.sparse_pixels,
+            "fallback_pixels": cold.stats.fallback_pixels,
+            "hole_counts": [round(h * res * res)
+                            for h in cold.stats.hole_fractions],
+            "cold_wall_s": cold.wall_s, "warm_wall_s": warm.wall_s,
+            "warm_fps": warm.fps}
+        warm_renderers[name] = gpu
+    return rows, warm_renderers
+
+
+def run_arm_i_oracle() -> dict:
+    """Arm I's oracle: ``CiceroRenderer(oracle, {}, config=...)`` at the
+    fig. 26 setup on the card (the config names no device) against the
+    same on the CPU: >= 40 dB worst frame, equal ``RenderStats``."""
+    import torch
+    from repro_torch.core.config import RenderConfig
+    from repro_torch.core.pipeline import CiceroRenderer, orbit_trajectory
+    from repro_torch.nerf import models, scenes
+    from repro_torch.utils import psnr
+
+    o = ARM_I_ORACLE
+    model, _ = models.make_model(
+        "oracle", scene=scenes.make_scene(o["scene"],
+                                          specular=o["specular"]),
+        num_samples=o["num_samples"])
+    cfg = RenderConfig(res=o["res"], window=o["window"], phi_deg=o["phi_deg"])
+    traj = orbit_trajectory(o["frames"], step_deg=o["step_deg"])
+    card = CiceroRenderer(model, {}, config=cfg)
+    t0 = time.perf_counter()
+    frames, stats = card.render_trajectory(traj)
+    if card.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu_frames, cpu_stats = CiceroRenderer(
+        model, {}, config=cfg.replace(device="cpu")).render_trajectory(traj)
+    worst = min(float(psnr(f.cpu(), c)) for f, c in zip(frames, cpu_frames))
+    if worst < 40.0:
+        fail(f"arm I oracle: a frame is {worst:.2f} dB from the CPU run")
+    if dataclasses.asdict(stats) != dataclasses.asdict(cpu_stats):
+        fail(f"arm I oracle: stats differ from the CPU run ({stats} vs "
+             f"{cpu_stats})")
+    return {"setup": o, "device": str(card.device), "min_psnr_db": worst,
+            "sparse_pixels": stats.sparse_pixels,
+            "fallback_pixels": stats.fallback_pixels,
+            "mean_hole_fraction": stats.mean_hole_fraction,
+            "wall_s": wall}
+
+
 # Arm F: LM serving at qwen2.5-32b's full width, depth cut to 16 of 64
 # layers, random weights; 8 requests on 4 slots.
 LM_ARCH = "qwen2.5-32b"
@@ -982,6 +1146,7 @@ def main() -> int:
                          channels=8, num_samples=64)
     cfg_d = cfg_b.replace(fused_tick=True, num_slots=4)
     cfg_e = cfg_c.replace(num_slots=4)
+    arm_i_models = {n: arm_i_model(n, dev) for n in ARM_I_CONFIGS}
 
     def scene_loader(device):
         return lambda name: scenes.bake_dense_table(
@@ -1140,6 +1305,32 @@ def main() -> int:
             ["tensor", "tensor", "runtime", "runtime"]:
         fail(f"B2 C5 routes: {[c5[k]['plan'] for k in C5_SHAPES]}")
     errs["B2"] = max(errs["B2"], errs["B2_C5"])
+    # arm I: the paper's configs at full width on one real reference chunk
+    # (2048 rays x 192 samples): B1 at cicero-dvgo's block [8000, 729, 12]
+    # with that chunk's ids, B2 at C = 12, 16 (NGP) and 27 (TensoRF), H = 64
+    # on its first 131,072 samples, on each model's own weights
+    pts_i, dirs_i = chunk_points(poses[:1], 192)
+    b2_i = {}
+    for name, (model, params) in arm_i_models.items():
+        prepared = model.prepare_streaming(params)
+        if model.cfg.kind == "dvgo":
+            blocks = ops.rit_blocks(pts_i, model.streaming_cfg)
+            shapes["B1_I"] = (prepared["mv_table"], blocks.ids,
+                              blocks.weights)
+            b1_check(f"arm-I {name}", *shapes["B1_I"], 1)
+        feats = model.query_features(prepared, pts_i[:C5_ROWS])
+        dec = prepared["decoder"]
+        a = (feats, mlp._dir_enc(dirs_i[:C5_ROWS]), dec["w1"], dec["b1"],
+             dec["w2"], dec["b2"], dec["w_sigma"], dec["w_rgb"],
+             dec["b_rgb"])
+        b2_i[name] = a
+        errs["B2"] = max(errs["B2"], check_close(
+            f"B2 arm-I {name} C={feats.shape[1]} H={dec['w1'].shape[1]} "
+            f"S={feats.shape[0]}", mlp_k.fused_nerf_mlp(*a),
+            mlp_k.fused_nerf_mlp_plain(*a), F32_TOL))
+    print(f"B1 bit-equal at arm I's cicero-dvgo block: {b1_bit_equal}")
+    if not b1_bit_equal:
+        fail("B1 differs from its plain version at arm I's block")
     # B3 at arm D's shape: a 4-session fused tick of arm B's model
     eng_d = DeviceSparwEngine(model_b, params_b, config=cfg_d)
     (tbl, ih, wh, ir, wr), ns = capture_b3_inputs(eng_d, 4)
@@ -2350,6 +2541,14 @@ def main() -> int:
     phase_done("arm G")
     arms["H"] = run_baselines_arm(cfg_a, 32)
     phase_done("arm H")
+    rows_i, renderers_i = run_arm_i(arm_i_models, reset, counts, profile_run)
+    for name, row in rows_i.items():
+        arms[f"I {name}"] = row
+        warm_render[f"I {name}"] = renderers_i[name]
+    reset()
+    arms["I oracle"] = run_arm_i_oracle()
+    arms["I oracle"]["launches"] = counts()
+    phase_done("arm I")
 
     # S. the steady tick: graph replays bit-equal to eager on the same
     # inputs and free of synchronizing calls, captures one per key
@@ -2466,6 +2665,18 @@ def main() -> int:
             serve.engine, 4, fused, bucket=key[3],
             **({} if fused else {"bucket_coarse": key[4]})))
         steady["replay"][label] = {"key": list(key)}
+    # arm I's hash and VM grids: their staged key, captured by the arm's
+    # warm renders, replayed against eager
+    for name in ("cicero-ngp", "cicero-tensorf"):
+        label = f"I {name}"
+        eng = warm_render[label].pipeline.device_engine
+        if eng.num_captures != len(eng.tick_programs):
+            fail(f"phase S {label}: {eng.num_captures} captures for "
+                 f"{len(eng.tick_programs)} keys")
+        warm_replay_check(label, eng, engine_call(eng, 1, False))
+        steady["replay"][label] = {
+            "key": list(next(iter(eng.tick_programs))),
+            "keys": len(eng.tick_programs), "captures": eng.num_captures}
     for part, rows in steady.items():
         for label, row in rows.items():
             print(f"phase S {part} {label}: {json.dumps(row)}")
@@ -2503,6 +2714,23 @@ def main() -> int:
         print(f"arm H {n}: mean PSNR vs full {b['mean_psnr_vs_full_db']} dB,"
               f" warm {b['warm_wall_s']:.3f} s ({b['warm_fps']:.1f} frames/s)"
               f", {b['min_psnr_vs_cpu_db']:.1f} dB from the CPU run")
+    for name in ARM_I_CONFIGS:
+        a = arms[f"I {name}"]
+        p = a["profile"]
+        print(f"arm I {name} (C={a['feat_channels']}, H={a['mlp_hidden']}, "
+              f"{a['num_samples']} samples): warm {m_warm_line(a)}; busy "
+              f"{p['device_busy_share']}, host launches "
+              f"{p['host_cuda_launch_kernel']['count']} kernels + "
+              f"{p['host_cuda_graph_launch']['count']} graphs; B1 "
+              f"{a['launches'][gt_k.KERNEL.name]}, B2 "
+              f"{a['launches'][mlp_k.KERNEL.name]} launches; peak "
+              f"{p['peak_allocated_bytes'] / 1e9:.2f} GB; holes "
+              f"{a['hole_counts']}; {a['min_psnr_db']:.1f} dB from "
+              f"{a['checked_against']}")
+    o = arms["I oracle"]
+    print(f"arm I oracle (fig. 26 setup): {o['min_psnr_db']:.1f} dB from "
+          f"the CPU run, {o['sparse_pixels']} sparse pixels, card wall "
+          f"{o['wall_s']:.3f} s")
     print(f"arm E multi-scene serving: warm {m_warm_line(arms['E'])}; "
           f"scene cache {arms['E']['scene_cache']}; launches "
           f"{arms['E']['launches']}")
@@ -2574,11 +2802,15 @@ def main() -> int:
             for a, label in ((shapes["B1_A identity"], ""),
                              (shapes["B1_B"], ""),
                              (shapes["B1_A bank_interleaved"],
-                              " (arm A, bank_interleaved layout)"))]
+                              " (arm A, bank_interleaved layout)"),
+                             (shapes["B1_I"],
+                              " (arm I, cicero-dvgo's first chunk)"))]
     t_b2 = [timed(lambda a=a: mlp_k.fused_nerf_mlp(*a),
                   lambda a=a: mlp_k.fused_nerf_mlp_plain(*a), *b2_cost(a),
-                  f"S={a[0].shape[0]} C=8 H=64")
-            for a in (mlp_args, fill_args)]
+                  f"S={a[0].shape[0]} C={a[0].shape[1]} H={a[2].shape[1]}"
+                  f"{label}")
+            for a, label in [(mlp_args, ""), (fill_args, "")] + [
+                (b2_i[n], f" (arm I, {n})") for n in ARM_I_CONFIGS]]
     # B2 runs on the TF32 tensor cores, three products per product (3xTF32):
     # its bound there, beside the fp32 CUDA-core bound kept in "bound_ms"
     for t in t_b2:
@@ -2805,7 +3037,8 @@ def main() -> int:
     print(json.dumps({"arms_wall": {
         n: {"frames": a["frames"], "warm_wall_s": a["warm_wall_s"],
             "warm_fps": a["warm_fps"], "cold_wall_s": a["cold_wall_s"]}
-        for n, a in arms.items() if n not in ("F", "H", "D_adaptive")},
+        for n, a in arms.items()
+        if n not in ("F", "H", "D_adaptive", "I oracle")},
         "baselines_H": {n: {k: b[k] for k in ("warm_wall_s", "warm_fps",
                                                "mean_psnr_vs_full_db")}
                         for n, b in arms["H"]["baselines"].items()},
@@ -2839,7 +3072,11 @@ EAGER_LAUNCHES = {
         "E_c40_staged": (0, 0, 0, 1096, 0), "G": (1044, 0, 0, 0, 0),
         "H_full": (32, 0, 0, 0, 0), "H_host": (33, 0, 0, 0, 0),
         "H_temporal": (33, 0, 0, 0, 0), "H_ds2": (32, 0, 0, 0, 0),
-        "F": (0, 0, 0, 0, 0), "F1": (0, 0, 0, 0, 0)}.items()}
+        "F": (0, 0, 0, 0, 0), "F1": (0, 0, 0, 0, 0),
+        "I cicero-dvgo": (258, 258, 0, 0, 0),
+        "I cicero-ngp": (0, 258, 0, 0, 0),
+        "I cicero-tensorf": (0, 258, 0, 0, 0),
+        "I oracle": (0, 0, 0, 0, 0)}.items()}
 
 
 @contextlib.contextmanager

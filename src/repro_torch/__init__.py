@@ -3,8 +3,10 @@ reference, which stays beside it unchanged).
 
 The port grows slice by slice. It holds the staged and fused SpaRW +
 MVoxel-streaming render paths (``repro_torch.api.make_renderer(...)
-.render``), the multi-session render serving engine (``.serve``;
-multi-scene with ``RenderServeEngine(..., scene_loader=...)``), and the LM
+.render``) for the paper's three model families (dense, hash and VM
+grids) and the analytic oracle, the multi-session render serving engine
+(``.serve``; multi-scene with ``RenderServeEngine(...,
+scene_loader=...)``), and the LM
 substrate's serving path (``repro_torch.serve.ServeEngine`` over the
 dense GQA transformer of :mod:`repro_torch.models`, configs in
 :mod:`repro_torch.configs`). Every TPU kernel of the reference has a

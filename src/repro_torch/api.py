@@ -44,6 +44,8 @@ from repro_torch.utils import DeviceLike, resolve_device
 def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):  # NGP's level tables, TensoRF's
+        return [_to_device(v, device) for v in tree]  # planes and lines
     return tree.to(device)
 
 
@@ -97,16 +99,24 @@ def make_renderer(config: RenderConfig, *,
     """Build a :class:`Renderer` for ``config`` on ``device`` (default:
     ``config.device``, else the CUDA card).
 
-    With no ``model``/``params`` the scene is baked into a dense grid for
-    the configured backend; otherwise both are used as given (``params``
-    moved to the device), e.g. ``decoder="mlp"`` weights from
-    :func:`repro_torch.convert.params_from_numpy`.
+    With no ``model``/``params`` the scene is baked into a dense grid
+    (``model_kind="dvgo"`` only) for the configured backend; otherwise both
+    are used as given (``params`` moved to the device), e.g. a model of
+    any kind with ``NerfModel.init`` weights or the reference's from
+    :func:`repro_torch.convert.params_from_numpy`, or an ``oracle`` with
+    ``{}``. The renderer's config records the device.
     """
     config = config.resolved()
     dev = resolve_device(device if device is not None else config.device)
+    if config.device is None:
+        config = config.replace(device=str(dev))
     if (model is None) != (params is None):
         raise TypeError("make_renderer: pass model and params together "
                         "(or neither)")
+    if model is None and config.model_kind != "dvgo":
+        raise ValueError(f"make_renderer bakes a dense grid: model_kind "
+                         f"{config.model_kind!r} needs model= and params= "
+                         f"(e.g. NerfModel.init)")
     if model is None:
         model, _ = models.make_model(
             config.model_kind, grid_res=config.grid_res,

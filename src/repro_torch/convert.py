@@ -2,8 +2,9 @@
 
 The reference's parameters, handed over as numpy arrays, become the port's
 tensors on a device, so that both packages compute the same function: the
-NeRF's (``{"table", "decoder": {w1, b1, w2, b2, w_sigma, w_rgb, b_rgb}}``,
-optionally ``"mv_table"``) with :func:`params_from_numpy`, the LM's
+NeRF's (``{"table" | "tables" | "planes", "lines", "basis", "decoder":
+{w1, b1, w2, b2, w_sigma, w_rgb, b_rgb}}``, optionally ``"mv_table"``)
+with :func:`params_from_numpy`, the LM's
 (``lm.init_params``'s tree) with :func:`lm_params_from_numpy`.
 """
 from __future__ import annotations
@@ -19,13 +20,17 @@ from repro_torch.utils import DeviceLike, resolve_device
 
 def params_from_numpy(params: dict, device: DeviceLike = None) -> dict:
     """Nested dict of array-likes -> the same dict of tensors on ``device``
-    (default: the CUDA card; raises without one). float arrays stay in
-    their precision (bfloat16 cannot pass through numpy; cast after)."""
+    (default: the CUDA card; raises without one). A list stays a list of
+    tensors (NGP's level tables, TensoRF's planes and lines). float arrays
+    stay in their precision (bfloat16 cannot pass through numpy; cast
+    after)."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
         return torch.from_numpy(np.array(x, copy=True)).to(dev)
 
     return conv(params)

@@ -47,7 +47,7 @@ from repro_torch.core.config import HoleCapController, RenderConfig, \
     RenderStats
 from repro_torch.kernels import _build
 from repro_torch.nerf import rays
-from repro_torch.utils import round_up
+from repro_torch.utils import params_device, round_up
 
 
 class BatchedWindowResult(raybatch.DeferredFrames):
@@ -153,8 +153,11 @@ class DeviceSparwEngine:
                          else round_up(max(hw // 4, 128), 128))
         self.ray_chunk = int(config.ray_chunk)
         self.params = model.prepare_streaming(params)
-        self.device = self.params["table"].device
-        self._seg_aware = model.cfg.backend == "streaming"
+        self.device = params_device(self.params, config.device)
+        # the segment axis rides into the Gathering Unit only: the dense
+        # grid on the streaming backend (the reference's rule)
+        self._seg_aware = (model.cfg.backend == "streaming"
+                           and model.cfg.kind == "dvgo")
         self.pool_holes = bool(config.pool_holes)
         self.pool_min_bucket = int(config.pool_min_bucket)
         self.adaptive_sampling = bool(config.adaptive_sampling)

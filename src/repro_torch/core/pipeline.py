@@ -33,7 +33,7 @@ from repro_torch.core.scene_cache import ParamsToken, SceneCache
 from repro_torch.nerf import models, rays
 from repro_torch.serve.policies import resolve_policy
 from repro_torch.serve.render_engine import RenderServeEngine, RenderSession
-from repro_torch.utils import psnr
+from repro_torch.utils import params_device, psnr
 
 
 class _EngineLRU(SceneCache):
@@ -62,7 +62,7 @@ class CiceroRenderer:
         self.model = model
         self.params = model.prepare_streaming(params)
         self.cam = self.config.camera
-        self.device = self.params["table"].device
+        self.device = params_device(self.params, self.config.device)
         self._device_engines = _EngineLRU()
         self._serve_engines = _EngineLRU()
 

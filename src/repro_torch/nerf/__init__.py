@@ -1,1 +1,2 @@
-"""NeRF primitives: rays, scenes, the dense grid, decoder, volume rendering."""
+"""NeRF primitives: rays, scenes, the dense, hash and VM grids, decoder,
+volume rendering, and the models over them."""

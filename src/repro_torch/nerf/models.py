@@ -1,15 +1,19 @@
-"""NeRF model: dense grid + decoder + volume renderer (port of
-``repro.nerf.models`` for the ``dvgo`` kind; ``ngp``, ``tensorf`` and the
-analytic ``oracle`` are not ported yet).
+"""NeRF models: feature grid + decoder + volume renderer (port of
+``repro.nerf.models``). Four kinds: ``dvgo`` (dense grid), ``ngp`` (hash
+grid), ``tensorf`` (VM grid) and ``oracle``, which renders the analytic
+scene (exact density, view-dependent radiance) for warp-threshold
+experiments.
 
 Two execution backends (``NerfConfig.backend``):
 
 * ``"reference"`` — pixel-centric gather + plain decoder;
-* ``"streaming"`` — memory-centric order through the kernels:
-  ``kernels.ops.gather_features_streaming`` (the GU kernel over MVoxel
-  halo blocks) and, for ``decoder="mlp"``, ``kernels.ops.nerf_mlp``.
-  The halo re-layout of the feature table is built once per table by
-  :meth:`NerfModel.prepare_streaming` and travels in ``params``.
+* ``"streaming"`` — memory-centric order through the kernels: a ``dvgo``
+  grid's features come from ``kernels.ops.gather_features_streaming`` (the
+  GU kernel over MVoxel halo blocks), whose halo re-layout is built once
+  per table by :meth:`NerfModel.prepare_streaming` and travels in
+  ``params``; the hash and VM grids keep their plain queries (the paper's
+  NGP-level fallback). With ``decoder="mlp"`` every kind's features decode
+  through ``kernels.ops.nerf_mlp``.
 
 Multi-scene serving rides the same calls: params holding the stacked
 resident pages (``table [K, res^3, C]``, ``mv_table [K, num_mv, P, C]``)
@@ -27,13 +31,22 @@ from repro_torch.core import streaming
 from repro_torch.core.scene_cache import ParamsToken, SceneCache
 from repro_torch.kernels import ops
 from repro_torch.nerf import grids, mlp, rays, scenes, volrend
+from repro_torch.utils import DeviceLike, resolve_device
+
+
+KINDS = ("dvgo", "ngp", "tensorf", "oracle")
 
 
 @dataclass(frozen=True)
 class NerfConfig:
-    kind: str  # dvgo
+    kind: str  # dvgo | ngp | tensorf | oracle
     grid_res: int = 64
     channels: int = 8
+    hash_levels: int = 8
+    hash_table_size: int = 2**14
+    hash_base_res: int = 16
+    hash_max_res: int = 256
+    tensorf_rank: int = 8
     decoder: str = "mlp"  # mlp | direct
     mlp_hidden: int = 64
     num_samples: int = 64
@@ -46,9 +59,9 @@ class NerfConfig:
     mvoxel_layout: str = "identity"  # identity | bank_interleaved
 
     def __post_init__(self) -> None:
-        if self.kind != "dvgo":
-            raise NotImplementedError(
-                f"model kind {self.kind!r} is not ported yet (dvgo only)")
+        if self.kind not in KINDS:
+            raise ValueError(f"kind must be one of {'|'.join(KINDS)}, got "
+                             f"{self.kind!r}")
         if self.backend not in ("reference", "streaming"):
             raise ValueError(f"backend must be reference|streaming, got "
                              f"{self.backend!r}")
@@ -61,25 +74,81 @@ class NerfConfig:
         return grids.DenseGridCfg(res=self.grid_res, channels=self.channels)
 
     @property
+    def hash_cfg(self) -> grids.HashGridCfg:
+        return grids.HashGridCfg(num_levels=self.hash_levels,
+                                 base_res=self.hash_base_res,
+                                 max_res=self.hash_max_res,
+                                 table_size=self.hash_table_size, channels=2)
+
+    @property
+    def tensorf_cfg(self) -> grids.TensoRFCfg:
+        return grids.TensoRFCfg(res=self.grid_res, rank=self.tensorf_rank,
+                                channels=self.channels)
+
+    @property
+    def feat_channels(self) -> int:
+        if self.kind == "ngp":
+            return self.hash_cfg.out_channels
+        return self.channels
+
+    @property
     def decoder_cfg(self) -> mlp.DecoderCfg:
-        return mlp.DecoderCfg(mode=self.decoder, in_channels=self.channels,
+        return mlp.DecoderCfg(mode=self.decoder,
+                              in_channels=self.feat_channels,
                               hidden=self.mlp_hidden)
+
+    def feature_table_bytes(self) -> int:
+        """Model size (the paper's Fig. 2 x-axis): feature vectors only."""
+        if self.kind == "dvgo":
+            return self.grid_res**3 * self.channels * 4
+        if self.kind == "ngp":
+            return self.hash_levels * self.hash_table_size * 2 * 4
+        if self.kind == "tensorf":
+            return (3 * self.grid_res**2 * self.tensorf_rank
+                    + 3 * self.grid_res * self.tensorf_rank) * 4
+        return 0
 
 
 class NerfModel:
     """Stateless apart from the halo-table cache: params (tensors on one
-    device) are passed to every call."""
+    device) are passed to every call. ``scene`` is the analytic scene an
+    ``oracle`` renders (its params are ``{}``)."""
 
-    def __init__(self, cfg: NerfConfig):
+    def __init__(self, cfg: NerfConfig,
+                 scene: Optional[scenes.Scene] = None):
         self.cfg = cfg
+        self.scene = scene
         # (table identity, StreamingCfg) -> halo table. An LRU, so a model
         # serving alternating scenes rebuilds no table once both are
         # resident; the token keeps the table alive, so an identity hit
         # can never alias a recycled id
         self._mv_table_cache = SceneCache(max_entries=8)
 
+    def init(self, generator: torch.Generator,
+             device: DeviceLike = None) -> dict:
+        """Random parameters drawn from ``generator`` on its own device,
+        placed on ``device`` (default: the CUDA card; raises without one):
+        the kind's grid, then the decoder, at the reference's shapes and
+        scales (the numbers differ from the reference's; tests carry its
+        weights across with ``repro_torch.convert.params_from_numpy``)."""
+        c = self.cfg
+        dev = resolve_device(device)
+        if c.kind == "dvgo":
+            params = grids.dense_init(generator, c.dense_cfg, dev)
+        elif c.kind == "ngp":
+            params = grids.hash_init(generator, c.hash_cfg, dev)
+        elif c.kind == "tensorf":
+            params = grids.tensorf_init(generator, c.tensorf_cfg, dev)
+        else:
+            params = {}
+        params["decoder"] = mlp.decoder_init(generator, c.decoder_cfg, dev)
+        return params
+
     def init_baked(self, scene: scenes.Scene, device=None) -> dict:
         """Dense grid baked from the analytic scene; decoder = direct."""
+        if self.cfg.kind != "dvgo":
+            raise ValueError(f"init_baked bakes a dense grid: kind 'dvgo' "
+                             f"only, got {self.cfg.kind!r}")
         if self.cfg.decoder != "direct":
             raise ValueError("init_baked needs decoder='direct' (the baked "
                              "table holds sigma and rgb directly)")
@@ -101,8 +170,8 @@ class NerfModel:
         small LRU. A table staged under another layout is rebuilt; a
         stacked multi-scene page set ``[K, num_mv, P, C]`` (owned by the
         serving engine's scene pager) passes through. No-op on the
-        reference backend."""
-        if self.cfg.backend != "streaming":
+        reference backend and for every kind but ``dvgo``."""
+        if self.cfg.backend != "streaming" or self.cfg.kind != "dvgo":
             return params
         scfg = self.streaming_cfg
         mv_table = params.get("mv_table")
@@ -122,8 +191,10 @@ class NerfModel:
         """Features at ``points`` [S, 3]; ``seg``/``num_seg`` bucket the
         streaming gather's RIT per (segment, MVoxel). Params carrying a
         ``scene_of_seg`` map (the stacked multi-scene pages) need ``seg``:
-        each segment gathers from its own scene's page."""
-        if self.cfg.backend == "streaming":
+        each segment gathers from its own scene's page. The hash and VM
+        grids query plainly on either backend."""
+        c = self.cfg
+        if c.backend == "streaming" and c.kind == "dvgo":
             scene_of_seg = params.get("scene_of_seg")
             if scene_of_seg is not None and seg is None:
                 raise ValueError(
@@ -133,7 +204,28 @@ class NerfModel:
                 params["table"], points, self.streaming_cfg,
                 mv_table=params.get("mv_table"), seg=seg, num_seg=num_seg,
                 scene_of_seg=scene_of_seg)
-        return grids.dense_query(params, points, self.cfg.dense_cfg)
+        if c.kind == "dvgo":
+            return grids.dense_query(params, points, c.dense_cfg)
+        if c.kind == "ngp":
+            return grids.hash_query(params, points, c.hash_cfg)
+        if c.kind == "tensorf":
+            return grids.tensorf_query(params, points, c.tensorf_cfg)
+        raise ValueError(f"kind {c.kind!r} has no feature grid")
+
+    def query_field(self, params: dict, points: torch.Tensor,
+                    dirs: torch.Tensor, seg: Optional[torch.Tensor] = None,
+                    num_seg: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sigma [S], rgb [S, 3]) at sample points ``points`` seen along
+        ``dirs``; the oracle evaluates its analytic scene."""
+        if self.cfg.kind == "oracle":
+            if self.scene is None:
+                raise ValueError("an oracle model needs its scene: "
+                                 "NerfModel(cfg, scene=...)")
+            return (scenes.scene_density(self.scene, points),
+                    scenes.scene_radiance(self.scene, points, dirs))
+        feats = self.query_features(params, points, seg=seg,
+                                    num_seg=num_seg)
+        return self.decode_features(params, feats, dirs)
 
     def decode_features(self, params: dict, feats: torch.Tensor,
                         dirs: torch.Tensor
@@ -158,10 +250,9 @@ class NerfModel:
         ns = int(num_samples) if num_samples is not None else c.num_samples
         pts, t_vals = rays.sample_along_rays(origins, dirs, c.near, c.far, ns)
         sample_seg = seg.repeat_interleave(ns) if seg is not None else None
-        feats = self.query_features(params, pts.reshape(-1, 3),
-                                    seg=sample_seg, num_seg=num_seg)
-        sigma, rgb = self.decode_features(params, feats,
-                                          dirs.repeat_interleave(ns, dim=0))
+        sigma, rgb = self.query_field(params, pts.reshape(-1, 3),
+                                      dirs.repeat_interleave(ns, dim=0),
+                                      seg=sample_seg, num_seg=num_seg)
         color, depth, _ = volrend.composite(sigma.reshape(-1, ns),
                                             rgb.reshape(-1, ns, 3), t_vals,
                                             c.far, c.white_bkgd)
@@ -208,6 +299,7 @@ class NerfModel:
                 torch.cat(deps, 1).reshape(s, cam.height, cam.width))
 
 
-def make_model(kind: str, **kw) -> Tuple[NerfModel, NerfConfig]:
+def make_model(kind: str, scene: Optional[scenes.Scene] = None,
+               **kw) -> Tuple[NerfModel, NerfConfig]:
     cfg = NerfConfig(kind=kind, **kw)
-    return NerfModel(cfg), cfg
+    return NerfModel(cfg, scene=scene), cfg

@@ -1,15 +1,16 @@
 """Procedural scenes with analytic density/radiance fields.
 
-Port of the parts of ``repro.nerf.scenes`` that :func:`bake_dense_table`
-needs: the scene record, its crc32-seeded construction, the signed
-distance field, density and shaded albedo. A scene is a set of
-soft-boundary spheres plus a ground plane inside [-1, 1]^3.
+Port of ``repro.nerf.scenes``: the scene record, its crc32-seeded
+construction, the signed distance field, density, shaded albedo, the
+view-dependent radiance the analytic ``oracle`` model renders, and the
+baked dense table. A scene is a set of soft-boundary spheres plus a
+ground plane inside [-1, 1]^3.
 """
 from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +50,41 @@ def make_scene(name: str, num_spheres: int = 6, specular: float = 0.0,
                  albedos=albedos.astype(np.float32), specular=specular)
 
 
+# (id(scene), device) -> (scene, its constants on the device): made at the
+# first call on a device, so a CUDA-graph capture (the oracle's tick
+# programs) uploads nothing; the entry holds the scene, so an id is never
+# reused while cached
+_CONSTS: Dict[Tuple[int, torch.device],
+              Tuple[Scene, Dict[str, torch.Tensor]]] = {}
+_MAX_CONSTS = 16
+
+
+def _consts(scene: Scene, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The scene's spheres, albedos (the ground's last), the unit light and
+    the ground's normal as tensors on ``device``."""
+    key = (id(scene), device)
+    hit = _CONSTS.get(key)
+    if hit is not None and hit[0] is scene:
+        return hit[1]
+    light = torch.tensor(_LIGHT, device=device)
+    albs = np.concatenate([scene.albedos,
+                           np.asarray([scene.ground_albedo], np.float32)])
+    consts = {"centers": torch.as_tensor(scene.centers, device=device),
+              "radii": torch.as_tensor(scene.radii, device=device),
+              "albedos": torch.as_tensor(albs, device=device),
+              "light": light / torch.linalg.norm(light),
+              "ground_n": torch.tensor([0.0, 1.0, 0.0], device=device)}
+    if len(_CONSTS) >= _MAX_CONSTS:
+        _CONSTS.pop(next(iter(_CONSTS)))
+    _CONSTS[key] = (scene, consts)
+    return consts
+
+
 def _sdf(scene: Scene, p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Signed distance to the nearest object + its index (K = ground)."""
-    centers = torch.as_tensor(scene.centers, device=p.device)
-    radii = torch.as_tensor(scene.radii, device=p.device)
-    d_spheres = torch.linalg.norm(p[:, None, :] - centers[None], dim=-1) \
-        - radii[None]
+    k = _consts(scene, p.device)
+    d_spheres = torch.linalg.norm(p[:, None, :] - k["centers"][None],
+                                  dim=-1) - k["radii"][None]
     d_ground = (p[:, 1] - scene.ground)[:, None]
     d_all = torch.cat([d_spheres, d_ground], dim=1)  # [S, K+1]
     d, idx = torch.min(d_all, dim=1)
@@ -62,12 +92,11 @@ def _sdf(scene: Scene, p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _normal(scene: Scene, p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    centers = torch.as_tensor(scene.centers, device=p.device)
-    sphere_n = p[:, None, :] - centers[None]
+    k = _consts(scene, p.device)
+    sphere_n = p[:, None, :] - k["centers"][None]
     sphere_n = sphere_n / (torch.linalg.norm(sphere_n, dim=-1, keepdim=True)
                            + 1e-9)
-    ground_n = torch.tensor([0.0, 1.0, 0.0], device=p.device)
-    ground_n = ground_n.expand(p.shape[0], 1, 3)
+    ground_n = k["ground_n"].expand(p.shape[0], 1, 3)
     normals = torch.cat([sphere_n, ground_n], dim=1)  # [S, K+1, 3]
     return torch.take_along_dim(normals, idx[:, None, None], dim=1)[:, 0]
 
@@ -83,17 +112,33 @@ def scene_density(scene: Scene, p: torch.Tensor) -> torch.Tensor:
 def scene_albedo(scene: Scene, p: torch.Tensor) -> torch.Tensor:
     """View-independent shaded colour at p (bakeable). [S,3] -> [S,3]."""
     _, idx = _sdf(scene, p)
-    albs = np.concatenate([scene.albedos,
-                           np.asarray([scene.ground_albedo], np.float32)])
-    alb = torch.as_tensor(albs, device=p.device)[idx]
+    alb = _consts(scene, p.device)["albedos"][idx]
     n = _normal(scene, p, idx)
-    light = torch.tensor(_LIGHT, device=p.device)
-    light = light / torch.linalg.norm(light)
+    light = _consts(scene, p.device)["light"]
     lambert = 0.35 + 0.65 * torch.clamp((n * light).sum(-1, keepdim=True),
                                         0.0, 1.0)
     # mild spatial texture so warping errors are visible in PSNR
     tex = 0.9 + 0.1 * torch.sin(9.0 * p[:, :1]) * torch.cos(7.0 * p[:, 2:3])
     return torch.clamp(alb * lambert * tex, 0.0, 1.0)
+
+
+def scene_radiance(scene: Scene, p: torch.Tensor,
+                   view_dirs: torch.Tensor) -> torch.Tensor:
+    """Radiance with the view-dependent Blinn-Phong lobe (strength
+    ``specular``, exponent ``spec_power``). p [S,3]; view_dirs [S,3] point
+    from the camera to p (the ray directions)."""
+    base = scene_albedo(scene, p)
+    if scene.specular <= 0.0:
+        return base
+    _, idx = _sdf(scene, p)
+    n = _normal(scene, p, idx)
+    light = _consts(scene, p.device)["light"]
+    # half vector between the light and the direction back to the camera
+    h = light[None, :] - view_dirs
+    h = h / (torch.linalg.norm(h, dim=-1, keepdim=True) + 1e-9)
+    spec = scene.specular * torch.clamp(
+        (n * h).sum(-1, keepdim=True), 0.0, 1.0) ** scene.spec_power
+    return torch.clamp(base + spec, 0.0, 1.0)
 
 
 def bake_dense_table(scene: Scene, res: int, channels: int = 4,

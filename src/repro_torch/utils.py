@@ -35,3 +35,34 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                            "run the plain PyTorch path on the CPU")
     return torch.device("cuda")
 
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def params_device(params: dict, device: DeviceLike = None) -> torch.device:
+    """The device a model's ``params`` run on: that of their tensors, which
+    must all lie on one device, and on ``device`` when it is given; for
+    params without tensors (the oracle's ``{}``) ``device``, else the CUDA
+    card (:func:`resolve_device`). Raises for params on another device."""
+    want = None if device is None else torch.device(device)
+    found = None
+    for t in _tensors(params):
+        d = t.device
+        for other in (found, want):
+            if other is not None and (other.type != d.type or (
+                    other.index is not None and d.index is not None
+                    and other.index != d.index)):
+                raise ValueError(f"params on {d}, expected {other}: move "
+                                 f"them to one device (the config's)")
+        if found is None:
+            found = d
+    return found if found is not None else resolve_device(want)

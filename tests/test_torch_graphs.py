@@ -12,6 +12,7 @@ the reference's compiled programs; the deferred dense fallback gives the
 in-tick rule's frames bit for bit; ``build_rit`` against the reference;
 and the launch accounting of a captured graph, on a stub kernel."""
 import contextlib
+import dataclasses
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ from repro.core import pipeline as j_pipeline
 from repro.core import streaming as j_streaming
 from repro.core.engine import DeviceSparwEngine as JEngine
 from repro_torch import api as t_api
+from repro_torch.configs import cicero_nerf as t_cn
 from repro_torch.core import config as t_config
 from repro_torch.core import pipeline as t_pipeline
 from repro_torch.core import raybatch, sparw
@@ -33,6 +35,7 @@ from repro_torch.core import streaming as t_streaming
 from repro_torch.core.engine import DeviceSparwEngine as TEngine
 from repro_torch.core.engine import TickProgram
 from repro_torch.kernels import _build
+from repro_torch.nerf import models as t_models
 from repro_torch.nerf import scenes as t_scenes
 from repro_torch.serve import render_engine as t_serve
 from repro_torch.utils import psnr
@@ -202,6 +205,43 @@ def test_warm_engine_call_has_no_sync(ren, path):
     assert len(eng.tick_programs) == 1
     assert torch.equal(warm.sparse_frames, first.sparse_frames)
     assert torch.equal(warm.frames, first.frames)
+
+
+@pytest.mark.parametrize("name", ["NGP_BENCH", "TENSORF_BENCH"])
+def test_other_kinds_steady_tick_has_no_sync(name):
+    """The hash and VM grids on the staged tick (their features decode
+    through B2): a warm engine call and a steady serving step read nothing
+    back, and the warm call repeats the first call's outputs bit for bit
+    (on the card the warm call is the graph replay, ``chip_smoke.py``
+    phase S)."""
+    model = t_models.NerfModel(dataclasses.replace(
+        getattr(t_cn, name), backend="streaming", num_samples=16))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    ren = t_api.make_renderer(t_config.RenderConfig(
+        res=16, window=2, backend="streaming", num_slots=2), model=model,
+        params=params, device="cpu")
+    eng = TEngine(ren.model, ren.params, config=ren.config)
+    trajs = _trajs(2, 3)
+    ref = torch.stack([t[0] for t in trajs])
+    tgt = torch.stack([torch.stack(t[1:]) for t in trajs])
+    first = eng.render_windows(ref, tgt)
+    with SyncDetector():
+        warm = eng.render_windows(ref, tgt)
+    assert len(eng.tick_programs) == 1
+    for field in ("sparse_frames", "holes", "hole_counts", "overflowed"):
+        assert torch.equal(getattr(warm, field), getattr(first, field))
+    assert torch.equal(warm.frames, first.frames)
+    assert int(first.hole_counts.sum()) > 0
+    serve = _engine(ren)
+    serve.submit([t_serve.RenderSession(sid=i, poses=list(t))
+                  for i, t in enumerate(_trajs(2, 6))])
+    assert serve.step()  # admission + first (eager) run of the key
+    with SyncDetector():
+        assert serve.step()
+    while serve.step():
+        pass
+    serve.finalize()
+    assert serve._pending == []
 
 
 # ---------------------------------------------------------------------------
