@@ -139,6 +139,25 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    (``CiceroRenderer(oracle, {}, ...)`` on "materials" with
    ``specular=0.6``, res 48, window 4, 8 frames 4 degrees apart,
    ``phi_deg=4``), card against CPU.
+   Phase T (NeRF training, ``nerf/train.py``): for each of arm I's three
+   configs at full width on the reference backend, the first 3 steps of
+   ``fit_field`` on host-drawn batches of 8,192 points, on the card and,
+   from the same params each step, on the CPU (loss, every grad leaf, and
+   AdamW on the card's grads run on the CPU, allclose at the ``T_*``
+   tolerances); then ``fit_field`` at its defaults (400 steps x 8,192
+   points drawn on the card): wall, steps/s, peak allocated memory and
+   the held-out field loss on 8,192 numpy points before and after (finite
+   and falling); then ``train_images`` for ``cicero-ngp`` against the
+   oracle's "lego" frames at res 64 over 8 orbit poses (300 steps x 4,096
+   rays; the loss must fall); and ``fit_field`` must raise ``ValueError``
+   for a streaming ``dvgo`` model (B1 has no gradient, as the reference's
+   Pallas kernels have none). Arm I fitted: arm I's streaming model
+   objects render the fitted params exactly as arm I does (16 frames, res
+   64, cold, again, warm; B1 and B2 on ``cicero-dvgo``'s path), >= 60 dB
+   and equal stats against a fresh model object on the same params (no
+   cache serves the random weights), each frame's PSNR against the
+   oracle's full render of its pose beside arm I's random-weight frames';
+   each config's mean must beat the random weights'.
    Where the card and CPU runs part (``c2_tables``): each of the six
    tables the loader bakes, on the card against its CPU bake, and the
    fleet served on the card from the CPU's bakes against the CPU run.
@@ -803,6 +822,353 @@ def run_arm_i_oracle() -> dict:
             "fallback_pixels": stats.fallback_pixels,
             "mean_hole_fraction": stats.mean_hole_fraction,
             "wall_s": wall}
+
+
+# Phase T: NeRF training on the card (nerf/train.py) for arm I's three
+# configs at full width on the reference backend, then arm I rendered on
+# the fitted params. Tolerances of the card-vs-CPU step check: the loss at
+# rtol 1e-5; each grad leaf at rtol 1e-3 and atol 1e-4 x the leaf's largest
+# CPU grad (float32 sums over 8,192 points in another order, the card's
+# index_put accumulating atomically; the scene's targets differ by float
+# noise at a density slope of up to 600 per unit); one AdamW step on the
+# card's own grads, run on the CPU, at rtol 1e-5 / atol 1e-7 (the same
+# float32 operations, pow and sqrt rounded apart)
+T_CHECK_STEPS = 3
+T_BATCH = 8192
+T_STEPS = 400
+T_LR = 5e-3
+T_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
+T_GRAD_RTOL, T_GRAD_ATOL_OF_MAX = 1e-3, 1e-4
+T_ADAM_TOL = dict(rtol=1e-5, atol=1e-7)
+T_HELD_OUT = 8192  # numpy points of the held-out field loss
+T_SCENE = "lego"
+# At fit_field's defaults the dense grid of cicero-dvgo (160^3 vertices)
+# stays fog: each vertex meets ~6 samples in 400 steps of 8,192 points,
+# so its features barely leave their random init (held-out loss 0.14,
+# frames 7.5 dB from the oracle's against the random weights' 9.3). Phase
+# T records that fit; arm I fitted renders a second fit of the same 400
+# steps at 8x the batch, which costs the same wall (the steps are
+# host-bound) and renders above the random weights
+T_DVGO_BATCH = 8 * T_BATCH
+# train_images: the oracle's frames of 8 orbit poses at res 64
+T_IMAGES = dict(config="cicero-ngp", res=64, poses=8, step_deg=45.0,
+                steps=300, rays_per_batch=4096)
+
+
+def _np_batch(n: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    dirs = rng.standard_normal((n, 3)).astype(np.float32)
+    return pts, dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+
+
+def _cpu_tree(tree):
+    from repro_torch.api import _to_device
+    import torch
+
+    return _to_device(tree, torch.device("cpu"))
+
+
+def t_check_steps(model, scene, dev, steps: int = T_CHECK_STEPS,
+                  batch: int = T_BATCH) -> dict:
+    """The first ``steps`` steps of ``fit_field`` on host-drawn batches, on
+    ``dev`` and, from the same params and state each step, on the CPU:
+    loss and every grad leaf allclose, and AdamW on ``dev``'s grads run on
+    the CPU equal to ``dev``'s new params."""
+    import numpy as np
+    import torch
+    from repro_torch.nerf import train
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, \
+        cosine_warmup
+    from repro_torch.optim.adamw import tree_flatten
+
+    name = model.cfg.kind
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    opt = adamw_init(params)
+    no_clip = AdamWConfig(grad_clip_norm=0.0)
+    rows = []
+    for s in range(steps):
+        pts, dirs = _np_batch(batch, 100 + s)
+        cpu_p, cpu_o = _cpu_tree(params), _cpu_tree(opt)
+        new_p, new_o, loss, grads = train.field_step(
+            model, scene, params, opt, s, torch.from_numpy(pts).to(dev),
+            torch.from_numpy(dirs).to(dev), lr=T_LR, steps=T_STEPS)
+        _, _, cpu_loss, cpu_grads = train.field_step(
+            model, scene, cpu_p, cpu_o, s, torch.from_numpy(pts),
+            torch.from_numpy(dirs), lr=T_LR, steps=T_STEPS)
+        loss_err = abs(float(loss) - float(cpu_loss))
+        if loss_err > T_LOSS_TOL["rtol"] * abs(float(cpu_loss)):
+            fail(f"phase T {name} step {s}: loss {float(loss)} on the card, "
+                 f"{float(cpu_loss)} on the CPU")
+        worst = 0.0
+        for i, (g, c) in enumerate(zip(tree_flatten(grads)[0],
+                                       tree_flatten(cpu_grads)[0])):
+            g = g.cpu()
+            scale = float(c.abs().max())
+            err = (g - c).abs()
+            if bool((err > T_GRAD_ATOL_OF_MAX * scale
+                     + T_GRAD_RTOL * c.abs()).any()):
+                fail(f"phase T {name} step {s}: grad leaf {i} "
+                     f"{tuple(c.shape)} differs from the CPU's by "
+                     f"{float(err.max()):.3g} (largest grad {scale:.3g})")
+            worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        lr_t = cosine_warmup(s, T_LR, train.WARMUP_STEPS, T_STEPS)
+        host_p, _ = adamw_update(_cpu_tree(grads), cpu_p, cpu_o, s, no_clip,
+                                 lr_t)
+        adam_err = 0.0
+        for g, c in zip(tree_flatten(new_p)[0], tree_flatten(host_p)[0]):
+            g = g.cpu()
+            if not torch.allclose(g, c, **T_ADAM_TOL):
+                fail(f"phase T {name} step {s}: AdamW on the card differs "
+                     "from AdamW on the CPU on the same grads")
+            adam_err = max(adam_err, float((g - c).abs().max()))
+        rows.append({"step": s, "loss": float(loss),
+                     "loss_rel_err": loss_err / abs(float(cpu_loss)),
+                     "grad_err_of_leaf_max": worst,
+                     "adamw_max_abs_err": adam_err})
+        params, opt = new_p, new_o
+    return rows
+
+
+def t_held_out_loss(model, scene, params, dev) -> float:
+    import torch
+    from repro_torch.nerf import scenes, train
+
+    pts, dirs = (torch.from_numpy(a).to(dev)
+                 for a in _np_batch(T_HELD_OUT, 99))
+    with torch.no_grad():
+        return float(train.field_loss(model, params, pts, dirs,
+                                      scenes.scene_density(scene, pts),
+                                      scenes.scene_albedo(scene, pts)))
+
+
+def oracle_frames(cfg, dev, res: int = 64,
+                  n_frames: int = ARM_I_FRAMES) -> list:
+    """The oracle's full renders of arm I's poses (the analytic "lego" at
+    ``cfg``'s samples, near and far), on the CPU."""
+    from repro_torch.core.pipeline import orbit_trajectory
+    from repro_torch.nerf import models, rays, scenes
+
+    oracle = models.NerfModel(dataclasses.replace(cfg, kind="oracle"),
+                              scene=scenes.make_scene(T_SCENE))
+    cam = rays.Camera.square(res)
+    return [oracle.render_image({}, cam, p.to(dev))[0].cpu()
+            for p in orbit_trajectory(n_frames)]
+
+
+def psnr_vs(frames, truth) -> dict:
+    from repro_torch.utils import psnr
+
+    db = [float(psnr(f.cpu(), t)) for f, t in zip(frames, truth)]
+    return {"min": min(db), "mean": sum(db) / len(db)}
+
+
+def t_fit(model, scene, dev, steps: int, batch: int, res: int = 64) -> tuple:
+    """``fit_field`` on ``dev`` with batches drawn there: (params, row of
+    wall, steps/s, allocated bytes before and the peak during, held-out
+    field loss before and after, which must be finite and fall, and the
+    PSNR of the fitted model's full renders of arm I's poses against the
+    oracle's)."""
+    import math
+
+    import torch
+    from repro_torch.core.pipeline import orbit_trajectory
+    from repro_torch.nerf import rays, train
+
+    cuda = torch.device(dev).type == "cuda"
+    init = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    before = t_held_out_loss(model, scene, init, dev)
+    del init
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated() if cuda else None
+    t0 = time.perf_counter()
+    params = train.fit_field(model, scene,
+                             torch.Generator(device=dev).manual_seed(0),
+                             steps=steps, batch=batch, device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    after = t_held_out_loss(model, scene, params, dev)
+    if not (math.isfinite(after) and after < before):
+        fail(f"phase T {model.cfg.kind}: held-out field loss {before:.4g} "
+             f"-> {after:.4g} at {steps} x {batch} (must be finite and "
+             "fall)")
+    cam = rays.Camera.square(res)
+    with torch.no_grad():
+        frames = [model.render_image(params, cam, p.to(dev))[0]
+                  for p in orbit_trajectory(ARM_I_FRAMES)]
+    return params, {
+        "steps": steps, "batch": batch, "fit_wall_s": wall,
+        "steps_per_s": steps / wall, "allocated_before_bytes": start_bytes,
+        "peak_allocated_bytes": peak,
+        "held_out_loss_before": before, "held_out_loss_after": after,
+        "full_render_psnr_vs_oracle_db": psnr_vs(
+            frames, oracle_frames(model.cfg, dev, res))}
+
+
+def run_phase_t(names, dev, *, configs=None, steps: int = T_STEPS,
+                batch: int = T_BATCH, dvgo_batch: int = T_DVGO_BATCH,
+                check_batch: int = T_BATCH, images: dict = T_IMAGES
+                ) -> tuple:
+    """Phase T: for each config of ``names`` (``NERF_CONFIGS`` unless
+    ``configs`` is given) on the reference backend, the card-vs-CPU check
+    of ``fit_field``'s first steps (:func:`t_check_steps`), then
+    ``fit_field`` at ``steps`` x ``batch`` with batches drawn on the card
+    (:func:`t_fit`), and for a ``dvgo`` config again at ``dvgo_batch``
+    (see ``T_DVGO_BATCH``); then ``train_images`` for
+    ``images["config"]`` against the oracle's frames; a streaming
+    ``dvgo`` model must raise ``ValueError``. Returns (rows, fitted params
+    by name: the ``dvgo_batch`` fit for ``dvgo``, else the only one)."""
+    import math
+
+    import torch
+    from repro_torch.configs.cicero_nerf import NERF_CONFIGS
+    from repro_torch.core.pipeline import orbit_trajectory
+    from repro_torch.nerf import models, rays, scenes, train
+
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    scene = scenes.make_scene(T_SCENE)
+    configs = configs or NERF_CONFIGS
+    rows, fitted = {}, {}
+    for name in names:
+        model = models.NerfModel(dataclasses.replace(configs[name],
+                                                     backend="reference"))
+        t0 = time.perf_counter()
+        row = {"check_steps": t_check_steps(model, scene, dev,
+                                            batch=check_batch)}
+        row["check_s"] = time.perf_counter() - t0
+        fitted[name], fit = t_fit(model, scene, dev, steps, batch)
+        row.update(fit)
+        if model.cfg.kind == "dvgo":
+            fitted[name], row["wide_batch_fit"] = t_fit(
+                model, scene, dev, steps, dvgo_batch)
+        rows[name] = row
+    # train_images: photometric training against the oracle's frames
+    im = images
+    model = models.NerfModel(dataclasses.replace(configs[im["config"]],
+                                                 backend="reference"))
+    oracle = models.NerfModel(dataclasses.replace(
+        configs[im["config"]], kind="oracle"), scene=scene)
+    cam = rays.Camera.square(im["res"])
+    poses = orbit_trajectory(im["poses"], step_deg=im["step_deg"])
+    sync()
+    t0 = time.perf_counter()
+    _, losses = train.train_images(
+        model, lambda c2w: oracle.render_image({}, cam, c2w.to(dev)), cam,
+        poses, torch.Generator(device=dev).manual_seed(0), steps=im["steps"],
+        rays_per_batch=im["rays_per_batch"], device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in losses) or \
+            sum(losses[-10:]) >= sum(losses[:10]):
+        fail(f"phase T train_images: losses {losses[:3]} ... {losses[-3:]} "
+             "(must be finite and fall)")
+    rows["train_images"] = dict(im, first_loss=losses[0],
+                                last_loss=losses[-1], wall_s=wall,
+                                steps_per_s=im["steps"] / wall)
+    # the streaming gather has no gradient: training must refuse it
+    streaming = models.NerfModel(dataclasses.replace(
+        configs[names[0]], kind="dvgo", backend="streaming"))
+    try:
+        train.fit_field(streaming, scene,
+                        torch.Generator(device=dev).manual_seed(0), steps=1,
+                        batch=8, device=dev)
+    except ValueError as e:
+        rows["streaming_dvgo_refused"] = str(e)
+    else:
+        fail("phase T: fit_field trained a streaming dvgo model (B1 has "
+             "no gradient)")
+    return rows, fitted
+
+
+def run_arm_i_fitted(fitted: dict, arm_i_models: dict, random_renderers,
+                     reset, counts, *, res: int = 64, window: int = 16,
+                     n_frames: int = ARM_I_FRAMES) -> dict:
+    """Arm I on the fitted params: each config's streaming model object
+    from arm I (its halo-table cache holds the random-weight table)
+    renders its ``fitted`` params through ``make_renderer(...).render``,
+    cold, again and warm, as arm I does; B2 must launch, B1 for the dense
+    grid only, and the warm run (a graph replay) must count the cold
+    (eager) run's launches: the fitted weights' holes overflow the pool
+    into the dense fallback, so the counts are this run's, not arm I's.
+    Its frames must equal a fresh model object's render of the
+    same params within 60 dB and equal ``RenderStats`` (nothing cached from
+    the random weights), and its mean PSNR against the oracle's frames of
+    the same poses must beat the random-weight render's
+    (``random_renderers``: arm I's warm renderers)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core.config import RenderConfig, RenderRequest
+    from repro_torch.core.pipeline import orbit_trajectory
+    from repro_torch.kernels import fused_nerf_mlp as mlp_k
+    from repro_torch.kernels import gather_trilerp as gt_k
+    from repro_torch.nerf import models
+    from repro_torch.utils import params_device, psnr
+
+    cfg = RenderConfig(res=res, window=window, backend="streaming")
+    req = RenderRequest(poses=tuple(orbit_trajectory(n_frames)))
+    rows = {}
+    for name, params in fitted.items():
+        model, _ = arm_i_models[name]
+        dev = params_device(params)
+        truth = oracle_frames(model.cfg, dev, res, n_frames)
+        random_frames = random_renderers[name].render(req).frames
+        gpu = api.make_renderer(cfg, model=model, params=params,
+                                device=dev)
+        reset()
+        cold = gpu.render(req)
+        launches = counts()
+        gpu.render(req)
+        reset()
+        warm = gpu.render(req)
+        if counts() != launches:
+            fail(f"arm I fitted {name}: the replayed run launched "
+                 f"{counts()}, the eager run {launches}")
+        fresh = api.make_renderer(cfg, model=models.NerfModel(model.cfg),
+                                  params=params, device=dev).render(req)
+        frames = [f.cpu() for f in cold.frames]
+        for f in frames:
+            if f.shape != (res, res, 3) or not torch.isfinite(f).all():
+                fail(f"arm I fitted {name}: a frame is not finite")
+        vs_fresh = min(float(psnr(f, o.cpu()))
+                       for f, o in zip(frames, fresh.frames))
+        if vs_fresh < 60.0 or dataclasses.asdict(cold.stats) != \
+                dataclasses.asdict(fresh.stats):
+            fail(f"arm I fitted {name}: the arm's model object renders the "
+                 f"fitted params {vs_fresh:.1f} dB from a fresh object's "
+                 "(a cache served the random weights?)")
+        b1, b2 = launches[gt_k.KERNEL.name], launches[mlp_k.KERNEL.name]
+        if b2 == 0 or (b1 > 0) != (model.cfg.kind == "dvgo"):
+            fail(f"arm I fitted {name}: B1 launched {b1} times, B2 {b2}")
+        fit_db, rnd_db = psnr_vs(frames, truth), psnr_vs(random_frames,
+                                                         truth)
+        if fit_db["mean"] <= rnd_db["mean"]:
+            fail(f"arm I fitted {name}: mean PSNR against the oracle "
+                 f"{fit_db['mean']:.2f} dB, random weights "
+                 f"{rnd_db['mean']:.2f} dB")
+        rows[name] = {
+            "frames": n_frames, "res": res, "window": window,
+            "launches": launches, "psnr_vs_oracle_db": fit_db,
+            "random_weights_psnr_vs_oracle_db": rnd_db,
+            "min_psnr_vs_fresh_model_db": vs_fresh,
+            "sparse_pixels": cold.stats.sparse_pixels,
+            "fallback_pixels": cold.stats.fallback_pixels,
+            "hole_counts": [round(h * res * res)
+                            for h in cold.stats.hole_fractions],
+            "cold_wall_s": cold.wall_s, "warm_wall_s": warm.wall_s,
+            "warm_fps": warm.fps}
+    return rows
 
 
 # Arm F: LM serving at qwen2.5-32b's full width, depth cut to 16 of 64
@@ -2549,6 +2915,13 @@ def main() -> int:
     arms["I oracle"] = run_arm_i_oracle()
     arms["I oracle"]["launches"] = counts()
     phase_done("arm I")
+    training, fitted = run_phase_t(ARM_I_CONFIGS, dev)
+    phase_done("T")
+    for name, row in run_arm_i_fitted(fitted, arm_i_models, renderers_i,
+                                      reset, counts).items():
+        arms[f"I fitted {name}"] = row
+    del fitted
+    phase_done("arm I fitted")
 
     # S. the steady tick: graph replays bit-equal to eager on the same
     # inputs and free of synchronizing calls, captures one per key
@@ -2727,6 +3100,37 @@ def main() -> int:
               f"{p['peak_allocated_bytes'] / 1e9:.2f} GB; holes "
               f"{a['hole_counts']}; {a['min_psnr_db']:.1f} dB from "
               f"{a['checked_against']}")
+    def fit_line(t):
+        p = t["full_render_psnr_vs_oracle_db"]
+        return (f"fit_field {t['steps']} steps x {t['batch']} in "
+                f"{t['fit_wall_s']:.2f} s ({t['steps_per_s']:.1f} steps/s), "
+                f"peak {t['peak_allocated_bytes'] / 1e9:.2f} GB (from "
+                f"{t['allocated_before_bytes'] / 1e9:.2f} GB), held-out loss "
+                f"{t['held_out_loss_before']:.4f} -> "
+                f"{t['held_out_loss_after']:.4f}, full renders "
+                f"{p['min']:.2f} / {p['mean']:.2f} dB from the oracle")
+
+    for name in ARM_I_CONFIGS:
+        t, a = training[name], arms[f"I fitted {name}"]
+        print(f"phase T {name} ({smi}): {fit_line(t)}; card vs CPU, first "
+              f"{len(t['check_steps'])} steps: "
+              f"{json.dumps(t['check_steps'])}")
+        if "wide_batch_fit" in t:
+            print(f"phase T {name} ({smi}), the fit arm I fitted renders: "
+                  f"{fit_line(t['wide_batch_fit'])}")
+        p, r = a["psnr_vs_oracle_db"], a["random_weights_psnr_vs_oracle_db"]
+        print(f"arm I fitted {name} ({smi}): PSNR vs the oracle worst "
+              f"{p['min']:.2f} / mean {p['mean']:.2f} dB (random weights "
+              f"{r['min']:.2f} / {r['mean']:.2f}); holes "
+              f"{a['hole_counts']}, {a['fallback_pixels']} fallback pixels; "
+              f"warm {m_warm_line(a)}; B1 "
+              f"{a['launches'][gt_k.KERNEL.name]}, B2 "
+              f"{a['launches'][mlp_k.KERNEL.name]} launches")
+    ti = training["train_images"]
+    print(f"phase T train_images {ti['config']} ({smi}): {ti['steps']} steps "
+          f"x {ti['rays_per_batch']} rays, loss {ti['first_loss']:.4f} -> "
+          f"{ti['last_loss']:.4f}, {ti['wall_s']:.2f} s "
+          f"({ti['steps_per_s']:.1f} steps/s)")
     o = arms["I oracle"]
     print(f"arm I oracle (fig. 26 setup): {o['min_psnr_db']:.1f} dB from "
           f"the CPU run, {o['sparse_pixels']} sparse pixels, card wall "
@@ -3047,6 +3451,7 @@ def main() -> int:
                                    "generated_tok_per_s",
                                    "prefill_prompt_tok_per_s", "ticks")},
         "steady_tick_S": steady,
+        "training_T": training,
         "phase_s": phase_s, "total_s": sum(phase_s.values()),
         "card": card}))
     print(json.dumps({"ok": True, "device": {

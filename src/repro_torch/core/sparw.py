@@ -39,6 +39,27 @@ def frame_to_pointcloud(depth: torch.Tensor, cam: Camera) -> torch.Tensor:
     return torch.stack([x, y, d], dim=-1)
 
 
+def transform_points(points: torch.Tensor, c2w_ref: torch.Tensor,
+                     c2w_tgt: torch.Tensor) -> torch.Tensor:
+    """Eq. 2: reference-camera points [P, 3] into the target camera's
+    frame, ``w2c_tgt @ c2w_ref`` (``R^T x`` written ``x @ R``)."""
+    r_ref, t_ref = c2w_ref[:3, :3], c2w_ref[:3, 3]
+    r_tgt, t_tgt = c2w_tgt[:3, :3], c2w_tgt[:3, 3]
+    world = points @ r_ref.T + t_ref
+    return (world - t_tgt) @ r_tgt
+
+
+def project(points_tgt: torch.Tensor, cam: Camera
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Eq. 3: perspective projection of target-frame points [..., 3] ->
+    (u, v, z) in the target image, each [...]."""
+    z = points_tgt[..., 2]
+    safe_z = torch.where(torch.abs(z) < 1e-6, 1e-6, z)
+    u = cam.focal * points_tgt[..., 0] / safe_z + cam.cx - 0.5
+    v = cam.focal * points_tgt[..., 1] / safe_z + cam.cy - 0.5
+    return u, v, z
+
+
 def _project_to_target(depth_ref: torch.Tensor, c2w_ref: torch.Tensor,
                        c2w_tgt: torch.Tensor, cam: Camera,
                        phi_deg: Optional[float]):
@@ -54,10 +75,7 @@ def _project_to_target(depth_ref: torch.Tensor, c2w_ref: torch.Tensor,
     world = pts_ref @ r_ref.transpose(1, 2) + t_ref[:, None]  # [S, HW, 3]
     r_tgt, t_tgt = c2w_tgt[..., :3, :3], c2w_tgt[..., :3, 3]  # [S,N,3,3]
     pts_tgt = (world[:, None] - t_tgt[:, :, None]) @ r_tgt  # R^T x == x @ R
-    z = pts_tgt[..., 2]
-    safe_z = torch.where(torch.abs(z) < 1e-6, 1e-6, z)
-    u = cam.focal * pts_tgt[..., 0] / safe_z + cam.cx - 0.5
-    v = cam.focal * pts_tgt[..., 1] / safe_z + cam.cy - 0.5
+    u, v, z = project(pts_tgt, cam)
     ui = torch.round(u).long()
     vi = torch.round(v).long()
     valid = (z > 1e-4) & (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h)

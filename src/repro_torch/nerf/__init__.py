@@ -1,2 +1,5 @@
 """NeRF primitives: rays, scenes, the dense, hash and VM grids, decoder,
-volume rendering, and the models over them."""
+volume rendering, the models over them, and their training."""
+from repro_torch.nerf import grids, mlp, models, rays, scenes, train, volrend
+
+__all__ = ["grids", "mlp", "models", "rays", "scenes", "train", "volrend"]

@@ -239,16 +239,20 @@ class NerfModel:
 
     def render_rays(self, params: dict, origins: torch.Tensor,
                     dirs: torch.Tensor, seg: Optional[torch.Tensor] = None,
-                    num_seg: int = 1, num_samples: Optional[int] = None
+                    num_seg: int = 1, num_samples: Optional[int] = None,
+                    jitter: rays.Jitter = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Render rays [R, 3] -> (colour [R, 3], depth [R]). ``seg`` [R]
         tags each ray with its segment for the streaming RIT;
         ``num_samples`` overrides the config's samples per ray (adaptive
         sampling's coarse sub-pool renders at ``num_samples //
-        coarse_factor``)."""
+        coarse_factor``); ``jitter`` stratifies the sample depths (the
+        reference's ``key``: photometric training), see
+        :func:`rays.sample_along_rays`."""
         c = self.cfg
         ns = int(num_samples) if num_samples is not None else c.num_samples
-        pts, t_vals = rays.sample_along_rays(origins, dirs, c.near, c.far, ns)
+        pts, t_vals = rays.sample_along_rays(origins, dirs, c.near, c.far, ns,
+                                             jitter)
         sample_seg = seg.repeat_interleave(ns) if seg is not None else None
         sigma, rgb = self.query_field(params, pts.reshape(-1, 3),
                                       dirs.repeat_interleave(ns, dim=0),

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -106,13 +106,30 @@ def generate_rays_batch(cam: Camera, c2ws: torch.Tensor
     return origins, dirs_world
 
 
+Jitter = Union[None, torch.Tensor, torch.Generator]
+
+
 def sample_along_rays(origins: torch.Tensor, dirs: torch.Tensor, near: float,
-                      far: float, num_samples: int
+                      far: float, num_samples: int, jitter: Jitter = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Evenly spaced samples along each ray: (points [R, N, 3], t [R, N])."""
+    """Samples along each ray: (points [R, N, 3], t [R, N]).
+
+    Without ``jitter`` the depths are evenly spaced from ``near`` to
+    ``far``. With it they are stratified, as the reference's ``key``
+    makes them: each depth gets an offset in ``[0, (far - near) / N)``,
+    either the ``[R, N]`` tensor given (the offsets themselves, so a test
+    can hand in the reference's draw) or ``U(0, 1) * (far - near) / N``
+    drawn from the ``torch.Generator`` given, on the rays' device.
+    """
     r = origins.shape[0]
     t = torch.linspace(near, far, num_samples, dtype=torch.float32,
                        device=origins.device)
     t = t.expand(r, num_samples)
+    if isinstance(jitter, torch.Generator):
+        u = torch.rand((r, num_samples), generator=jitter,
+                       device=origins.device)
+        jitter = u * ((far - near) / num_samples)
+    if jitter is not None:
+        t = t + jitter
     points = origins[:, None, :] + dirs[:, None, :] * t[..., None]
     return points, t

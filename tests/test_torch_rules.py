@@ -71,6 +71,31 @@ def test_lm_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     assert eng.caches[0].k.device.type == "cpu"
 
 
+def test_training_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
+    from repro_torch.nerf import models, rays, scenes, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, _ = models.make_model("dvgo", grid_res=8, channels=4,
+                                 mlp_hidden=8, num_samples=4)
+    scene, gen = scenes.make_scene("lego"), torch.Generator()
+    cam, pose = rays.Camera.square(4), rays.orbit_pose(0.3)
+    gt = lambda c2w: (torch.zeros(4, 4, 3), None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.fit_field(model, scene, gen, steps=1, batch=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train_images(model, gt, cam, [pose], gen, steps=1,
+                           rays_per_batch=4)
+    params = train.fit_field(model, scene, gen, steps=1, batch=8,
+                             device="cpu")
+    assert params["table"].device.type == "cpu"
+    _, losses = train.train_images(model, gt, cam, [pose], gen, steps=1,
+                                   rays_per_batch=4, device="cpu")
+    assert len(losses) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="generator draws on cpu"):
+        train.fit_field(model, scene, gen, steps=1, batch=8)
+
+
 def test_kernels_are_not_built_at_import():
     for kernel in (gather_trilerp.KERNEL, gather_trilerp.KERNEL_PER_SEG,
                    fused_nerf_mlp.KERNEL, streaming_pipeline.KERNEL,
