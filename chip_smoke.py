@@ -211,6 +211,28 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    unequal positions, so the shared decode index matters) on the card and
    on the CPU: equal token streams and stats, prefill logits within
    1e-3; it runs B6's float32 kernels (tile prefill, split-KV decode);
+   Phase L (LM training, ``models/lm.make_train_step`` and
+   ``train/trainer.Trainer``; no kernel: the reference trains through
+   plain einsums, so every launch count must stay 0; TF32 off). L1: the
+   ~100M config of the reference's ``examples/train_lm.py`` (minitron-4b's
+   layout at 8 layers, d 768, 12 heads, kv 4, d_ff 3,072, vocab 16,384,
+   float32) on the synthetic pipeline's batches of 8 x 128: the first 3
+   train steps from the same params on the card and on the CPU, the loss
+   at rtol 1e-5, each grad leaf at rtol 1e-3 + atol 1e-4 x its largest
+   CPU value, and the in-place AdamW on the card's grads against
+   ``adamw_update`` on the CPU at 1e-5 / 1e-7. L2: minitron-4b at its
+   published widths (d 3,072, 24 heads, kv 8, d_ff 9,216, vocab 256,000,
+   bfloat16, ``remat``, ``q_block`` 1,024, ``loss_chunk`` 4,096), 8 of
+   its 32 layers, random weights (seed 0), batch 1 x 4,096: 10 steps at
+   the Trainer's defaults (clip 1.0) with the loss, steps/s, tokens/s
+   and peak allocated bytes of each; finite losses and params, and every
+   grad leaf bfloat16 and finite. L3: the Trainer at L1's config, 60
+   steps, a checkpoint every 20, one fault injected at step 30, in a
+   temporary directory: exactly one restart, from step 20, whose error is
+   the injected one; the last 5 steps' mean loss below the first 5's; one
+   save and load of the final state timed (and exact); then 40 straight
+   steps against 20 + a fresh Trainer resuming for 20: no restart, final
+   losses within rtol 1e-3;
 5. time each kernel and its plain version at the arms' shapes (B2 also
    at the four C5 shapes and arm I's three widths; B1 also on arm A's
    ``bank_interleaved`` table and arm I's ``cicero-dvgo`` block; B3 also
@@ -1415,6 +1437,356 @@ def b6_cost(b, h, kvh, sq, kv_len, d, causal, elem_bytes):
     else:
         pairs = sq * kv_len
     return nbytes, 2 * 2 * b * h * pairs * d
+
+
+# phase L: LM training (see the module docstring). L1 and L3 train the
+# ~100M config of the reference's example (examples/train_lm.py: the
+# minitron-4b layout at 8 layers, d 768, 12 heads, kv 4, d_ff 3,072,
+# vocab 16,384, float32) on its batch of 8 x 128 with its schedule (base lr
+# 1e-3, warmup 20) and the Trainer's clip (1.0)
+L_ARCH = "minitron-4b"
+L1_WIDTHS = dict(num_layers=8, d_model=768, num_heads=12, num_kv_heads=4,
+                 d_ff=3072, vocab_size=16384, dtype="float32")
+L1_BATCH, L1_SEQ, L1_CHECK_STEPS = 8, 128, 3
+L_SCHEDULE = dict(base_lr=1e-3, warmup=20, total_steps=60)
+L_GRAD_CLIP = 1.0
+# phase T's tolerances: float32 sums in another order; the embedding's
+# gradient accumulates its duplicate tokens in another order on the card
+L_LOSS_RTOL = 1e-5
+L_GRAD_RTOL, L_GRAD_ATOL_OF_MAX = 1e-3, 1e-4
+L_ADAM_TOL = dict(rtol=1e-5, atol=1e-7)
+# L2: minitron-4b at its published widths, 8 of its 32 layers, bfloat16,
+# batch 1 x 4,096 (train_4k's sequence; its global batch 256 cut to 1)
+L2_LAYERS, L2_BATCH, L2_SEQ, L2_STEPS = 8, 1, 4096, 10
+# L3: the Trainer, one fault injected, then 40 straight steps against 20 +
+# a fresh Trainer resuming for 20 more: the final losses within rtol 1e-3
+# (the card's float32 sums need not repeat bit for bit, and AdamW's
+# m / sqrt(v) amplifies a last-bit difference where a moment is tiny)
+L3_STEPS, L3_CKPT_EVERY, L3_FAULT_AT = 60, 20, 30
+L3_RESUME_STEPS = 20
+L3_RESUME_RTOL = 1e-3
+
+
+def l_config(widths=None):
+    """The example's ~100M config: ``L_ARCH``'s REDUCED at ``widths``
+    (default ``L1_WIDTHS``), as ``examples/train_lm.py`` builds it."""
+    from repro_torch.configs import registry
+
+    return registry.get_reduced(L_ARCH).with_(name=f"{L_ARCH}-100m",
+                                              **(widths or L1_WIDTHS))
+
+
+def _tree_leaves(tree):
+    from repro_torch.optim.adamw import tree_flatten
+
+    return tree_flatten(tree)[0]
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tree_leaves(tree))
+
+
+def _lm_batch(dcfg, step: int, dev):
+    import torch
+    from repro_torch.data.pipeline import make_batch
+
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in make_batch(dcfg, step).items()}
+
+
+def l1_check_steps(cfg, dev, steps: int = L1_CHECK_STEPS,
+                   batch: int = L1_BATCH, seq: int = L1_SEQ) -> list:
+    """The first ``steps`` train steps on ``dev`` and, from the same params
+    and AdamW state each step, on the CPU. The step is
+    ``make_train_step``'s body in its two halves: ``lm.loss_and_grads``
+    (the loss and every grad leaf allclose to the CPU's), then
+    ``cosine_warmup`` and the in-place ``adamw_update_`` on ``dev``, whose
+    new params and moments must equal the functional ``adamw_update`` run
+    on the CPU on ``dev``'s own grads."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, \
+        adamw_update_, cosine_warmup
+
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    opt = adamw_init(params)
+    opt_cfg = AdamWConfig(grad_clip_norm=L_GRAD_CLIP)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    cpu = torch.device("cpu")
+    rows = []
+    for s in range(steps):
+        cpu_p, cpu_o = _cpu_tree(params), _cpu_tree(opt)
+        loss, _, grads = lm.loss_and_grads(params, _lm_batch(dcfg, s, dev),
+                                           cfg)
+        cpu_loss, _, cpu_grads = lm.loss_and_grads(
+            cpu_p, _lm_batch(dcfg, s, cpu), cfg)
+        loss_err = abs(float(loss) - float(cpu_loss))
+        if loss_err > L_LOSS_RTOL * abs(float(cpu_loss)):
+            fail(f"phase L1 step {s}: loss {float(loss)} on the card, "
+                 f"{float(cpu_loss)} on the CPU")
+        worst = 0.0
+        for i, (g, c) in enumerate(zip(_tree_leaves(grads),
+                                       _tree_leaves(cpu_grads))):
+            g = g.cpu()
+            scale = float(c.abs().max())
+            err = (g - c).abs()
+            if bool((err > L_GRAD_ATOL_OF_MAX * scale
+                     + L_GRAD_RTOL * c.abs()).any()):
+                fail(f"phase L1 step {s}: grad leaf {i} {tuple(c.shape)} "
+                     f"differs from the CPU's by {float(err.max()):.3g} "
+                     f"(largest grad {scale:.3g})")
+            worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        lr = cosine_warmup(s, *(L_SCHEDULE[k] for k in (
+            "base_lr", "warmup", "total_steps")))
+        host_p, host_o = adamw_update(_cpu_tree(grads), cpu_p, cpu_o, s,
+                                      opt_cfg, lr)
+        adamw_update_(grads, params, opt, s, opt_cfg, lr)
+        adam_err = 0.0
+        for got, want in ((params, host_p), (opt["m"], host_o["m"]),
+                          (opt["v"], host_o["v"])):
+            for g, c in zip(_tree_leaves(got), _tree_leaves(want)):
+                g = g.cpu()
+                if not torch.allclose(g, c, **L_ADAM_TOL):
+                    fail(f"phase L1 step {s}: the in-place AdamW on the "
+                         "card differs from adamw_update on the CPU on the "
+                         "same grads")
+                adam_err = max(adam_err, float((g - c).abs().max()))
+        rows.append({"step": s, "loss": float(loss),
+                     "loss_rel_err": loss_err / abs(float(cpu_loss)),
+                     "grad_err_of_leaf_max": worst,
+                     "adamw_max_abs_err": adam_err})
+        del grads, cpu_grads, host_p, host_o
+    return rows
+
+
+def l2_full_width(dev, cfg=None, steps: int = L2_STEPS,
+                  batch: int = L2_BATCH, seq: int = L2_SEQ) -> dict:
+    """``make_train_step`` at the Trainer's defaults on ``L_ARCH`` at its
+    published widths and ``L2_LAYERS`` layers (``cfg`` overrides), random
+    weights from seed 0, the synthetic pipeline's batches of ``batch`` x
+    ``seq``: per step the loss, steps/s, tokens/s and the peak allocated
+    bytes so far; on the card one more step under the profiler
+    (:func:`profile_run`). The losses and params must stay finite; then
+    one more ``loss_and_grads`` whose every grad leaf must be finite and
+    in its param's dtype (bfloat16)."""
+    import math
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import TrainerConfig
+
+    cuda = torch.device(dev).type == "cuda"
+    cfg = cfg or registry.get(L_ARCH).with_(num_layers=L2_LAYERS)
+    tc = TrainerConfig()
+    step_fn = lm.make_train_step(
+        cfg, AdamWConfig(grad_clip_norm=tc.grad_clip), base_lr=tc.base_lr,
+        warmup=tc.warmup, total_steps=tc.total_steps)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    opt = adamw_init(params)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    state = {"params": _tree_bytes(params), "moments": _tree_bytes(opt),
+             "allocated_before_bytes": (torch.cuda.memory_allocated()
+                                        if cuda else None)}
+    rows = []
+    for s in range(steps):
+        b = _lm_batch(dcfg, s, dev)
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, b, s)
+        loss = float(metrics["loss"])  # waits for the step
+        dt = time.perf_counter() - t0
+        row = {"step": s, "loss": loss, "lr": float(metrics["lr"]),
+               "s": dt, "steps_per_s": 1.0 / dt,
+               "tokens_per_s": batch * seq / dt,
+               "peak_allocated_bytes": (torch.cuda.max_memory_allocated()
+                                        if cuda else None)}
+        print(f"phase L2 step {s}: {json.dumps(row)}", flush=True)
+        rows.append(row)
+        if not math.isfinite(loss):
+            fail(f"phase L2 step {s}: loss {loss}")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    prof = (profile_run(lambda: step_fn(params, opt,
+                                        _lm_batch(dcfg, steps, dev), steps))
+            if cuda else None)
+    for i, p in enumerate(_tree_leaves(params)):
+        if not bool(torch.isfinite(p).all()):
+            fail(f"phase L2: param leaf {i} {tuple(p.shape)} is not finite "
+                 f"after {steps} steps")
+    _, _, grads = lm.loss_and_grads(params, _lm_batch(dcfg, steps + 1, dev),
+                                    cfg)
+    for i, (g, p) in enumerate(zip(_tree_leaves(grads),
+                                   _tree_leaves(params))):
+        if g.dtype != p.dtype or g.dtype != torch.bfloat16:
+            fail(f"phase L2: grad leaf {i} is {g.dtype}, its param "
+                 f"{p.dtype} (both must be bfloat16)")
+        if not bool(torch.isfinite(g).all()):
+            fail(f"phase L2: grad leaf {i} {tuple(g.shape)} is not finite")
+    del grads
+    steady = rows[1:] or rows
+    step_s = statistics.median(r["s"] for r in steady)
+    return {"config": {"arch": L_ARCH, "num_layers": cfg.num_layers,
+                       "d_model": cfg.d_model, "num_heads": cfg.num_heads,
+                       "num_kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+                       "vocab_size": cfg.vocab_size, "dtype": cfg.dtype,
+                       "remat": cfg.remat, "q_block": cfg.q_block,
+                       "loss_chunk": cfg.loss_chunk, "batch": batch,
+                       "seq": seq, "params": cfg.param_count()},
+            "state_bytes": state, "steps": rows,
+            "median_step_s_after_first": step_s,
+            "steps_per_s": 1.0 / step_s,
+            "tokens_per_s": batch * seq / step_s,
+            "peak_allocated_bytes": peak, "profile_one_step": prof}
+
+
+def l3_trainer(cfg, dev, steps: int = L3_STEPS,
+               ckpt_every: int = L3_CKPT_EVERY, fault_at: int = L3_FAULT_AT,
+               resume_steps: int = L3_RESUME_STEPS, batch: int = L1_BATCH,
+               seq: int = L1_SEQ) -> dict:
+    """The Trainer on ``dev`` in a temporary checkpoint dir (removed at the
+    end): ``steps`` steps with a checkpoint every ``ckpt_every`` and one
+    fault injected at ``fault_at``; exactly that one restart, with the
+    injected error, must happen, and the last 5 steps' mean loss must be
+    below the first 5's. One save and one load of the final state are
+    timed. Then ``2 x resume_steps`` straight steps against
+    ``resume_steps`` + a fresh Trainer resuming for ``resume_steps`` more:
+    no restart, and the final losses within ``L3_RESUME_RTOL``."""
+    import tempfile
+
+    import torch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cuda = torch.device(dev).type == "cuda"
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    injected = RuntimeError(f"injected fault at step {fault_at}")
+    armed = [True]
+
+    def fault(step):
+        if step == fault_at and armed[0]:
+            armed[0] = False
+            raise injected
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        tmp = Path(tmp)
+
+        def trainer(name, **kw):
+            tcfg = TrainerConfig(
+                ckpt_dir=str(tmp / name), ckpt_every=ckpt_every,
+                grad_clip=L_GRAD_CLIP, metrics_path=str(tmp / "metrics"),
+                **dict(L_SCHEDULE, total_steps=steps))
+            return Trainer(cfg, dcfg, tcfg, device=dev, **kw)
+
+        t = trainer("fault", fault_hook=fault)
+        t0 = time.perf_counter()
+        out = t.run(steps, resume=False)
+        sync()
+        wall = time.perf_counter() - t0
+        events = [m for m in t.metrics if m.get("event") == "restart"]
+        if (out["restarts"], len(events), out["final_step"]) != (1, 1,
+                                                                  steps):
+            fail(f"phase L3: restarts {out['restarts']}, restart events "
+                 f"{events}, final step {out['final_step']} (want exactly "
+                 f"the one injected restart and step {steps})")
+        if events[0]["error"] != repr(injected)[:200]:
+            fail(f"phase L3: the restart caught {events[0]['error']}, not "
+                 "the injected fault")
+        last_ckpt = (fault_at // ckpt_every) * ckpt_every
+        if events[0]["step"] != last_ckpt:
+            fail(f"phase L3: restarted at step {events[0]['step']}, the "
+                 f"latest checkpoint was step {last_ckpt}")
+        losses = out["losses"]
+        first, last = (statistics.mean(losses[:5]),
+                       statistics.mean(losses[-5:]))
+        if not last < first:
+            fail(f"phase L3: mean loss of the first 5 steps {first:.4f}, "
+                 f"of the last 5 {last:.4f} (must fall)")
+        state = {"params": out["params"], "opt": out["opt"]}
+        sync()
+        t0 = time.perf_counter()
+        path = ckpt.save(tmp / "timed", out["final_step"], state)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.perf_counter()
+        loaded, _ = ckpt.load(tmp / "timed", state)
+        sync()
+        load_s = time.perf_counter() - t0
+        for a, b in zip(_tree_leaves(loaded), _tree_leaves(state)):
+            if not torch.equal(a, b):
+                fail("phase L3: a checkpoint did not load back exactly")
+        del out, state, loaded
+        straight_t = trainer("straight")
+        straight = straight_t.run(2 * resume_steps, resume=False)
+        first_t = trainer("resume")
+        first_t.run(resume_steps, resume=False)
+        resumed_t = trainer("resume")
+        resumed = resumed_t.run(resume_steps, resume=True)
+        if (straight_t.restarts, first_t.restarts, resumed_t.restarts) != (
+                0, 0, 0) or resumed["final_step"] != 2 * resume_steps:
+            fail(f"phase L3 resume: restarts {straight_t.restarts}, "
+                 f"{first_t.restarts}, {resumed_t.restarts}; final step "
+                 f"{resumed['final_step']}")
+        a, b = straight["losses"][-1], resumed["losses"][-1]
+        gap = abs(a - b) / abs(a)
+        if gap > L3_RESUME_RTOL:
+            fail(f"phase L3 resume: final loss {b} after resuming, {a} "
+                 f"straight (rtol {gap:.3g} > {L3_RESUME_RTOL})")
+        return {"steps": steps, "ckpt_every": ckpt_every,
+                "fault_at": fault_at, "restart_event": events[0],
+                "restarts": t.restarts,
+                "straggler_events": t.straggler_events,
+                "wall_s": wall, "loss_first5_mean": first,
+                "loss_last5_mean": last,
+                "checkpoint": {"bytes": nbytes, "save_s": save_s,
+                               "load_s": load_s},
+                "resume": {"straight_final_loss": a,
+                           "resumed_final_loss": b, "rel_gap": gap,
+                           "bit_equal": straight["losses"][resume_steps:]
+                           == resumed["losses"]}}
+
+
+def run_phase_l(dev, reset, counts, *, l1_cfg=None, l2_cfg=None,
+                l1_kw=None, l2_kw=None, l3_kw=None) -> dict:
+    """Phase L: L1 (:func:`l1_check_steps`), L2 (:func:`l2_full_width`) and
+    L3 (:func:`l3_trainer`); the training path runs no hand-written
+    kernel (the reference trains through plain einsums), so every launch
+    count must stay 0. Each part prints its seconds."""
+    import torch
+
+    cuda = torch.device(dev).type == "cuda"
+    l1_cfg = l1_cfg or l_config()
+    out = {"l1_config": {"arch": L_ARCH, "params": l1_cfg.param_count(),
+                         **L1_WIDTHS, "batch": L1_BATCH, "seq": L1_SEQ}}
+    reset()
+    for name, fn in (
+            ("L1", lambda: l1_check_steps(l1_cfg, dev, **(l1_kw or {}))),
+            ("L2", lambda: l2_full_width(dev, l2_cfg, **(l2_kw or {}))),
+            ("L3", lambda: l3_trainer(l1_cfg, dev, **(l3_kw or {})))):
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        print(f"phase {name}: {out[f'{name}_s']:.1f} s", flush=True)
+    out["launches"] = counts()
+    if any(out["launches"].values()):
+        fail(f"phase L launched a hand-written kernel: {out['launches']}")
+    return out
 
 
 def main() -> int:
@@ -3056,6 +3428,8 @@ def main() -> int:
     phase_done("S")
     arms["F"] = run_lm_arm()
     phase_done("arm F")
+    training_l = run_phase_l(dev, reset, counts)
+    phase_done("L")
     for name, arm in arms.items():
         print(f"arm {name}: {json.dumps(arm)}")
     print(f"B1 launches: arm A {arms['A']['launches']['gather_trilerp']} "
@@ -3145,6 +3519,30 @@ def main() -> int:
           f"prompt tok/s, {f['ticks']} ticks, B6 launches "
           f"{f['launches']['flash_attention']}, peak "
           f"{f['max_memory_allocated'] / 1e9:.2f} GB")
+    l1, l2, l3 = (training_l[k] for k in ("L1", "L2", "L3"))
+    print(f"phase L1 {L_ARCH}-100m ({training_l['l1_config']['params']:,} "
+          f"params, {smi}): card vs CPU, first {len(l1)} train steps: "
+          f"{json.dumps(l1)}")
+    print(f"phase L2 {L_ARCH} at full width, {l2['config']['num_layers']} "
+          f"layers, {l2['config']['batch']} x {l2['config']['seq']} "
+          f"({l2['config']['params']:,} params, {smi}): "
+          f"{l2['steps_per_s']:.3f} steps/s, {l2['tokens_per_s']:.0f} "
+          f"tokens/s (median step after the first), peak allocated "
+          f"{l2['peak_allocated_bytes'] / 1e9:.2f} GB (params "
+          f"{l2['state_bytes']['params'] / 1e9:.2f} GB, moments "
+          f"{l2['state_bytes']['moments'] / 1e9:.2f} GB), losses "
+          f"{[round(r['loss'], 4) for r in l2['steps']]}")
+    p = l2["profile_one_step"]
+    print(f"phase L2 one step profiled ({smi}): busy "
+          f"{p['device_busy_share']}, {p['device_events']} device events, "
+          f"{p['host_cuda_launch_kernel']['count']} launches; top device "
+          f"{json.dumps(p['top_device'])}")
+    print(f"phase L3 Trainer ({smi}): {l3['steps']} steps in "
+          f"{l3['wall_s']:.1f} s, restart {l3['restart_event']}, loss "
+          f"{l3['loss_first5_mean']:.4f} -> {l3['loss_last5_mean']:.4f}; "
+          f"checkpoint {l3['checkpoint']['bytes'] / 1e9:.3f} GB saved in "
+          f"{l3['checkpoint']['save_s']:.2f} s, loaded in "
+          f"{l3['checkpoint']['load_s']:.2f} s; resume {l3['resume']}")
 
     # 5. timings beside the bounds ----------------------------------------
     def b1_cost(tbl, ids, w):
@@ -3359,6 +3757,7 @@ def main() -> int:
     path_launches["E_c40_fused"] = wide["launches_fused"]
     path_launches["E_c40_staged"] = wide["launches_staged"]
     path_launches["F1"] = arms["F"]["F1"]["launches"]
+    path_launches["L"] = training_l["launches"]
     for name, want in EAGER_LAUNCHES.items():
         got = {k: path_launches[name][k] for k in want}
         if got != want:
@@ -3452,6 +3851,7 @@ def main() -> int:
                                    "prefill_prompt_tok_per_s", "ticks")},
         "steady_tick_S": steady,
         "training_T": training,
+        "training_L": training_l,
         "phase_s": phase_s, "total_s": sum(phase_s.values()),
         "card": card}))
     print(json.dumps({"ok": True, "device": {
@@ -3478,6 +3878,7 @@ EAGER_LAUNCHES = {
         "H_full": (32, 0, 0, 0, 0), "H_host": (33, 0, 0, 0, 0),
         "H_temporal": (33, 0, 0, 0, 0), "H_ds2": (32, 0, 0, 0, 0),
         "F": (0, 0, 0, 0, 0), "F1": (0, 0, 0, 0, 0),
+        "L": (0, 0, 0, 0, 0),
         "I cicero-dvgo": (258, 258, 0, 0, 0),
         "I cicero-ngp": (0, 258, 0, 0, 0),
         "I cicero-tensorf": (0, 258, 0, 0, 0),

@@ -4,12 +4,15 @@ A model is a stack of ``LayerSpec`` periods; ``num_layers / period``
 repeats of the pattern. The port keeps its own copy of the dataclasses so
 that it never imports the reference package. It runs dense, full-attention
 models only (the MoE, hybrid, SSM, audio and VLM families are ROADMAP.md
-A14), so it has only the reference's fields that such a model reads, under
-their names, and the three sharding and training fields the configs set
-(``sharding_strategy``, ``loss_chunk``, ``skip_shapes``), which it records
-so that the configs copy over value for value and reads nowhere: the port
-runs on one device and does not train. A layer or family it does not run
-raises when the config is built.
+A2), so it has only the reference's fields that such a model reads, under
+their names: the model's widths, attention and numerics, and the training
+knobs ``q_block`` (the blocked attention's query tile), ``loss_chunk``
+(the cross-entropy's sequence chunk) and ``remat`` (recompute each period
+in the backward pass). It also records the two fields the configs set
+that only a sharded run reads (``sharding_strategy``, ``skip_shapes``;
+ROADMAP.md A3), so that the configs copy over value for value; the port
+runs on one device and reads them nowhere. A layer or family it does not
+run raises when the config is built.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ class LayerSpec:
     ffn: str = "dense"  # dense (the reference's moe | none raise)
 
 
-_NOT_PORTED = "not ported (ROADMAP.md A14: the LM substrate's other families)"
+_NOT_PORTED = "not ported (ROADMAP.md A2: the LM substrate's other families)"
 
 
 @dataclass(frozen=True)
@@ -47,8 +50,11 @@ class ModelConfig:
     rope_theta: float = 10000.0
     logit_softcap: float = 0.0  # > 0 is not ported (the model raises)
 
-    # --- the reference's sharding and training knobs (recorded only) ---
-    loss_chunk: int = 512
+    # --- training knobs ---
+    q_block: int = 1024  # blocked-attention query tile
+    loss_chunk: int = 512  # cross-entropy sequence chunk
+
+    # --- the reference's sharding knobs (recorded only) ---
     sharding_strategy: str = "tp"
     skip_shapes: Tuple[str, ...] = ()
 
@@ -56,6 +62,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    remat: bool = True  # recompute each period's forward in the backward
 
     def __post_init__(self):
         if self.family != "dense":

@@ -32,7 +32,7 @@ def get(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]}) is not ported; see "
-            "ROADMAP.md (A14: the LM substrate's other families)")
+            "ROADMAP.md (A2: the LM substrate's other families)")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]

@@ -5,7 +5,9 @@ tensors on a device, so that both packages compute the same function: the
 NeRF's (``{"table" | "tables" | "planes", "lines", "basis", "decoder":
 {w1, b1, w2, b2, w_sigma, w_rgb, b_rgb}}``, optionally ``"mv_table"``)
 with :func:`params_from_numpy`, the LM's
-(``lm.init_params``'s tree) with :func:`lm_params_from_numpy`.
+(``lm.init_params``'s tree) with :func:`lm_params_from_numpy` and its
+AdamW state (``adamw_init``'s ``{"m", "v"}``) with
+:func:`lm_opt_state_from_numpy`.
 """
 from __future__ import annotations
 
@@ -44,20 +46,11 @@ def _tensor(x, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
-                         device: DeviceLike = None) -> dict:
-    """The reference's LM parameters (``{"embed", "blocks", "final_norm",
-    "head"?}``, leaves as numpy arrays) -> the port's (``{"embed",
-    "layers", "final_norm", "head"?}``) on ``device`` (default: the CUDA
-    card; raises without one), in ``cfg.dtype``.
-
-    ``tree["blocks"]`` holds one dict per layer of the pattern, each leaf
-    stacked on a leading ``num_periods`` axis; layer ``p * period + i`` is
-    entry ``i`` at index ``p``."""
-    dev = resolve_device(device)
-    blocks.check_supported(cfg)
-    dtype = dtype_of(cfg.dtype)
-
+def _lm_tree(cfg: ModelConfig, tree: dict, dev: torch.device,
+             dtype: torch.dtype) -> dict:
+    """The reference's LM layout (``{"embed", "blocks", "final_norm",
+    "head"?}``) -> the port's (``{"embed", "layers", "final_norm",
+    "head"?}``), each leaf in ``dtype`` on ``dev``."""
     def conv(x, pick=None):
         if isinstance(x, dict):
             return {k: conv(v, pick) for k, v in x.items()}
@@ -75,3 +68,31 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
     if "head" in tree:
         out["head"] = conv(tree["head"])
     return out
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
+                         device: DeviceLike = None) -> dict:
+    """The reference's LM parameters (``{"embed", "blocks", "final_norm",
+    "head"?}``, leaves as numpy arrays) -> the port's (``{"embed",
+    "layers", "final_norm", "head"?}``) on ``device`` (default: the CUDA
+    card; raises without one), in ``cfg.dtype``.
+
+    ``tree["blocks"]`` holds one dict per layer of the pattern, each leaf
+    stacked on a leading ``num_periods`` axis; layer ``p * period + i`` is
+    entry ``i`` at index ``p``."""
+    dev = resolve_device(device)
+    blocks.check_supported(cfg)
+    return _lm_tree(cfg, tree, dev, dtype_of(cfg.dtype))
+
+
+def lm_opt_state_from_numpy(cfg: ModelConfig, state: dict,
+                            device: DeviceLike = None) -> dict:
+    """The reference's AdamW state of an LM (``{"m": tree, "v": tree}``,
+    each tree in its parameters' layout) -> the port's, laid out as
+    :func:`lm_params_from_numpy` lays out the parameters, on ``device``
+    (default: the CUDA card; raises without one). The moments stay
+    float32, whatever ``cfg.dtype``."""
+    dev = resolve_device(device)
+    blocks.check_supported(cfg)
+    return {k: _lm_tree(cfg, state[k], dev, torch.float32)
+            for k in ("m", "v")}

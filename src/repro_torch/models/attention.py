@@ -1,6 +1,11 @@
 """GQA attention with RoPE and a KV cache (port of the full-attention,
 self-attention parts of ``repro.models.attention``).
 
+Training runs :func:`attn_train`: the reference's blocked attention in
+plain PyTorch under autograd (float32 scores, one ``[blk, S]`` row block
+of queries at a time), as the reference trains through plain einsums and
+not through its Pallas kernel, which has no gradient.
+
 Prefill and decode both run kernel B6 (:mod:`repro_torch.kernels.
 flash_attention`), where the reference computes the same functions with
 plain einsums: prefill is causal attention with ``Sq == Sk`` (the
@@ -9,7 +14,7 @@ keys ``<= index`` valid (``attn_decode``'s ``valid = kpos <= index``), i.e.
 ``causal=False, kv_len=min(index + 1, S_max)``. Softmax in fp32 either way.
 
 Not ported: local (chunked-window) attention, logit soft-capping and
-cross-attention (``ROADMAP.md`` A14); the entry points raise for them
+cross-attention (``ROADMAP.md`` A2); the entry points raise for them
 (:func:`check_supported`, and ``blocks.check_supported`` for encoder
 models).
 """
@@ -23,7 +28,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.common import ninit
 
-_NOT_PORTED = "not ported (ROADMAP.md A14: local attention and softcap)"
+_NOT_PORTED = "not ported (ROADMAP.md A2: local attention and softcap)"
+NEG_INF = -1e30
 
 
 def check_supported(cfg: ModelConfig, local: bool = False) -> None:
@@ -101,6 +107,61 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     v = v.reshape(b, s, kvh, hd)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
+          sm_scale: float) -> torch.Tensor:
+    """q [B, H, Lq, D], k/v [B, KVH, Lk, D], mask [1, 1, Lq, Lk] bool or
+    None. GQA by the static head gather ``h -> h // (H // KVH)``; scores,
+    softmax and the weighted sum in float32, the output cast back to q's
+    dtype."""
+    h, kvh = q.shape[1], k.shape[1]
+    if kvh != h:
+        idx = torch.arange(h, device=q.device) // (h // kvh)
+        k = k.index_select(1, idx)
+        v = v.index_select(1, idx)
+    s = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.float()).to(q.dtype)
+
+
+def _blocked_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: ModelConfig, *, q_block: int,
+                  causal: bool = True) -> torch.Tensor:
+    """q [B, H, S, D], k/v [B, KVH, S, D] -> [B, H, S, D], one block of
+    ``min(q_block, S)`` queries at a time against every key (never an
+    [S, S] score matrix); a block that does not divide S becomes S."""
+    s = q.shape[2]
+    blk = min(q_block, s)
+    if s % blk != 0:  # tiny smoke shapes
+        blk = s
+    sm = cfg.head_dim**-0.5
+    kpos = torch.arange(s, device=q.device)[None, :]
+    outs = []
+    for start in range(0, s, blk):
+        qpos = start + torch.arange(blk, device=q.device)[:, None]
+        mask = (qpos >= kpos)[None, None] if causal else None
+        outs.append(_sdpa(q[:, :, start:start + blk], k, v, mask, sm))
+    return torch.cat(outs, dim=2)
+
+
+def attn_train(params, x: torch.Tensor, cfg: ModelConfig, *,
+               q_block: int = 0, positions=None, causal: bool = True
+               ) -> torch.Tensor:
+    """Self-attention for training over x [B, S, D] (positions default to
+    0..S-1), blocked by ``q_block or cfg.q_block`` queries; causal or
+    bidirectional. Differentiable: plain PyTorch, no kernel."""
+    check_supported(cfg)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    o = _blocked_attn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      cfg, q_block=q_block or cfg.q_block, causal=causal)
+    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return o @ params["wo"]
 
 
 def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache_len: int

@@ -1,10 +1,22 @@
-"""Top-level LM serving entry points (port of the serving half of
-``repro.models.lm``): parameters, prefill and decode steps, KV caches.
+"""Top-level LM (port of ``repro.models.lm``): parameters, the training
+loss and train step, and the serving entry points (prefill and decode
+steps, KV caches).
 
 Parameters are a dict ``{"embed" [V, D], "layers": [one dict per layer],
 "final_norm", "head" [D, V] (absent when the embeddings are tied)}``.
-Training (``chunked_ce``, the train step) is not ported (``ROADMAP.md``
-A14).
+
+Training: :func:`loss_fn` is the backbone (:func:`blocks.stack_train`)
+and the chunked cross-entropy (:func:`chunked_ce`: the head matmul and
+``logsumexp`` one sequence chunk at a time, never all ``[B, S, V]``
+logits at once); :func:`make_train_step` takes its gradients with
+autograd and updates the params and the AdamW moments in place
+(:func:`repro_torch.optim.adamw_update_`), the reference's donated jitted
+step. The reference casts the cotangent back to the model's dtype where
+the float32 loss meets the backbone (``_grad_dtype_boundary``); torch's
+autograd casts every cotangent to its tensor's dtype already, so the
+port needs no such boundary. The encoder (audio) and image-prefix (VLM)
+branches belong to the families the port does not run (``ROADMAP.md``
+A2).
 """
 from __future__ import annotations
 
@@ -16,6 +28,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import dtype_of, ninit, rmsnorm, rmsnorm_init
+from repro_torch.optim import AdamWConfig, adamw_update_, cosine_warmup
+from repro_torch.optim.adamw import tree_flatten
 from repro_torch.utils import DeviceLike, resolve_device
 
 
@@ -58,6 +72,98 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     norm is per position, so only the last one is normed)."""
     x = rmsnorm(params["final_norm"], x[:, -1], cfg.norm_eps)
     return (x @ _head(params, cfg)).float()
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def backbone(params, tokens: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (normed hidden [B, S, D], auxiliary loss)."""
+    x = _embed(params, tokens)
+    x, aux = blocks.stack_train(params["layers"], x, cfg)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def chunked_ce(h: torch.Tensor, targets: torch.Tensor, head: torch.Tensor,
+               mask: Optional[torch.Tensor] = None, chunk: int = 512
+               ) -> torch.Tensor:
+    """Mean token cross-entropy, float32, the head matmul and
+    ``logsumexp`` one chunk of ``min(chunk, S)`` positions at a time (S
+    when that does not divide S). With ``mask`` [B, S] the mean is over
+    its weights, the denominator at least 1."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    if s % c != 0:
+        c = s
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for start in range(0, s, c):
+        logits = (h[:, start:start + c] @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tx = targets[:, start:start + c].long()
+        true = torch.gather(logits, -1, tx[..., None])[..., 0]
+        nll = lse - true
+        if mask is not None:
+            nll = nll * mask[:, start:start + c]
+        total = total + nll.sum()
+    denom = (mask.sum().float() if mask is not None
+             else torch.tensor(float(b * s), dtype=torch.float32))
+    return total / torch.clamp(denom, min=1.0)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            aux_coef: float = 0.01) -> Tuple[torch.Tensor, Dict]:
+    """(loss, {"ce", "aux"}): the chunked cross-entropy of ``batch
+    ["targets"]`` given ``batch["tokens"]`` (weighted by
+    ``batch["loss_mask"]`` when present) plus ``aux_coef`` x aux."""
+    h, aux = backbone(params, batch["tokens"], cfg)
+    ce = chunked_ce(h, batch["targets"], _head(params, cfg),
+                    mask=batch.get("loss_mask"), chunk=cfg.loss_chunk)
+    return ce + aux_coef * aux, {"ce": ce, "aux": aux}
+
+
+def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   aux_coef: float = 0.01) -> Tuple[torch.Tensor, Dict,
+                                                     dict]:
+    """(loss, metrics, grads): :func:`loss_fn` and its gradient with
+    respect to every leaf of ``params``, in the params' structure and
+    dtypes (``jax.value_and_grad(loss_fn, has_aux=True)``). The params are
+    not modified and need not require grad."""
+    leaves, unflatten = tree_flatten(params)
+    with torch.enable_grad():
+        xs = [p.detach().requires_grad_(True) for p in leaves]
+        loss, metrics = loss_fn(unflatten(xs), batch, cfg, aux_coef)
+        grads = torch.autograd.grad(loss, xs)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, unflatten(list(grads))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
+                    base_lr: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10000):
+    """``train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics)``: :func:`loss_and_grads`, the learning rate of
+    ``cosine_warmup`` at ``step`` (0-based), then AdamW written into
+    ``params`` and ``opt_state`` themselves, which are returned (the
+    reference donates them to its jitted step). ``metrics``: ``loss``,
+    ``ce``, ``aux`` and ``lr``, as tensors."""
+    blocks.check_supported(cfg)
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(params, opt_state, batch, step):
+        loss, metrics, grads = loss_and_grads(params, batch, cfg)
+        lr = cosine_warmup(step, base_lr, warmup, total_steps)
+        adamw_update_(grads, params, opt_state, step, opt_cfg, lr)
+        return params, opt_state, dict(metrics, loss=loss, lr=lr)
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):

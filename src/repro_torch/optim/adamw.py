@@ -9,6 +9,12 @@ never serve values from before the update::
     state = adamw_init(params)
     params, state = adamw_update(grads, params, state, step, cfg, lr)
 
+:func:`adamw_update_` is the same update written into the params and
+moments it is given, the port of the reference's LM train step, which
+donates them (``donate_argnums``): no second copy of the params, the
+moments or a float32 copy of the grads is made, only two float32
+temporaries the size of the leaf being updated.
+
 Params, grads and moments are nested dicts and lists of tensors (a NeRF's
 ``{"tables": [...], "decoder": {...}}``). ``torch.optim.AdamW`` is not
 the same update: it has no global-norm clip, decays the weights before
@@ -116,3 +122,46 @@ def adamw_update(grads: Tree, params: Tree, state: dict, step,
         new_m.append(m)
         new_v.append(v)
     return unflatten(new_p), {"m": unflatten(new_m), "v": unflatten(new_v)}
+
+
+def adamw_update_(grads: Tree, params: Tree, state: dict, step,
+                  cfg: AdamWConfig, lr) -> None:
+    """:func:`adamw_update` in place: each leaf of ``params``,
+    ``state["m"]`` and ``state["v"]`` is overwritten with its new value,
+    leaf by leaf, with the clip's scale applied per leaf. The same float32
+    operations in the same order, so the results are bit-equal to
+    :func:`adamw_update`'s. ``grads`` are read, never written."""
+    flat_p, _ = tree_flatten(params)
+    flat_g, _ = tree_flatten(grads)
+    flat_m, _ = tree_flatten(state["m"])
+    flat_v, _ = tree_flatten(state["v"])
+    if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
+        raise ValueError("grads, params and the AdamW state differ in "
+                         "structure")
+    scale = None
+    if cfg.grad_clip_norm > 0:
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
+    t = torch.as_tensor(step).to(torch.float32) + 1.0
+    b1 = torch.tensor(cfg.b1, dtype=torch.float32)
+    b2 = torch.tensor(cfg.b2, dtype=torch.float32)
+    bc1 = 1.0 - b1**t
+    bc2 = 1.0 - b2**t
+    with torch.no_grad():
+        for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+            g32 = g.float() if scale is None else g.float() * scale
+            tmp = (1.0 - cfg.b1) * g32
+            m.mul_(cfg.b1).add_(tmp)
+            torch.square(g32, out=tmp)
+            del g32
+            v.mul_(cfg.b2).add_(tmp.mul_(1.0 - cfg.b2))
+            upd = torch.div(m, bc1)  # mhat
+            torch.div(v, bc2, out=tmp)  # vhat
+            upd.div_(tmp.sqrt_().add_(cfg.eps))
+            if cfg.weight_decay > 0:
+                upd.add_(cfg.weight_decay * p.float())
+            upd.mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(upd)
+            else:
+                p.copy_(tmp.copy_(p).sub_(upd))

@@ -195,6 +195,8 @@ def test_configs_and_param_counts_match_jax(arch):
         dropped = {f.name: f.default for f in dataclasses.fields(j_cfg)
                    if f.name not in t_fields}
         assert dropped and all(j_fields[k] == d for k, d in dropped.items())
+        for knob in ("q_block", "remat", "loss_chunk"):  # read in training
+            assert getattr(t_cfg, knob) == getattr(j_cfg, knob), knob
         assert t_cfg.param_count() == j_cfg.param_count()
         assert t_cfg.active_param_count() == j_cfg.active_param_count()
 
@@ -229,7 +231,7 @@ def test_unported_attention_variants_raise():
                dict(layer_pattern=(LayerSpec(ffn="moe"),))):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cfg.with_(**kw)
-    for knob in ("encoder_layers", "moe_num_experts", "q_block", "remat"):
+    for knob in ("encoder_layers", "moe_num_experts"):
         with pytest.raises(TypeError):
             cfg.with_(**{knob: 1})
 

@@ -96,6 +96,37 @@ def test_training_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         train.fit_field(model, scene, gen, steps=1, batch=8)
 
 
+def test_lm_training_entry_points_need_a_card_or_an_explicit_cpu(
+        monkeypatch, tmp_path):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = registry.get_reduced("minitron-4b")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=1)
+    tcfg = TrainerConfig(ckpt_dir=str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, dcfg, tcfg)
+    zeros = lambda: {"embed": np.zeros((cfg.vocab_size, cfg.d_model),
+                                       np.float32),
+                     "blocks": ({},), "final_norm": {}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.lm_opt_state_from_numpy(cfg, {"m": zeros(), "v": zeros()})
+    opt = convert.lm_opt_state_from_numpy(cfg.with_(dtype="bfloat16"),
+                                          {"m": zeros(), "v": zeros()},
+                                          device="cpu")
+    assert opt["m"]["embed"].dtype == torch.float32  # moments stay float32
+    trainer = Trainer(cfg, dcfg, tcfg, device="cpu")
+    params, opt = trainer.init_state(0)
+    assert params["embed"].device.type == opt["v"]["embed"].device.type \
+        == "cpu"
+    # the train step runs where its params are
+    _, _, metrics = lm.make_train_step(cfg)(
+        params, opt, {k: torch.zeros((1, 8), dtype=torch.int32)
+                      for k in ("tokens", "targets")}, 0)
+    assert metrics["loss"].device.type == "cpu"
+
+
 def test_kernels_are_not_built_at_import():
     for kernel in (gather_trilerp.KERNEL, gather_trilerp.KERNEL_PER_SEG,
                    fused_nerf_mlp.KERNEL, streaming_pipeline.KERNEL,
