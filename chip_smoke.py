@@ -54,7 +54,16 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    1e-4: float32 sums of up to a split's length in another order), a
    ragged prefill (S = 1000) through ``ops.mha``, a top-left causal
    sq = 64, sk = 128 case, and the decode shape with Sq = 2, which runs it
-   through the prefill kernel instead; and (phase C5) B2 at S = 131,072 on
+   through the prefill kernel instead; B6's window and softcap (the
+   reference LM's local attention and ``logit_softcap``), both prefill
+   kernels in bfloat16 and float32: causal prefills under a window at arm
+   M2's shape ([1, 40, 10240, 128] against [1, 8, 10240, 128], window
+   8,192, the plain version computed 1,024 query rows at a time) and at
+   S = 65, 129 and 1,089 under a window of 64 (window + 1, + a 64-row
+   query block + 1, + the reference's q_block + 1), and softcap 30 at arm
+   F's prefill and decode shapes with q scaled by 8 (the decode's split
+   kernel also alone against its plain partials); and (phase C5) B2 at
+   S = 131,072 on
    the widths fault C5 made raise, [C, H] = [8, 48] and [8, 96] (padded to
    the 64- and 128-wide templates) and [8, 160] and [96, 128] (the
    run-time-H mode), biases drawn non-zero; and (arm I's shapes, on one
@@ -192,11 +201,12 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    ``torch.Generator`` seed 0 at the reference's scales, QKV biases drawn
    non-zero; 8 requests (prompts of 2048, 1536, 1024, 512, 1792, 768,
    1280 and 256 tokens, 32 new tokens each) on 4 slots, max_len 2084,
-   served cold, then warm, then profiled. B6's tensor-core prefill must
-   launch 16 x 8 times and its decode kernels 16 x (decode ticks) times
-   each, and nothing else. F2 (``f2_check``): each
-   request's prefill is rerun with B6 while every layer's B6 output is held
-   against the plain version on the same q/k/v (atol 8e-3 / rtol 1e-2),
+   served cold, then warm, then profiled (its first wave, 4 requests).
+   B6's tensor-core prefill must launch 16 x 8 times and its decode
+   kernels 16 x (decode ticks) times each, and nothing else. F2
+   (``f2_check``): each request's prefill is rerun with B6 while every
+   layer's B6 output is held against the plain version on the same q/k/v
+   (atol 8e-3 / rtol 1e-2),
    and its logits must come no further from the same prefill with float64
    attention (``attention_reference``) than 1.5x the plain version's max
    and 1.25x its RMS distance (the plain version already sits about 0.05
@@ -211,6 +221,33 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    unequal positions, so the shared decode index matters) on the card and
    on the CPU: equal token streams and stats, prefill logits within
    1e-3; it runs B6's float32 kernels (tile prefill, split-KV decode);
+   Arms M1, M and M2 (the MoE family and local attention through the LM
+   ``ServeEngine``; random weights from ``torch.Generator`` seeds, each
+   arm's weights freed before the next). M1: moonshot-v1-16b-a3b and
+   llama4-maverick at their REDUCED widths (float32, head_dim 128,
+   llama4's window 8) serve prompts of 24, 13, 9 and 5 tokens on 2 slots
+   (8 new tokens: decoding runs past the window) on the card and on the
+   CPU: equal token streams and stats, prefill logits within 1e-3; B6's
+   float32 kernels only. M: moonshot at full width (d 2,048, 16 heads,
+   MHA, 64 experts top-6 and the shared expert, ``moe_d_ff`` 1,408,
+   vocab 163,840, bfloat16), 16 of its 48 layers, served as arm F serves
+   (its 8 requests on 4 slots, max_len 2,084): cold, F2's check, warm,
+   then profiled on the first 4 requests with 8 new tokens each. M2:
+   llama4-maverick at full
+   widths (d 5,120, 40 heads, kv 8, d_ff 16,384, ``moe_d_ff`` 8,192,
+   vocab 202,048, window 8,192, bfloat16), one period of 4 layers (three
+   local, one global; MoE in layers 2 and 4), 64 of its 128 experts;
+   prompts of 10,240, 8,200, 1,024 and 512 tokens on 2 slots, 16 new
+   tokens each (max_len 10,260): cold, F2's check, warm, profiled. In M
+   and M2 B6's tensor-core prefill launches once per layer and request and
+   its decode kernels once per layer and tick, and nothing else; F2's
+   check runs with every router call's expert ids pinned to the checked
+   run's (``routing``: routing is a discrete decision that bfloat16 noise
+   flips), its logit limits 2x the plain version's distance
+   (``M_F2_LIMITS``), and M2's three local layers must pass B6 their
+   window; M2 also runs two of F2's controls at those limits
+   (``M2_F2_CONTROLS``: the planted ``diag_tile_dropped``'s logits must
+   break them on every request, the bfloat16 P.V is recorded);
    Phase L (LM training, ``models/lm.make_train_step`` and
    ``train/trainer.Trainer``; no kernel: the reference trains through
    plain einsums, so every launch count must stay 0; TF32 off). L1: the
@@ -243,7 +280,9 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    bound) (device
    time from CUDA events, see ``time_ms``) beside the least time the card
    could take (B6 also beside ``scaled_dot_product_attention`` on the
-   same tensors, the library yardstick), and print them as one JSON line,
+   same tensors, the library yardstick; B6's windowed cases beside SDPA
+   with a boolean band mask, its softcapped ones beside SDPA without the
+   cap, which no PyTorch call applies), and print them as one JSON line,
    then the arms' wall times and each phase's seconds;
 6. print ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1304,13 +1343,20 @@ F2_FAULTS = ("diag_tile_dropped", "strict_causal", "gqa_modulo")
 F2_PRECISION = ("bf16_scores", "bf16_pv")
 
 
+# rows of queries at a time where a check computes attention outside the
+# kernels (the plain version, the float64 reference): arm M2's 10,240-row
+# prefill would need 16.8 GB of fp32 scores at once
+PLAIN_Q_BLOCK = 1024
+
+
 def attention_reference(q, k, v, *, causal=True, sm_scale=None, kv_len=None,
-                        acc="float64", fault=None):
+                        window=0, softcap=0.0, acc="float64", fault=None,
+                        q_block=PLAIN_Q_BLOCK):
     """B6's function with scores, softmax and sums in ``acc`` (float64 by
     default, the reference F2 holds the kernel and its plain version
-    against), rounded once to ``q``'s dtype; ``fault`` plants one of F2's
-    controls (``F2_FAULTS``, ``F2_PRECISION``). A check harness: the port
-    never calls it."""
+    against), ``q_block`` query rows at a time, rounded once to ``q``'s
+    dtype; ``fault`` plants one of F2's controls (``F2_FAULTS``,
+    ``F2_PRECISION``). A check harness: the port never calls it."""
     import torch
 
     acc = getattr(torch, acc)
@@ -1323,26 +1369,42 @@ def attention_reference(q, k, v, *, causal=True, sm_scale=None, kv_len=None,
         heads = torch.arange(h, device=q.device) % kvh
         k, v = k[:, heads], v[:, heads]
         kvh, g = h, 1
-    s = (q.to(acc).reshape(b, kvh, g * sq, d)
-         @ k.to(acc).transpose(-1, -2)) * sm_scale
-    if fault == "bf16_scores":
-        s = s.to(torch.bfloat16).to(acc)
-    s = s.reshape(b, kvh, g, sq, sk)
+    ka, va = k.to(acc), v.to(acc)
     kpos = torch.arange(sk, device=q.device)[None, :]
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    valid = kpos < kv_len
-    if causal:
-        valid = valid & ((qpos > kpos) if fault == "strict_causal"
-                         else (qpos >= kpos))
-    if fault == "diag_tile_dropped":  # each row loses its own 32-key tile
-        valid = valid & (kpos < qpos // 32 * 32)
-    s = torch.where(valid, s, torch.full_like(s, -1e30))
-    p = torch.softmax(s, dim=-1).reshape(b, kvh, g * sq, sk)
-    if fault == "bf16_pv":
-        o = (p.to(torch.bfloat16) @ v.to(torch.bfloat16)).to(acc)
-    else:
-        o = p @ v.to(acc)
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    outs = []
+    for q0 in range(0, sq, q_block):
+        n = min(q_block, sq - q0)
+        s = (q[:, :, q0:q0 + n].to(acc).reshape(b, kvh, g * n, d)
+             @ ka.transpose(-1, -2)) * sm_scale
+        if fault == "bf16_scores":
+            s = s.to(torch.bfloat16).to(acc)
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.reshape(b, kvh, g, n, sk)
+        qpos = q0 + torch.arange(n, device=q.device)[:, None]
+        valid = kpos < kv_len
+        if causal:
+            valid = valid & ((qpos > kpos) if fault == "strict_causal"
+                             else (qpos >= kpos))
+        if window > 0:
+            valid = valid & (qpos - kpos < window)
+        if fault == "diag_tile_dropped":  # a row loses its own 32-key tile
+            valid = valid & (kpos < qpos // 32 * 32)
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        p = torch.softmax(s, dim=-1).reshape(b, kvh, g * n, sk)
+        if fault == "bf16_pv":
+            o = (p.to(torch.bfloat16) @ va.to(torch.bfloat16)).to(acc)
+        else:
+            o = p @ va
+        outs.append(o.reshape(b, h, n, d))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def plain_attention(q, k, v, **kw):
+    """B6's plain version, ``PLAIN_Q_BLOCK`` query rows at a time."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return fa.flash_attention_plain(q, k, v, q_block=PLAIN_Q_BLOCK, **kw)
 
 
 def _prefill_with(cfg, params, request, max_len: int, attend):
@@ -1368,28 +1430,66 @@ def _prefill_with(cfg, params, request, max_len: int, attend):
 def f2_references(cfg, params, requests, max_len: int) -> list:
     """Each request's prefill logits with the plain version and with
     float64 attention: what ``f2_check`` holds an attention against."""
-    from repro_torch.kernels import flash_attention as fa
-
     return [{name: _prefill_with(cfg, params, r, max_len, fn)
-             for name, fn in (("plain", fa.flash_attention_plain),
+             for name, fn in (("plain", plain_attention),
                               ("f64", attention_reference))} for r in requests]
 
 
+@contextlib.contextmanager
+def routing(log: list, replay: bool):
+    """Record (``replay`` False) or replay each MoE router call's expert
+    ids (``models.moe._router``) in call order. A replayed call keeps its
+    own gates' values at the recorded ids (renormalized, as the router
+    does) and counts the tokens whose own top-k differs ("flips"). A
+    check harness: the port never calls it."""
+    import torch
+    from repro_torch.models import moe
+
+    real, calls = moe._router, iter(list(log))
+    flips = {"tokens": 0}
+
+    def spy(params, x, cfg):
+        idx, gate, aux = real(params, x, cfg)
+        if not replay:
+            log.append(idx.clone())
+            return idx, gate, aux
+        forced = next(calls)
+        flips["tokens"] += int((idx != forced).any(-1).sum())
+        gates = torch.softmax(x.float() @ params["router"], dim=-1)
+        g = torch.gather(gates, -1, forced)
+        g = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+        return forced, g.to(x.dtype), aux
+
+    moe._router = spy
+    try:
+        yield flips
+    finally:
+        moe._router = real
+
+
 def f2_check(cfg, params, requests, refs, max_len: int, tol: dict,
-             attend=None, served=None) -> list:
+             attend=None, served=None, limits=(1.5, 1.25)) -> list:
     """F2 for one attention, ``attend`` (default: ``flash_attention`` as the
     path calls it; else one of F2's controls). Each request's prefill is
     rerun on the card with ``attend`` in the path's place, spying on every
     layer's call to hold its output against the plain version on the same
     q/k/v within ``tol``. F2 holds for a request when every layer's
     attention is within ``tol`` and the logits come no further from the
-    float64 prefill (``refs``, from ``f2_references``) than 1.5x the plain
-    version's max (at least 3e-2) and 1.25x its RMS distance (at least
-    1e-3). ``served``: the logits the engine's prefills gave, recorded as
-    equal to the rerun or not. The logit distance alone misses attention
-    faults that the model's bfloat16 rounding hides (random weights make
-    attention nearly uniform); the per-layer comparison does not. Returns
-    one row per request."""
+    float64 prefill (``refs``, from ``f2_references``) than ``limits`` x
+    the plain version's max (at least 3e-2) and RMS distance (at least
+    1e-3), 1.5x and 1.25x by default. ``served``: the logits the engine's
+    prefills gave, recorded as equal to the rerun or not. The logit
+    distance alone misses attention faults that the model's bfloat16
+    rounding hides (random weights make attention nearly uniform); the
+    per-layer comparison does not. Returns one row per request.
+
+    ``refs`` None (an MoE model): each request's references are computed
+    after its rerun, with every router call's expert ids pinned to the
+    rerun's (``routing``). Routing is a discrete decision: one bfloat16
+    step in a layer's attention can move a token to another expert and its
+    logits by O(1), whatever the attention's accuracy, so the logits are
+    compared on the same routing; the tokens the references would have
+    routed elsewhere on their own are recorded ("routing_flips")."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
@@ -1397,46 +1497,415 @@ def f2_check(cfg, params, requests, refs, max_len: int, tol: dict,
     dist = lambda a, b: (float((a - b).abs().max()),
                          float((a - b).pow(2).mean().sqrt()))
     rows = []
-    for i, (r, ref) in enumerate(zip(requests, refs)):
-        layer = {"err": 0.0, "ok": True}
+    for i, r in enumerate(requests):
+        layer = {"err": 0.0, "ok": True, "calls": 0, "windowed": 0}
 
         def spy(q, k, v, **kw):
             out = attend(q, k, v, **kw).float()
-            want = fa.flash_attention_plain(q, k, v, **kw).float()
+            want = plain_attention(q, k, v, **kw).float()
             layer["err"] = max(layer["err"], float((out - want).abs().max()))
             layer["ok"] &= bool(torch.allclose(out, want, **tol))
+            layer["calls"] += 1
+            layer["windowed"] += int(kw.get("window", 0) > 0)
             return out.to(q.dtype)
 
-        got = _prefill_with(cfg, params, r, max_len, spy)
+        log, flips = [], {}
+        with routing(log, replay=False):
+            got = _prefill_with(cfg, params, r, max_len, spy)
+        if refs is None:
+            ref = {}
+            for name, fn in (("plain", plain_attention),
+                             ("f64", attention_reference)):
+                with routing(log, replay=True) as n:
+                    ref[name] = _prefill_with(cfg, params, r, max_len, fn)
+                flips[name] = n["tokens"]
+        else:
+            ref = refs[i]
         (k_max, k_rms), (p_max, p_rms) = (dist(got, ref["f64"]),
                                           dist(ref["plain"], ref["f64"]))
-        limits = [max(3e-2, 1.5 * p_max), max(1e-3, 1.25 * p_rms)]
-        logits_ok = k_max <= limits[0] and k_rms <= limits[1]
+        bound = [max(3e-2, limits[0] * p_max), max(1e-3, limits[1] * p_rms)]
+        logits_ok = k_max <= bound[0] and k_rms <= bound[1]
         rows.append({
             "rid": r.rid, "prompt": len(r.prompt),
             "layers_max_abs_err": layer["err"], "layers_ok": layer["ok"],
+            "layer_calls": layer["calls"],
+            "windowed_calls": layer["windowed"],
             "vs_f64_max_rms": [k_max, k_rms],
             "plain_vs_f64_max_rms": [p_max, p_rms],
-            "limits_max_rms": limits, "logits_ok": logits_ok,
+            "limits_max_rms": bound, "logits_ok": logits_ok,
             "holds": layer["ok"] and logits_ok,
             "max_abs_err_vs_plain": dist(got, ref["plain"])[0],
             "within_3e-2_of_plain": bool(torch.allclose(
                 got, ref["plain"], atol=3e-2, rtol=3e-2)),
             "equal_to_served": (None if served is None
-                                else bool(torch.equal(got, served[i])))})
+                                else bool(torch.equal(got, served[i]))),
+            "router_calls": len(log), "routing_flips": flips})
     return rows
 
 
-def b6_cost(b, h, kvh, sq, kv_len, d, causal, elem_bytes):
+def b6_cost(b, h, kvh, sq, kv_len, d, causal, elem_bytes, window=0):
     """Bytes and flops the attention needs: q and o once, the kv_len rows
-    of K and V once; two products of 2 flops per multiply-add, the causal
-    triangle (top-left, queries 0..sq-1 over keys 0..kv_len-1) only."""
+    of K and V once; two products of 2 flops per multiply-add, over the
+    (query, key) pairs the masks leave (top-left: queries 0..sq-1 over
+    keys 0..kv_len-1; causal, keys <= the query; a window, keys less than
+    ``window`` before it). A softcap's tanh is not counted."""
     nbytes = (2 * b * h * sq * d + 2 * b * kvh * kv_len * d) * elem_bytes
-    if causal:
-        pairs = sum(min(i + 1, kv_len) for i in range(sq))
-    else:
-        pairs = sq * kv_len
+    pairs = 0
+    for i in range(sq):
+        hi = min(i + 1, kv_len) if causal else kv_len
+        lo = max(0, i - window + 1) if window > 0 else 0
+        pairs += max(hi - lo, 0)
     return nbytes, 2 * 2 * b * h * pairs * d
+
+
+# B6's window and softcap (the reference LM's local attention and
+# logit_softcap), held against the plain version in both dtypes: at arm
+# M2's windowed prefill, at S = window + 1, window + a 64-row query block
+# + 1 and window + the reference's q_block (1,024) + 1 under a window of
+# 64, and with softcap 30 at arm F's prefill and decode shapes, q scaled
+# by 8 so that the scores (std ~8) reach where the cap bends them
+B6_SMALL_WINDOW = 64
+B6_SOFTCAP = 30.0
+B6_SOFTCAP_Q_SCALE = 8.0
+
+# arms M1, M and M2: the MoE family and local attention through the LM
+# ServeEngine (see the module docstring)
+M_ARCH = "moonshot-v1-16b-a3b"
+M_LAYERS = 16  # of 48: arm F's depth
+M2_ARCH = "llama4-maverick-400b-a17b"
+M2_EXPERTS = 64  # of 128: all 128 leave too little of the card to prefill
+M2_WINDOW = 8192  # the config's local_window
+M2_PROMPTS = [10240, 8200, 1024, 512]  # 10,240 > window + q_block
+M2_SLOTS = 2
+M2_MAX_NEW = 16
+M1_PROMPTS = [24, 13, 9, 5]  # llama4-reduced's window is 8
+M1_SLOTS = 2
+M1_MAX_NEW = 8
+M1_MAX_LEN = 40
+# F2's logit limits in the MoE arms, against the plain version's distance
+# from the float64 prefill on the same routing: the path's bfloat16 P.V
+# sits up to 1.59x (max) and 1.48x (RMS) as far as the plain version in
+# arms M and M2 (PERF.md section 6), where arm F's dense layers stay
+# within 1.5x / 1.25x; each layer's attention is held to the plain
+# version at B6_BF16_TOL all the same
+M_F2_LIMITS = (2.0, 2.0)
+# F2's controls run in arm M2 at M_F2_LIMITS: a planted fault, whose logits
+# must break the limits on every request (it read 6.5-57x the plain
+# version's distance), and the bfloat16 P.V, recorded (1.1-1.5x), so that
+# the limits have readings on both sides (PERF.md section 6)
+M2_F2_CONTROLS = ("diag_tile_dropped", "bf16_pv")
+
+
+def b6_variant_cases(dev, gen) -> list:
+    """B6's windowed and softcapped cases: dicts of ``name``, ``qkv``,
+    ``kw`` (the wrapper's arguments), ``variant``, ``cost`` (bytes,
+    flops), ``library`` (SDPA on the same tensors: a boolean band mask
+    for a window; None for a softcap, which no PyTorch call computes),
+    ``sdpa_uncapped`` (SDPA without the cap, the nearest library call)
+    and ``few`` (time with fewer repeats: the long prefill)."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def rnd(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev,
+                                    dtype=torch.float32)).to(dtype)
+
+    def band(s, window):  # SDPA's boolean mask: True where a key is seen
+        qpos = torch.arange(s, device=dev)[:, None]
+        kpos = torch.arange(s, device=dev)[None, :]
+        return (qpos >= kpos) & (qpos - kpos < window)
+
+    cases = []
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        es = torch.empty((), dtype=dt).element_size()
+        for s, w in [(M2_PROMPTS[0], M2_WINDOW)] + [
+                (B6_SMALL_WINDOW + extra, B6_SMALL_WINDOW)
+                for extra in (1, 65, 1025)]:
+            q = rnd((1, 40, s, 128), dt)
+            k, v = rnd((1, 8, s, 128), dt), rnd((1, 8, s, 128), dt)
+            mask = band(s, w)
+            cases.append(dict(
+                name=f"windowed prefill {tag} q [1, 40, {s}, 128] k/v "
+                     f"[1, 8, {s}, 128] causal window {w}",
+                qkv=(q, k, v), kw=dict(causal=True, window=w),
+                variant="window", few=s > 4096,
+                # SDPA's masked float32 path holds [1, 40, S, S] scores:
+                # 16.8 GB at 10,240 rows, so it is timed in bfloat16 only
+                library=None if s > 4096 and es == 4 else (
+                    lambda q=q, k=k, v=v, m=mask: sdpa(
+                        q, k, v, attn_mask=m, enable_gqa=True)),
+                sdpa_uncapped=None,
+                cost=b6_cost(1, 40, 8, s, s, 128, True, es, window=w)))
+        q = rnd((1, 40, 2048, 128), dt, B6_SOFTCAP_Q_SCALE)
+        k, v = rnd((1, 8, 2048, 128), dt), rnd((1, 8, 2048, 128), dt)
+        cases.append(dict(
+            name=f"softcapped prefill {tag} q [1, 40, 2048, 128] (x "
+                 f"{B6_SOFTCAP_Q_SCALE:g}) k/v [1, 8, 2048, 128] causal "
+                 f"softcap {B6_SOFTCAP:g}",
+            qkv=(q, k, v), kw=dict(causal=True, softcap=B6_SOFTCAP),
+            variant="softcap", few=False, library=None,
+            sdpa_uncapped=lambda q=q, k=k, v=v: sdpa(
+                q, k, v, is_causal=True, enable_gqa=True),
+            cost=b6_cost(1, 40, 8, 2048, 2048, 128, True, es)))
+        q = rnd((LM_SLOTS, 40, 1, 128), dt, B6_SOFTCAP_Q_SCALE)
+        k, v = (rnd((LM_SLOTS, 8, LM_MAX_LEN, 128), dt) for _ in range(2))
+        cases.append(dict(
+            name=f"softcapped decode {tag} q [{LM_SLOTS}, 40, 1, 128] (x "
+                 f"{B6_SOFTCAP_Q_SCALE:g}) cache [{LM_SLOTS}, 8, "
+                 f"{LM_MAX_LEN}, 128] kv_len 2049 softcap {B6_SOFTCAP:g}",
+            qkv=(q, k, v),
+            kw=dict(causal=False, kv_len=2049, softcap=B6_SOFTCAP),
+            variant="softcap", few=False, library=None,
+            sdpa_uncapped=lambda q=q, k=k, v=v: sdpa(
+                q, k[:, :, :2049], v[:, :, :2049], enable_gqa=True),
+            cost=b6_cost(LM_SLOTS, 40, 8, 1, 2049, 128, False, es)))
+    return cases
+
+
+def moe_model(arch: str, dtype: str, seed: int, device, **widths):
+    """``arch`` at ``widths`` with random weights at the reference's
+    scales from a ``torch.Generator`` seeded ``seed`` on ``device``."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    cfg = registry.get(arch).with_(dtype=dtype, **widths)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, lm.init_params(cfg, gen, device)
+
+
+def lm_launches_want(cfg, prefills: int, ticks: int, prefill: str) -> dict:
+    """B6's launches on an LM serving run: its ``prefill`` kernel once per
+    layer and prefill, the decode's split and combine kernels once per
+    layer and tick; no other kernel."""
+    want = {f"{B6}.{prefill}": cfg.num_layers * prefills,
+            f"{B6}.decode_split": cfg.num_layers * ticks,
+            f"{B6}.decode_combine": cfg.num_layers * ticks}
+    want[B6] = sum(want.values())
+    return want
+
+
+def check_lm_launches(label: str, launches: dict, want: dict) -> None:
+    if any(n != want.get(name, 0) for name, n in launches.items()):
+        fail(f"{label}: launches {launches}, want {want} and no other "
+             "kernel")
+
+
+def run_arm_m1(dev, reset, counts, cfgs=None) -> dict:
+    """Arm M1: moonshot and llama4 at their REDUCED widths (float32,
+    head_dim 128; llama4's window 8) served on the card and on the CPU
+    from the same weights: equal token streams and stats, prefill logits
+    within ``F1_TOL``; B6's float32 kernels only. Prompts longer than the
+    window, decoding past it."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    cpu = torch.device("cpu")
+    cfgs = cfgs or {a: registry.get_reduced(a) for a in (M_ARCH, M2_ARCH)}
+    rows = {}
+    for arch, cfg in cfgs.items():
+        p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(1), cpu)
+        p_dev = to_dev(p_cpu, dev)
+        reqs_g = lm_requests(M1_PROMPTS, cfg.vocab_size, M1_MAX_NEW, 1)
+        reset()
+        st_g, wall_g, rec_g = serve_lm(cfg, p_dev, reqs_g, M1_SLOTS,
+                                       M1_MAX_LEN, dev)
+        launches = counts()
+        del p_dev
+        reqs_c = lm_requests(M1_PROMPTS, cfg.vocab_size, M1_MAX_NEW, 1)
+        st_c, wall_c, rec_c = serve_lm(cfg, p_cpu, reqs_c, M1_SLOTS,
+                                       M1_MAX_LEN, cpu)
+        streams = [r.out for r in reqs_g]
+        if st_g != st_c or streams != [r.out for r in reqs_c]:
+            fail(f"M1 {arch}: card stats {st_g} streams {streams} vs CPU "
+                 f"{st_c} {[r.out for r in reqs_c]}")
+        check_lm_launches(f"M1 {arch}", launches, lm_launches_want(
+            cfg, len(M1_PROMPTS), st_g["ticks"], "prefill_tile"))
+        err = max(check_close(
+            f"M1 {arch} request {i} prefill logits, card vs CPU (float32)",
+            a.cpu(), b, F1_TOL)
+            for i, (a, b) in enumerate(zip(rec_g["logits"],
+                                           rec_c["logits"])))
+        rows[arch] = {
+            "widths": {k: getattr(cfg, k) for k in (
+                "num_layers", "d_model", "num_heads", "num_kv_heads",
+                "head_dim", "d_ff", "moe_d_ff", "moe_num_experts",
+                "moe_top_k", "local_window", "vocab_size")},
+            "dtype": cfg.dtype, "prompts": M1_PROMPTS, "slots": M1_SLOTS,
+            "max_len": M1_MAX_LEN, "max_new": M1_MAX_NEW, "stats": st_g,
+            "streams": streams, "launches": launches,
+            "max_abs_err_prefill_logits": err, "card_wall_s": wall_g,
+            "cpu_wall_s": wall_c}
+    return rows
+
+
+def to_dev(tree, device):
+    """A nested dict / list of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_dev(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_dev(v, device) for v in tree]
+    return tree.to(device)
+
+
+def run_lm_serving_arm(label: str, cfg, params, prompts, slots: int,
+                       max_len: int, max_new: int, dev, reset, counts,
+                       profile=None, windowed_layers: int = 0,
+                       profile_requests: int = 0,
+                       profile_max_new: int = 0, controls=()) -> dict:
+    """One LM serving arm at bfloat16, as arm F serves: cold (launches
+    counted: B6's prefill kernel once per layer and request, its decode
+    kernels once per layer and tick, nothing else), F2's check without
+    its controls (every layer's B6 output against the plain version on
+    the path's own q/k/v, each request's logits against its prefill with
+    float64 attention on the same expert routing; ``windowed_layers`` of
+    each prefill's calls must carry a window; each of F2's ``controls``
+    in B6's place at the same limits, where a planted fault's logits
+    alone must break them on every request), warm, then profiled (the
+    first ``profile_requests`` requests, 0 = all, with
+    ``profile_max_new`` new tokens, 0 = ``max_new``: the profiler's
+    post-processing grows with the launches it holds)."""
+    import torch
+
+    fleet = lambda: lm_requests(prompts, cfg.vocab_size, max_new)
+    part_s, clock = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name], clock[0] = now - clock[0], now
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset()
+    cold = fleet()
+    st_cold, wall_cold, rec_cold = serve_lm(cfg, params, cold, slots,
+                                            max_len, dev)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    ticks = st_cold["ticks"]
+    want = lm_launches_want(cfg, len(prompts), ticks, "prefill_mma")
+    if rec_cold["decode_ticks"] != ticks:
+        fail(f"arm {label}: {rec_cold['decode_ticks']} decode calls for "
+             f"{ticks} ticks")
+    check_lm_launches(f"arm {label}", launches, want)
+    for r in cold:
+        if len(r.out) != max_new or not r.done \
+                or min(r.out) < 0 or max(r.out) >= cfg.vocab_size:
+            fail(f"arm {label}: request {r.rid} produced {r.out}")
+    for lg in rec_cold["logits"]:
+        if lg.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all():
+            fail(f"arm {label}: prefill logits not finite [1, vocab]")
+    part("cold")
+    f2 = f2_check(cfg, params, cold, None, max_len, B6_BF16_TOL,
+                  served=rec_cold["logits"], limits=M_F2_LIMITS)
+    part("check")
+    for row in f2:
+        print(f"arm {label} F2 {json.dumps(row)}")
+    if not all(row["holds"] for row in f2):
+        fail(f"arm {label}: B6's prefill attention or logits are further "
+             "from the plain version or the float64 prefill than the "
+             f"limits allow (rows {f2})")
+    if any(row["layer_calls"] != cfg.num_layers
+           or row["windowed_calls"] != windowed_layers for row in f2):
+        calls = [(r["layer_calls"], r["windowed_calls"]) for r in f2]
+        fail(f"arm {label}: {calls} B6 calls (windowed) a prefill, want "
+             f"{cfg.num_layers} ({windowed_layers})")
+    f2_controls = {}
+    for kind in controls:
+        f2_controls[kind] = f2_check(
+            cfg, params, cold, None, max_len, B6_BF16_TOL,
+            attend=functools.partial(attention_reference, acc="float32",
+                                     fault=kind), limits=M_F2_LIMITS)
+        for row in f2_controls[kind]:
+            print(f"arm {label} F2 {kind} {json.dumps(row)}")
+        seen = [r["rid"] for r in f2_controls[kind] if r["logits_ok"]]
+        if kind in F2_FAULTS and seen:
+            fail(f"arm {label}: F2's logit limits {M_F2_LIMITS} cannot see "
+                 f"the planted fault {kind}: its logits held for {seen}")
+    part("controls")
+    warm = fleet()
+    st_warm, wall_warm, rec_warm = serve_lm(cfg, params, warm, slots,
+                                            max_len, dev)
+    generated = sum(len(r.out) for r in warm)
+    prefill_s = sum(rec_warm["prefill_s"])
+    part("warm")
+    profiled = prompts[:profile_requests or len(prompts)]
+    prof = (None if profile is None else profile(
+        lambda: serve_lm(cfg, params, lm_requests(
+            profiled, cfg.vocab_size, profile_max_new or max_new), slots,
+            max_len, dev)))
+    part("profile")
+    widths = [min(cfg.local_window, max_len)
+              if cfg.layer_pattern[i % cfg.period].attn_kind == "local"
+              else max_len for i in range(cfg.num_layers)]
+    return {
+        "params": sum(t.numel() for t in _tree_leaves(params)),
+        "config_params": cfg.param_count(),
+        "config_active_params": cfg.active_param_count(),
+        "layers": cfg.num_layers, "experts": cfg.moe_num_experts,
+        "window": cfg.local_window, "requests": len(prompts),
+        "prompt_lengths": list(prompts), "max_new": max_new, "slots": slots,
+        "max_len": max_len, "cache_widths": widths, "ticks": ticks,
+        "tokens_computed": st_cold["tokens_computed"],
+        "reuse_ratio": st_cold["reuse_ratio"], "launches": launches,
+        "b6_launches_expected": want, "cold_wall_s": wall_cold,
+        "warm_wall_s": wall_warm, "generated_tokens": generated,
+        "generated_tok_per_s": generated / wall_warm,
+        "prefill_prompt_tok_per_s": sum(prompts) / prefill_s,
+        "prefill_s": rec_warm["prefill_s"], "ttft_s": rec_warm["ttft_s"],
+        "decode_s_per_tick": (wall_warm - prefill_s) / st_warm["ticks"],
+        "warm_streams_equal_cold": [r.out for r in warm]
+        == [r.out for r in cold],
+        "weight_bytes": _tree_bytes(params),
+        "kv_cache_bytes": sum(2 * slots * cfg.num_kv_heads * w * cfg.head_dim
+                              * 2 for w in widths),
+        "max_memory_allocated": peak, "F2": f2,
+        "F2_controls": f2_controls, "profile": prof,
+        "profiled_prompts": list(profiled),
+        "profiled_max_new": profile_max_new or max_new, "part_s": part_s}
+
+
+def run_arms_m(dev, reset, counts, profile, *, m_widths=None,
+               m2_widths=None, m1_cfgs=None, m_prompts=None,
+               m2_prompts=None) -> dict:
+    """Arms M1, M (moonshot at full width, ``M_LAYERS`` layers) and M2
+    (llama4-maverick at full widths, one period of 4 layers,
+    ``M2_EXPERTS`` experts); the ``*_widths`` and prompts shrink them for
+    a rehearsal on the CPU."""
+    import torch
+
+    out = {f"M1 {a}": row for a, row in run_arm_m1(
+        dev, reset, counts, m1_cfgs).items()}
+    # M's profiled run: its first wave (4 requests) with 8 new tokens each;
+    # M2 also runs M2_F2_CONTROLS through F2 at its limits
+    arms = (("M", M_ARCH, m_widths or dict(num_layers=M_LAYERS),
+             m_prompts or LM_PROMPTS, LM_SLOTS, LM_MAX_NEW, 0, LM_SLOTS, 8,
+             ()),
+            ("M2", M2_ARCH, m2_widths or dict(num_layers=4,
+                                              moe_num_experts=M2_EXPERTS),
+             m2_prompts or M2_PROMPTS, M2_SLOTS, M2_MAX_NEW, 3, 0, 0,
+             M2_F2_CONTROLS))
+    for (label, arch, widths, prompts, slots, max_new, windowed,
+         profiled, profiled_new, controls) in arms:
+        t0 = time.perf_counter()
+        cfg, params = moe_model(arch, "bfloat16", 0, dev, **widths)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        max_len = max(prompts) + max_new + 4
+        out[label] = dict(run_lm_serving_arm(
+            label, cfg, params, prompts, slots, max_len, max_new, dev,
+            reset, counts, profile, windowed_layers=windowed,
+            profile_requests=profiled, profile_max_new=profiled_new,
+            controls=controls),
+            arch=arch, widths=widths, init_s=init_s)
+        del params  # free the arm's weights before the next one
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 # phase L: LM training (see the module docstring). L1 and L3 train the
@@ -2433,6 +2902,30 @@ def main() -> int:
         f"[2, 2, {LM_MAX_LEN}, 128] kv_len 2049",
         fa_k.flash_attention(q, k, v, **kw),
         fa_k.flash_attention_plain(q, k, v, **kw), B6_BF16_TOL))
+    # B6's window and softcap (b6_variant_cases), each against the plain
+    # version (by query blocks at arm M2's 10,240 rows); the softcapped
+    # decode's split kernel also alone against its plain partials
+    b6_variants = b6_variant_cases(dev, gen6)
+    errs["B6 window"] = errs["B6 softcap"] = 0.0
+    for case in b6_variants:
+        (q, k, v), kw = case["qkv"], case["kw"]
+        err = check_close(f"B6 {case['name']}",
+                          fa_k.flash_attention(q, k, v, **kw),
+                          plain_attention(q, k, v, **kw),
+                          B6_BF16_TOL if q.dtype == torch.bfloat16
+                          else ATTN_F32_TOL)
+        errs[b6_err_key(q)] = max(errs[b6_err_key(q)], err)
+        errs[f"B6 {case['variant']}"] = max(errs[f"B6 {case['variant']}"],
+                                           err)
+        if q.shape[2] == 1:
+            plan = dict(kv_len=kw["kv_len"], splits=splits,
+                        split_len=split_len, softcap=kw["softcap"])
+            for part, g, w in zip("mlo", fa_k.decode_partials(
+                    q, k, v, **plan), fa_k.decode_partials_plain(
+                    q, k, v, **plan)):
+                errs["B6_partials"] = max(errs["B6_partials"], check_close(
+                    f"B6 softcapped decode split kernel {q.dtype} partial "
+                    f"{part}", g, w, DECODE_PARTIALS_TOL))
     torch.cuda.synchronize()
     phase_done("kernel checks")
 
@@ -2809,13 +3302,6 @@ def main() -> int:
                 "staged_wall_s": wide[False][1]["wall_s"]}}
 
 
-    def to_dev(tree, device):
-        if isinstance(tree, dict):
-            return {k: to_dev(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_dev(v, device) for v in tree]
-        return tree.to(device)
-
     def tree_bytes(tree):
         if isinstance(tree, dict):
             return sum(tree_bytes(v) for v in tree.values())
@@ -2826,6 +3312,12 @@ def main() -> int:
     def run_lm_arm():
         """Arm F: LM serving (see the module docstring)."""
         cpu = torch.device("cpu")
+        part_s, clock = {}, [time.perf_counter()]
+
+        def part(name):
+            now = time.perf_counter()
+            part_s[name], clock[0] = now - clock[0], now
+
         # F1: 2 layers at full width in float32, the card against the CPU
         cfg1, p1 = lm_model(F1_LAYERS, "float32", 1, dev)
         p1_cpu = to_dev(p1, cpu)
@@ -2861,6 +3353,7 @@ def main() -> int:
               "streams": streams_g, "launches": f1_launches,
               "max_abs_err_prefill_logits": f1_err, "card_wall_s": wall_g,
               "cpu_wall_s": wall_c}
+        part("F1")
 
         # the full arm: 16 layers at full width in bfloat16
         cfg, params = lm_model(LM_LAYERS, "bfloat16", 0, dev)
@@ -2892,6 +3385,7 @@ def main() -> int:
         for lg in rec_cold["logits"]:
             if lg.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all():
                 fail("arm F: prefill logits not finite [1, vocab]")
+        part("cold")
         # F2 (see f2_check), then each control in B6's place: F2 must come
         # out false for every planted fault on every request
         refs = f2_references(cfg, params, cold, LM_MAX_LEN)
@@ -2916,15 +3410,21 @@ def main() -> int:
             if any(row["holds"] for row in f2[kind]):
                 fail(f"F2 cannot see the planted fault {kind}: it held for "
                      f"{[row['rid'] for row in f2[kind] if row['holds']]}")
+        part("F2")
         warm = fleet()
         st_warm, wall_warm, rec_warm = serve_lm(cfg, params, warm, LM_SLOTS,
                                                 LM_MAX_LEN, dev)
+        part("warm")
         generated = sum(len(r.out) for r in warm)
         prefill_s = sum(rec_warm["prefill_s"])
         kv_bytes = (LM_LAYERS * 2 * LM_SLOTS * cfg.num_kv_heads * LM_MAX_LEN
                     * cfg.head_dim * 2)
-        prof = profile_run(lambda: serve_lm(cfg, params, fleet(), LM_SLOTS,
-                                            LM_MAX_LEN, dev))
+        # the profiled run serves the first wave (4 requests on the 4
+        # slots): the profiler's post-processing grows with the launches
+        prof = profile_run(lambda: serve_lm(
+            cfg, params, lm_requests(LM_PROMPTS[:LM_SLOTS], cfg.vocab_size,
+                                     LM_MAX_NEW), LM_SLOTS, LM_MAX_LEN, dev))
+        part("profile")
         del params
         torch.cuda.empty_cache()
         return {
@@ -2946,7 +3446,8 @@ def main() -> int:
             == [r.out for r in cold],
             "weight_bytes": weight_bytes, "kv_cache_bytes": kv_bytes,
             "max_memory_allocated": peak, "profile": prof,
-            "F1": f1, "F2": f2}
+            "profiled_prompts": LM_PROMPTS[:LM_SLOTS],
+            "F1": f1, "F2": f2, "part_s": part_s}
 
     # the adaptive-sampling and baseline arms (G, D adaptive, H)
     def window_spy(renderer):
@@ -3428,6 +3929,8 @@ def main() -> int:
     phase_done("S")
     arms["F"] = run_lm_arm()
     phase_done("arm F")
+    arms.update(run_arms_m(dev, reset, counts, profile_run))
+    phase_done("arms M")
     training_l = run_phase_l(dev, reset, counts)
     phase_done("L")
     for name, arm in arms.items():
@@ -3519,6 +4022,23 @@ def main() -> int:
           f"prompt tok/s, {f['ticks']} ticks, B6 launches "
           f"{f['launches']['flash_attention']}, peak "
           f"{f['max_memory_allocated'] / 1e9:.2f} GB")
+    for n in ("M", "M2"):
+        m, prof = arms[n], arms[n]["profile"]
+        print(f"arm {n} {m['arch']} ({m['params']:,} params, {m['layers']} "
+              f"layers, {m['experts']} experts, {smi}): warm "
+              f"{m['warm_wall_s']:.3f} s (cold {m['cold_wall_s']:.3f} s), "
+              f"{m['generated_tok_per_s']:.1f} generated tok/s, prefill "
+              f"{m['prefill_prompt_tok_per_s']:.0f} prompt tok/s, "
+              f"{m['ticks']} ticks, {m['decode_s_per_tick'] * 1e3:.1f} ms a "
+              f"tick, busy {prof['device_busy_share']}, peak "
+              f"{m['max_memory_allocated'] / 1e9:.2f} GB, B6 launches "
+              f"{m['launches'][B6]}, F2 max err "
+              f"{max(r['layers_max_abs_err'] for r in m['F2']):.3g}")
+    for a in (M_ARCH, M2_ARCH):
+        m = arms[f"M1 {a}"]
+        print(f"arm M1 {a}: card vs CPU equal streams and stats "
+              f"{m['stats']}, prefill logits within "
+              f"{m['max_abs_err_prefill_logits']:.3g}")
     l1, l2, l3 = (training_l[k] for k in ("L1", "L2", "L3"))
     print(f"phase L1 {L_ARCH}-100m ({training_l['l1_config']['params']:,} "
           f"params, {smi}): card vs CPU, first {len(l1)} train steps: "
@@ -3587,15 +4107,16 @@ def main() -> int:
         return bh + br - shared, fh + fr  # pages and map read once
 
     def timed(kernel_fn, plain_fn, nbytes, flops, shape,
-              flop_rate=FP32_FLOP_PER_S, library_fn=None):
+              flop_rate=FP32_FLOP_PER_S, library_fn=None, **time_kw):
         bound_s = max(nbytes / HBM_BYTES_PER_S, flops / flop_rate)
-        return {"shape": shape, "ms": time_ms(kernel_fn),
-                "plain_ms": time_ms(plain_fn), "bound_ms": bound_s * 1e3,
+        return {"shape": shape, "ms": time_ms(kernel_fn, **time_kw),
+                "plain_ms": time_ms(plain_fn, **time_kw),
+                "bound_ms": bound_s * 1e3,
                 "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                              >= flops / flop_rate else "operations"),
                 "bytes": nbytes, "flops": flops,
                 "library_ms": (None if library_fn is None
-                               else time_ms(library_fn))}
+                               else time_ms(library_fn, **time_kw))}
 
     t_b1 = [timed(lambda a=a: gt_k.gather_trilerp_mvoxels(*a),
                   lambda a=a: gt_k.gather_trilerp_plain(*a, 1),
@@ -3736,6 +4257,24 @@ def main() -> int:
             f"combine kernel alone, {tag}, partials of {splits} splits "
             f"[{b}, {h}, {splits}, {d}]", flop_rate=FP32_FLOP_PER_S))
     t_b6["decode_split"] += decode_path
+    # the window and softcap variants (b6_variant_cases); arm M2's
+    # 10,240-row prefill with 5 repeats of 2 calls (its plain version and
+    # SDPA's band mask take tens of ms a call)
+    for case in b6_variants:
+        (q, k, v), kw = case["qkv"], case["kw"]
+        few = dict(repeats=5, launches=2) if case["few"] else {}
+        t = timed(lambda q=q, k=k, v=v, kw=kw: fa_k.flash_attention(
+                      q, k, v, **kw),
+                  lambda q=q, k=k, v=v, kw=kw: plain_attention(
+                      q, k, v, **kw),
+                  *case["cost"], case["name"],
+                  flop_rate=(BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+                             else FP32_FLOP_PER_S),
+                  library_fn=case["library"], **few)
+        t["variant"] = case["variant"]
+        if case["sdpa_uncapped"] is not None:
+            t["sdpa_uncapped_ms"] = time_ms(case["sdpa_uncapped"])
+        t_b6[b6_route(q)].append(t)
     print(f"B6 decode: {decode_plan['splits']} splits of "
           f"{decode_plan['split_len']} keys, {decode_plan['ctas']} CTAs on "
           f"{decode_plan['sms']} SMs; " + "; ".join(
@@ -3822,7 +4361,9 @@ def main() -> int:
         entry("flash_mma_kernel (B6 prefill, bf16 mma.sync tensor cores)",
               f"{B6}.prefill_mma", b6_src, b6_rep,
               errs["B6 prefill_mma bf16"],
-              t_b6["prefill_mma"], ptxas=b6_ptxas),
+              t_b6["prefill_mma"], ptxas=b6_ptxas,
+              max_abs_err_window=errs["B6 window"],
+              max_abs_err_softcap=errs["B6 softcap"]),
         entry("flash_tile_kernel (B6 prefill, fp32 CUDA cores)",
               f"{B6}.prefill_tile", b6_src, b6_rep,
               errs["B6 prefill_tile f32"], t_b6["prefill_tile"]),
@@ -3830,7 +4371,8 @@ def main() -> int:
               f"{B6}.decode_split", b6_src, b6_rep, errs["B6_partials"],
               t_b6["decode_split"], decode_plan=decode_plan,
               max_abs_err_decode_bf16=errs["B6 decode_split bf16"],
-              max_abs_err_decode_f32=errs["B6 decode_split f32"]),
+              max_abs_err_decode_f32=errs["B6 decode_split f32"],
+              max_abs_err_softcap=errs["B6 softcap"]),
         entry("flash_decode_combine_kernel (B6 decode, log-sum-exp merge)",
               f"{B6}.decode_combine", b6_src, b6_rep, errs["B6_combine"],
               t_b6["decode_combine"]),
@@ -3841,7 +4383,8 @@ def main() -> int:
         n: {"frames": a["frames"], "warm_wall_s": a["warm_wall_s"],
             "warm_fps": a["warm_fps"], "cold_wall_s": a["cold_wall_s"]}
         for n, a in arms.items()
-        if n not in ("F", "H", "D_adaptive", "I oracle")},
+        if n not in ("F", "H", "D_adaptive", "I oracle")
+        and not n.startswith("M")},
         "baselines_H": {n: {k: b[k] for k in ("warm_wall_s", "warm_fps",
                                                "mean_psnr_vs_full_db")}
                         for n, b in arms["H"]["baselines"].items()},
@@ -3849,6 +4392,11 @@ def main() -> int:
             k: lm_arm[k] for k in ("warm_wall_s", "cold_wall_s",
                                    "generated_tok_per_s",
                                    "prefill_prompt_tok_per_s", "ticks")},
+        "lm_serving_M": {
+            n: {k: arms[n][k] for k in (
+                "warm_wall_s", "cold_wall_s", "generated_tok_per_s",
+                "prefill_prompt_tok_per_s", "ticks", "max_memory_allocated")}
+            for n in ("M", "M2")},
         "steady_tick_S": steady,
         "training_T": training,
         "training_L": training_l,
@@ -3878,6 +4426,8 @@ EAGER_LAUNCHES = {
         "H_full": (32, 0, 0, 0, 0), "H_host": (33, 0, 0, 0, 0),
         "H_temporal": (33, 0, 0, 0, 0), "H_ds2": (32, 0, 0, 0, 0),
         "F": (0, 0, 0, 0, 0), "F1": (0, 0, 0, 0, 0),
+        "M": (0, 0, 0, 0, 0), "M2": (0, 0, 0, 0, 0),
+        f"M1 {M_ARCH}": (0, 0, 0, 0, 0), f"M1 {M2_ARCH}": (0, 0, 0, 0, 0),
         "L": (0, 0, 0, 0, 0),
         "I cicero-dvgo": (258, 258, 0, 0, 0),
         "I cicero-ngp": (0, 258, 0, 0, 0),

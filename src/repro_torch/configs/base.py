@@ -2,17 +2,19 @@
 
 A model is a stack of ``LayerSpec`` periods; ``num_layers / period``
 repeats of the pattern. The port keeps its own copy of the dataclasses so
-that it never imports the reference package. It runs dense, full-attention
-models only (the MoE, hybrid, SSM, audio and VLM families are ROADMAP.md
-A2), so it has only the reference's fields that such a model reads, under
-their names: the model's widths, attention and numerics, and the training
-knobs ``q_block`` (the blocked attention's query tile), ``loss_chunk``
-(the cross-entropy's sequence chunk) and ``remat`` (recompute each period
-in the backward pass). It also records the two fields the configs set
-that only a sharded run reads (``sharding_strategy``, ``skip_shapes``;
-ROADMAP.md A3), so that the configs copy over value for value; the port
-runs on one device and reads them nowhere. A layer or family it does not
-run raises when the config is built.
+that it never imports the reference package. It runs the dense and MoE
+families of attention layers, full or local (chunked-window), with a dense
+SwiGLU or a mixture-of-experts FFN (the hybrid, SSM, audio and VLM
+families are ROADMAP.md A2b / A2c), so it has only the reference's fields
+that such a model reads, under their names: the model's widths, the MoE
+and attention fields, numerics, and the training knobs ``q_block`` (the
+blocked attention's query tile), ``loss_chunk`` (the cross-entropy's
+sequence chunk) and ``remat`` (recompute each period in the backward
+pass). It also records the two fields the configs set that only a sharded
+run reads (``sharding_strategy``, ``skip_shapes``; ROADMAP.md A3), so that
+the configs copy over value for value; the port runs on one device and
+reads them nowhere. A layer or family it does not run raises when the
+config is built.
 """
 from __future__ import annotations
 
@@ -25,17 +27,19 @@ class LayerSpec:
     """One layer inside the repeating pattern."""
 
     mixer: str = "attn"  # attn (the reference's mamba | mlstm | slstm raise)
-    attn_kind: str = "full"  # full (local: the model raises)
-    ffn: str = "dense"  # dense (the reference's moe | none raise)
+    attn_kind: str = "full"  # full | local (chunked windowed attention)
+    ffn: str = "dense"  # dense | moe (the reference's none raises)
 
 
-_NOT_PORTED = "not ported (ROADMAP.md A2: the LM substrate's other families)"
+_NOT_PORTED = ("not ported (ROADMAP.md A2b / A2c: the LM substrate's other "
+               "families)")
+FAMILIES = ("dense", "moe")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the reference's other families raise)
+    family: str  # dense | moe (the reference's other families raise)
     num_layers: int
     d_model: int
     num_heads: int
@@ -45,10 +49,19 @@ class ModelConfig:
     layer_pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
     head_dim: Optional[int] = None
 
+    # --- MoE ---
+    moe_num_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    moe_shared_expert: bool = False
+    moe_dispatch: str = "einsum"  # einsum | streaming  (streaming = RIT-style)
+    capacity_factor: float = 1.25
+
     # --- attention ---
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    logit_softcap: float = 0.0  # > 0 is not ported (the model raises)
+    local_window: int = 8192  # for attn_kind == "local"
+    logit_softcap: float = 0.0
 
     # --- training knobs ---
     q_block: int = 1024  # blocked-attention query tile
@@ -65,11 +78,11 @@ class ModelConfig:
     remat: bool = True  # recompute each period's forward in the backward
 
     def __post_init__(self):
-        if self.family != "dense":
+        if self.family not in FAMILIES:
             raise NotImplementedError(
                 f"{self.name}: family {self.family!r} is {_NOT_PORTED}")
         for spec in self.layer_pattern:
-            if spec.mixer != "attn" or spec.ffn != "dense":
+            if spec.mixer != "attn" or spec.ffn not in ("dense", "moe"):
                 raise NotImplementedError(
                     f"{self.name}: layer {spec} is {_NOT_PORTED}")
         if self.head_dim is None:
@@ -105,10 +118,20 @@ class ModelConfig:
     def _dense_ffn_params(self, d_ff: int) -> int:
         return 3 * self.d_model * d_ff  # SwiGLU: gate, up, down
 
+    def _expert_params(self) -> int:
+        return self._dense_ffn_params(self.moe_d_ff or self.d_ff)
+
     def layer_params(self, spec: LayerSpec) -> int:
-        """One attention + dense SwiGLU layer with its two norms."""
-        return (self._attn_params() + self._dense_ffn_params(self.d_ff)
-                + 2 * self.d_model)
+        """One attention layer, its dense or MoE FFN and its two norms."""
+        p = self._attn_params()
+        if spec.ffn == "moe":
+            p += self.moe_num_experts * self._expert_params()
+            p += self.d_model * self.moe_num_experts  # router
+            if self.moe_shared_expert:
+                p += self._expert_params()
+        else:
+            p += self._dense_ffn_params(self.d_ff)
+        return p + 2 * self.d_model  # norms
 
     def param_count(self) -> int:
         """Total parameters (embeddings + blocks + head)."""
@@ -121,5 +144,15 @@ class ModelConfig:
         return total
 
     def active_param_count(self) -> int:
-        """Parameters touched per token: all of them in a dense model."""
-        return self.param_count()
+        """Parameters touched per token (MoE: top_k + shared experts only)."""
+        total = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            total += self.vocab_size * self.d_model
+        act = 0
+        for s in self.layer_pattern:
+            p = self.layer_params(s)
+            if s.ffn == "moe":
+                p -= self.moe_num_experts * self._expert_params()
+                p += self.moe_top_k * self._expert_params()
+            act += p
+        return total + self.num_periods * act + self.d_model

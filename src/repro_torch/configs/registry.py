@@ -1,26 +1,28 @@
 """Architecture registry of the port (port of ``repro.configs.registry``).
 
-Only the dense, full-attention architectures are ported; their ``CONFIG``
-and ``REDUCED`` are the reference's, value for value. Asking for one of the
-reference's other architectures raises and names the roadmap item.
+The dense and MoE architectures are ported; their ``CONFIG`` and
+``REDUCED`` are the reference's, value for value. Asking for one of the
+reference's other architectures raises and names the roadmap item. The
+reference's dry-run accounting (``list_archs``, ``runnable_cells``,
+``skipped_cells``) comes with its launcher (ROADMAP.md A3).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (command_r_35b, deepseek_coder_33b,
-                                 minitron_4b, qwen2_5_32b)
+                                 llama4_maverick_400b_a17b, minitron_4b,
+                                 moonshot_v1_16b_a3b, qwen2_5_32b)
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = [qwen2_5_32b, command_r_35b, minitron_4b, deepseek_coder_33b]
+_MODULES = [llama4_maverick_400b_a17b, moonshot_v1_16b_a3b, qwen2_5_32b,
+            command_r_35b, minitron_4b, deepseek_coder_33b]
 
 ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 REDUCED: Dict[str, ModelConfig] = {m.CONFIG.name: m.REDUCED for m in _MODULES}
 
 # the reference's architectures that the port does not run yet
 NOT_PORTED: Dict[str, str] = {
-    "llama4-maverick-400b-a17b": "moe",
-    "moonshot-v1-16b-a3b": "moe",
     "jamba-1.5-large-398b": "hybrid",
     "xlstm-350m": "ssm",
     "whisper-small": "audio",
@@ -32,7 +34,7 @@ def get(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} (family {NOT_PORTED[name]}) is not ported; see "
-            "ROADMAP.md (A2: the LM substrate's other families)")
+            "ROADMAP.md (A2b / A2c: the LM substrate's other families)")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
     return ARCHS[name]

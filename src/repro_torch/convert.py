@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks
 from repro_torch.models.common import dtype_of
 from repro_torch.utils import DeviceLike, resolve_device
 
@@ -50,12 +49,14 @@ def _lm_tree(cfg: ModelConfig, tree: dict, dev: torch.device,
              dtype: torch.dtype) -> dict:
     """The reference's LM layout (``{"embed", "blocks", "final_norm",
     "head"?}``) -> the port's (``{"embed", "layers", "final_norm",
-    "head"?}``), each leaf in ``dtype`` on ``dev``."""
-    def conv(x, pick=None):
+    "head"?}``), each leaf in ``dtype`` on ``dev``; an MoE router stays
+    float32, as ``moe_init`` makes it."""
+    def conv(x, pick=None, name=None):
         if isinstance(x, dict):
-            return {k: conv(v, pick) for k, v in x.items()}
+            return {k: conv(v, pick, k) for k, v in x.items()}
         a = np.asarray(x) if pick is None else np.asarray(x)[pick]
-        return _tensor(a, dev).to(dtype)
+        return _tensor(a, dev).to(torch.float32 if name == "router"
+                                  else dtype)
 
     period = tree["blocks"]
     if len(period) != cfg.period:
@@ -79,9 +80,10 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
 
     ``tree["blocks"]`` holds one dict per layer of the pattern, each leaf
     stacked on a leading ``num_periods`` axis; layer ``p * period + i`` is
-    entry ``i`` at index ``p``."""
+    entry ``i`` at index ``p``. An MoE layer's ``ffn`` (``router [D, E]``,
+    ``wg``/``wu [E, D, F]``, ``wd [E, F, D]``, ``shared``) comes across
+    the same way; its router stays float32."""
     dev = resolve_device(device)
-    blocks.check_supported(cfg)
     return _lm_tree(cfg, tree, dev, dtype_of(cfg.dtype))
 
 
@@ -93,6 +95,5 @@ def lm_opt_state_from_numpy(cfg: ModelConfig, state: dict,
     (default: the CUDA card; raises without one). The moments stay
     float32, whatever ``cfg.dtype``."""
     dev = resolve_device(device)
-    blocks.check_supported(cfg)
     return {k: _lm_tree(cfg, state[k], dev, torch.float32)
             for k in ("m", "v")}

@@ -5,12 +5,18 @@
 //
 //   q [B, H, Sq, D], k/v [B, KVH, Sk, D] (GQA: query head h reads KV head
 //   h / (H / KVH)), o [B, H, Sq, D] in q's type (float32 or bfloat16):
-//   s = (q . k) * sm_scale in fp32; masked to NEG_INF = -1e30 where
-//   kpos >= kv_len, and, when causal, where qpos < kpos with both counted
-//   from 0 (top-left alignment, the Pallas kernel's; it differs from the
-//   bottom-right oracle `kernels/ref.py::attention_ref` when Sq != Sk);
-//   an online softmax over key tiles; o = acc / max(l, 1e-30). NEG_INF is
-//   finite, so a masked tile gives no NaN.
+//   s = (q . k) * sm_scale in fp32, soft-capped to softcap * tanh(s /
+//   softcap) when softcap > 0; masked to NEG_INF = -1e30 where
+//   kpos >= kv_len, when causal where qpos < kpos, and with a window > 0
+//   where qpos - kpos >= window, both positions counted from 0 (top-left
+//   alignment, the Pallas kernel's; it differs from the bottom-right
+//   oracle `kernels/ref.py::attention_ref` when Sq != Sk); an online
+//   softmax over key tiles; o = acc / max(l, 1e-30). NEG_INF is finite,
+//   so a masked tile gives no NaN. The window and the softcap are the
+//   reference LM's local attention and logit_softcap
+//   (src/repro/models/attention.py::_blocked_attn, _sdpa), plain einsums
+//   there; the decode takes the softcap only (a top-left window masks
+//   nothing for its one query).
 //
 // What bounds it on an H100. Prefill (Sq = Sk = S, causal): operations,
 // 2 * 2 * B * H * S * S * D / 2 flops (43 GFLOP at [1, 40, 2048, 128]: 43 us
@@ -49,9 +55,13 @@
 //    block of 64 rows, head, batch); thread (ty, tx) of the 16 x 16 grid
 //    owns rows ty + 16 i (i < 4) and, per 32-row key tile, score columns
 //    tx + 16 j (j < 2), then output columns tx + 16 c (c < D / 16).
-// Both prefill kernels skip key tiles past kv_len, and past the block's
-// last query row when causal: their scores would all be masked, and
-// skipping them is exact because key 0 is never masked (kv_len >= 1).
+// Both prefill kernels skip key tiles past kv_len, past the block's last
+// query row when causal, and, with a window, below the tile that holds the
+// block's first query row's first key (qpos - window + 1): their scores
+// would all be masked. Skipping them is exact because every query row
+// keeps a key in the tiles visited (the wrapper refuses a window that
+// leaves a row none), and a row's scores from tiles before its first
+// unmasked key are wiped by alpha = e^(NEG_INF - m) = 0 when it comes.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
 // limit (PERF.md section 6, PR 17), device time per call:
@@ -62,6 +72,12 @@
 //  * prefill, [1, 40, 2048, 128] causal, bf16 (flash_mma_kernel): 276 us,
 //    bound 43.4 us (operations), SDPA 95.5 us; float32 (flash_tile_kernel)
 //    2.32-2.33 ms, bound 641 us.
+//  * windowed prefill, [1, 40, 10240, 128] causal, window 8192,
+//    bf16: 5.46-5.50 ms, bound 1.04 ms (operations), SDPA with a boolean
+//    band mask 6.41-6.46 ms. The window and softcap tests are compiled
+//    into a second instance of each kernel (kBand, kCap in the decode):
+//    as run-time tests they took the plain causal bf16 prefill from 276
+//    to 298 us.
 // Later work (ROADMAP.md): wgmma with a TMA ring for the prefill.
 
 #include <cuda_bf16.h>
@@ -69,6 +85,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -105,6 +122,11 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+
+// the scaled score, soft-capped when softcap > 0
+__device__ __forceinline__ float capped(float s, float softcap) {
+  return softcap > 0.0f ? softcap * tanhf(s / softcap) : s;
+}
 
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -174,12 +196,14 @@ __device__ __forceinline__ void stage_rows(float* dst, int stride,
   }
 }
 
-template <int D>
+// kBand: as in flash_mma_kernel, the window and softcap tests are compiled
+// in only where a call has either
+template <int D, bool kBand>
 __global__ void __launch_bounds__(kThreads)
     flash_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       int H, int KVH, int Sq, int Sk, int kv_len, int causal,
-                      float sm_scale) {
+                      int window, float sm_scale, float softcap) {
   constexpr int kNR = kBQ / 16;  // rows per thread
   constexpr int kNC = kBK / 16;  // score columns per thread
   constexpr int kND = D / 16;    // output columns per thread
@@ -211,8 +235,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   int kv_end = kv_len;
   if (causal) kv_end = min(kv_end, min(q0 + kBQ, Sq));
+  const int kv_begin =
+      kBand && window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
 
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     stage_rows<D>(ks, D + 1, kb, k0, kBK, Sk);
     stage_rows<D>(vs, D, vb, k0, kBK, Sk);
@@ -243,8 +269,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kNC; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < kv_len && (!causal || qpos >= kpos);
-        s[i][j] = ok ? s[i][j] * sm_scale : kNegInf;
+        bool ok = kpos < kv_len && (!causal || qpos >= kpos);
+        float x = s[i][j] * sm_scale;
+        if constexpr (kBand) {
+          ok = ok && (window <= 0 || qpos - kpos < window);
+          x = capped(x, softcap);
+        }
+        s[i][j] = ok ? x : kNegInf;
         rmax = fmaxf(rmax, s[i][j]);
       }
 #pragma unroll
@@ -362,13 +393,16 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+// kBand: the window and softcap tests are compiled in only where a call
+// has either (they cost the plain causal prefill ~7% as run-time tests)
+template <int D, bool kBand>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, int H, int KVH, int Sq,
-                     int Sk, int kv_len, int causal, float sm_scale) {
+                     int Sk, int kv_len, int causal, int window,
+                     float sm_scale, float softcap) {
   constexpr int kS = MmaGeom<D>::kStride;
   constexpr int kND = D / 8;        // n8 blocks of the output row
   constexpr int kKD = D / 16;       // k16 steps of q . k
@@ -395,10 +429,11 @@ __global__ void __launch_bounds__(kMmaThreads)
   int kv_end = kv_len;
   if (causal) kv_end = min(kv_end, min(q0 + kMmaBQ, Sq));
   const int ntiles = (kv_end + kMmaBK - 1) / kMmaBK;
+  const int t0 = kBand && window > 0 ? max(0, q0 - window + 1) / kMmaBK : 0;
 
   stage_bf16<D, kMmaBQ>(qs, qb, q0, Sq);
-  stage_bf16<D, kMmaBK>(ks, kb, 0, Sk);
-  stage_bf16<D, kMmaBK>(vs, vb, 0, Sk);
+  stage_bf16<D, kMmaBK>(ks + (t0 & 1) * kMmaBK * kS, kb, t0 * kMmaBK, Sk);
+  stage_bf16<D, kMmaBK>(vs + (t0 & 1) * kMmaBK * kS, vb, t0 * kMmaBK, Sk);
   cp_async_commit();
 
   float oacc[kND][4];
@@ -410,7 +445,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   float l_r[2] = {0.0f, 0.0f};  // this thread's columns only, until the end
   const int row_a = q0 + warp * 16 + gid;  // rows row_a and row_a + 8
 
-  for (int it = 0; it < ntiles; ++it) {
+  for (int it = t0; it < ntiles; ++it) {
     const int k0 = it * kMmaBK;
     if (it + 1 < ntiles) {
       const int nb = (it + 1) & 1;
@@ -457,8 +492,13 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int e = 0; e < 4; ++e) {
         const int r = row_a + (e >> 1) * 8;
         const int c = k0 + n * 8 + tig * 2 + (e & 1);
-        const bool ok = c < kv_len && (!causal || r >= c);
-        sacc[n][e] = ok ? sacc[n][e] * sm_scale : kNegInf;
+        bool ok = c < kv_len && (!causal || r >= c);
+        float x = sacc[n][e] * sm_scale;
+        if constexpr (kBand) {
+          ok = ok && (window <= 0 || r - c < window);
+          x = capped(x, softcap);
+        }
+        sacc[n][e] = ok ? x : kNegInf;
         rmax[e >> 1] = fmaxf(rmax[e >> 1], sacc[n][e]);
       }
     float alpha[2];
@@ -548,12 +588,13 @@ struct DecodeGeom {
       4 * kBK * D * sizeof(T) + kGMax * kBK * sizeof(float);
 };
 
-template <typename T, int D>
+// kCap: the softcap is compiled in only where a call has one
+template <typename T, int D, bool kCap>
 __global__ void __launch_bounds__(D) flash_decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, float* __restrict__ m_part,
     float* __restrict__ l_part, float* __restrict__ o_part, int H, int KVH,
-    int Sk, int kv_len, int split_len, float sm_scale) {
+    int Sk, int kv_len, int split_len, float sm_scale, float softcap) {
   using Geom = DecodeGeom<T, D>;
   constexpr int kBKd = Geom::kBK;
   constexpr int kE = Geom::kE;
@@ -675,7 +716,9 @@ __global__ void __launch_bounds__(D) flash_decode_split_kernel(
       s[0] += __shfl_xor_sync(0xffffffffu, s[0], 2);
       s[0] += __shfl_xor_sync(0xffffffffu, s[0], 1);
       const int g = lane >> 2;
-      if ((lane & 3) == 0 && g < ng) ps[g * kBKd + j] = s[0] * sm_scale;
+      if ((lane & 3) == 0 && g < ng)
+        ps[g * kBKd + j] =
+            kCap ? capped(s[0] * sm_scale, softcap) : s[0] * sm_scale;
     }
     __syncthreads();
     // online softmax: one warp per head
@@ -783,73 +826,94 @@ bool bad_shape(int B, int H, int KVH, int Sq, int Sk, int D, int kv_len) {
          H > 65535;
 }
 
-template <int D>
+// a window must leave every query row a key: Sq - kv_len < window
+bool bad_window(int Sq, int kv_len, int window, float softcap) {
+  return window < 0 || !(softcap >= 0.0f) ||
+         (window > 0 && Sq - kv_len >= window);
+}
+
+template <int D, bool kBand>
 int launch_tile(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int KVH, int Sq, int Sk, int kv_len, int causal,
-                float sm_scale, cudaStream_t st) {
+                int window, float sm_scale, float softcap, cudaStream_t st) {
   const size_t smem = sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) +
                                        kBK * D + kBQ * (kBK + 1));
-  const cudaError_t err = allow_smem(flash_tile_kernel<D>, smem);
+  const cudaError_t err = allow_smem(flash_tile_kernel<D, kBand>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_tile_kernel<D><<<dim3((Sq + kBQ - 1) / kBQ, H, B), kThreads, smem,
-                         st>>>(
+  flash_tile_kernel<D, kBand><<<dim3((Sq + kBQ - 1) / kBQ, H, B), kThreads,
+                                smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, KVH, Sq, Sk,
-      kv_len, causal, sm_scale);
+      kv_len, causal, window, sm_scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kBand>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int H, int KVH, int Sq, int Sk, int kv_len, int causal,
-               float sm_scale, cudaStream_t st) {
+               int window, float sm_scale, float softcap, cudaStream_t st) {
   const size_t smem = MmaGeom<D>::kSmem;
-  const cudaError_t err = allow_smem(flash_mma_kernel<D>, smem);
+  const cudaError_t err = allow_smem(flash_mma_kernel<D, kBand>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_mma_kernel<D><<<dim3((Sq + kMmaBQ - 1) / kMmaBQ, H, B), kMmaThreads,
-                        smem, st>>>(
+  flash_mma_kernel<D, kBand><<<dim3((Sq + kMmaBQ - 1) / kMmaBQ, H, B),
+                               kMmaThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, KVH, Sq, Sk, kv_len, causal, sm_scale);
+      H, KVH, Sq, Sk, kv_len, causal, window, sm_scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kCap>
 int launch_split(const void* q, const void* k, const void* v, void* m,
                  void* l, void* op, int B, int H, int KVH, int Sk, int kv_len,
-                 int splits, int split_len, float sm_scale, cudaStream_t st) {
+                 int splits, int split_len, float sm_scale, float softcap,
+                 cudaStream_t st) {
   const size_t smem = DecodeGeom<T, D>::kSmem;
-  const cudaError_t err = allow_smem(flash_decode_split_kernel<T, D>, smem);
+  const cudaError_t err =
+      allow_smem(flash_decode_split_kernel<T, D, kCap>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = (H / KVH + kGMax - 1) / kGMax;
-  flash_decode_split_kernel<T, D><<<dim3(splits, KVH * chunks, B), D, smem,
-                                    st>>>(
+  flash_decode_split_kernel<T, D, kCap><<<dim3(splits, KVH * chunks, B), D,
+                                          smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(m),
       static_cast<float*>(l), static_cast<float*>(op), H, KVH, Sk, kv_len,
-      split_len, sm_scale);
+      split_len, sm_scale, softcap);
   return static_cast<int>(cudaGetLastError());
+}
+
+// calls launch(std::integral_constant<int, D>, std::integral_constant<bool,
+// band>): one instance per head_dim and per band (a window or a softcap)
+template <typename F>
+int dispatch(int D, bool band, F&& launch) {
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  if (band)
+    return D == 64 ? launch(I64{}, std::true_type{})
+                   : launch(I128{}, std::true_type{});
+  return D == 64 ? launch(I64{}, std::false_type{})
+                 : launch(I128{}, std::false_type{});
 }
 
 template <typename T>
 int decode_split(const void* q, const void* k, const void* v, void* m,
                  void* l, void* op, int B, int H, int KVH, int Sk, int D,
                  int kv_len, int splits, int split_len, float sm_scale,
-                 void* stream) {
+                 float softcap, void* stream) {
   // the ranges [s * split_len, (s + 1) * split_len) must cover [0, Sk)
-  if (bad_shape(B, H, KVH, 1, Sk, D, kv_len) || splits < 1 ||
+  if (bad_shape(B, H, KVH, 1, Sk, D, kv_len) ||
+      bad_window(1, kv_len, 0, softcap) || splits < 1 ||
       split_len < 1 ||
       static_cast<long long>(splits) * split_len < static_cast<long long>(Sk) ||
       KVH * ((H / KVH + kGMax - 1) / kGMax) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_split<T, 64>(q, k, v, m, l, op, B, H, KVH, Sk,
-                                       kv_len, splits, split_len, sm_scale,
-                                       st)
-                 : launch_split<T, 128>(q, k, v, m, l, op, B, H, KVH, Sk,
-                                        kv_len, splits, split_len, sm_scale,
-                                        st);
+  return dispatch(D, softcap > 0.0f, [&](auto d, auto cap) {
+    return launch_split<T, decltype(d)::value, decltype(cap)::value>(
+        q, k, v, m, l, op, B, H, KVH, Sk, kv_len, splits, split_len,
+        sm_scale, softcap, st);
+  });
 }
 
 template <typename T>
@@ -868,7 +932,9 @@ int decode_combine(const void* m, const void* l, const void* op, void* o,
 
 // Every entry returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue without launching for a shape it does not take
-// (head_dim D other than 64 and 128 among them). Pointers are to
+// (head_dim D other than 64 and 128 among them; a window that leaves a
+// query no key; a negative window or softcap). window 0 is no window,
+// softcap 0 no cap. Pointers are to
 // contiguous, 16-byte aligned [B, H, Sq, D] / [B, KVH, Sk, D] tensors; the
 // decode partials are float32 m, l [B, H, splits] and o [B, H, splits, D].
 
@@ -876,28 +942,34 @@ int decode_combine(const void* m, const void* l, const void* op, void* o,
 extern "C" int flash_prefill_f32(const void* q, const void* k, const void* v,
                                  void* o, int B, int H, int KVH, int Sq,
                                  int Sk, int D, int kv_len, int causal,
-                                 float sm_scale, void* stream) {
-  if (bad_shape(B, H, KVH, Sq, Sk, D, kv_len))
+                                 int window, float sm_scale, float softcap,
+                                 void* stream) {
+  if (bad_shape(B, H, KVH, Sq, Sk, D, kv_len) ||
+      bad_window(Sq, kv_len, window, softcap))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_tile<64>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len,
-                                   causal, sm_scale, st)
-                 : launch_tile<128>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len,
-                                    causal, sm_scale, st);
+  return dispatch(D, window > 0 || softcap > 0.0f, [&](auto d, auto band) {
+    return launch_tile<decltype(d)::value, decltype(band)::value>(
+        q, k, v, o, B, H, KVH, Sq, Sk, kv_len, causal, window, sm_scale,
+        softcap, st);
+  });
 }
 
 // prefill (any Sq), bfloat16: the mma.sync kernel
 extern "C" int flash_prefill_bf16(const void* q, const void* k,
                                   const void* v, void* o, int B, int H,
                                   int KVH, int Sq, int Sk, int D, int kv_len,
-                                  int causal, float sm_scale, void* stream) {
-  if (bad_shape(B, H, KVH, Sq, Sk, D, kv_len))
+                                  int causal, int window, float sm_scale,
+                                  float softcap, void* stream) {
+  if (bad_shape(B, H, KVH, Sq, Sk, D, kv_len) ||
+      bad_window(Sq, kv_len, window, softcap))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_mma<64>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len,
-                                  causal, sm_scale, st)
-                 : launch_mma<128>(q, k, v, o, B, H, KVH, Sq, Sk, kv_len,
-                                   causal, sm_scale, st);
+  return dispatch(D, window > 0 || softcap > 0.0f, [&](auto d, auto band) {
+    return launch_mma<decltype(d)::value, decltype(band)::value>(
+        q, k, v, o, B, H, KVH, Sq, Sk, kv_len, causal, window, sm_scale,
+        softcap, st);
+  });
 }
 
 // decode (Sq = 1, keys < kv_len valid): the split-KV partials
@@ -906,9 +978,9 @@ extern "C" int flash_decode_split_f32(const void* q, const void* k,
                                       void* op, int B, int H, int KVH, int Sk,
                                       int D, int kv_len, int splits,
                                       int split_len, float sm_scale,
-                                      void* stream) {
+                                      float softcap, void* stream) {
   return decode_split<float>(q, k, v, m, l, op, B, H, KVH, Sk, D, kv_len,
-                             splits, split_len, sm_scale, stream);
+                             splits, split_len, sm_scale, softcap, stream);
 }
 
 extern "C" int flash_decode_split_bf16(const void* q, const void* k,
@@ -916,10 +988,10 @@ extern "C" int flash_decode_split_bf16(const void* q, const void* k,
                                        void* op, int B, int H, int KVH,
                                        int Sk, int D, int kv_len, int splits,
                                        int split_len, float sm_scale,
-                                       void* stream) {
+                                       float softcap, void* stream) {
   return decode_split<__nv_bfloat16>(q, k, v, m, l, op, B, H, KVH, Sk, D,
                                      kv_len, splits, split_len, sm_scale,
-                                     stream);
+                                     softcap, stream);
 }
 
 // decode: the log-sum-exp merge of the partials into o [B, H, 1, D]

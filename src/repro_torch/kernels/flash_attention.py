@@ -7,12 +7,19 @@ note there for their bounds and designs.
 
 ``q [B, H, Sq, D]``, ``k``/``v [B, KVH, Sk, D]`` with ``H % KVH == 0``
 (query head ``h`` reads KV head ``h // (H // KVH)``) -> ``[B, H, Sq, D]``
-in ``q``'s dtype. Scores ``(q . k) * sm_scale`` in fp32; keys at or past
-``kv_len`` are masked, and with ``causal`` so are keys after the query,
-counted from 0 for both (top-left alignment, as the Pallas kernel; the
-reference's oracle ``attention_ref`` aligns bottom-right, and the two
-differ when ``Sq != Sk``). Masked scores are ``NEG_INF = -1e30``, finite,
-so a fully masked tile gives no NaN.
+in ``q``'s dtype. Scores ``(q . k) * sm_scale`` in fp32, soft-capped to
+``softcap * tanh(s / softcap)`` when ``softcap > 0``; keys at or past
+``kv_len`` are masked, with ``causal`` so are keys after the query, and
+with a ``window > 0`` so are keys ``window`` or more before it (query i
+sees key j only if ``i - j < window``), positions counted from 0 for both
+(top-left alignment, as the Pallas kernel; the reference's oracle
+``attention_ref`` aligns bottom-right, and the two differ when ``Sq !=
+Sk``). Masked scores are ``NEG_INF = -1e30``, finite, so a fully masked
+tile gives no NaN. The window and the softcap are the reference LM's local
+attention and ``logit_softcap`` (``repro.models.attention._blocked_attn``,
+``_sdpa``), which it computes in plain einsums; the Pallas kernel has
+neither. A window must leave every query a key (``Sq - kv_len <
+window``). For ``Sq == 1`` a top-left window masks nothing.
 
 On the card the wrapper routes by shape and dtype:
 
@@ -35,10 +42,10 @@ from repro_torch.kernels._build import CudaKernel
 from repro_torch.utils import cdiv
 
 KERNEL = CudaKernel("flash_attention", {
-    "flash_prefill_f32": "ppppiiiiiiiifp",
-    "flash_prefill_bf16": "ppppiiiiiiiifp",
-    "flash_decode_split_f32": "ppppppiiiiiiiifp",
-    "flash_decode_split_bf16": "ppppppiiiiiiiifp",
+    "flash_prefill_f32": "ppppiiiiiiiiiffp",
+    "flash_prefill_bf16": "ppppiiiiiiiiiffp",
+    "flash_decode_split_f32": "ppppppiiiiiiiiffp",
+    "flash_decode_split_bf16": "ppppppiiiiiiiiffp",
     "flash_decode_combine_f32": "ppppiiiip",
     "flash_decode_combine_bf16": "ppppiiiip"})
 # the kernels of csrc/flash_attention.cu and the entries that launch each
@@ -107,33 +114,64 @@ def _shapes(q, k, v, kv_len):
     return b, h, kvh, sq, sk, d, kv_len
 
 
+def _check_window(sq: int, kv_len: int, window: int, softcap: float) -> None:
+    """A window that leaves some query no key (``Sq - kv_len >= window``)
+    is refused: the kernels and the plain version would average different
+    masked keys there."""
+    if window < 0 or softcap < 0:
+        raise ValueError(f"flash_attention: window {window} and softcap "
+                         f"{softcap} must be >= 0")
+    if window > 0 and sq - kv_len >= window:
+        raise ValueError(f"flash_attention: window {window} leaves queries "
+                         f"past {kv_len + window - 1} no key (Sq {sq}, "
+                         f"kv_len {kv_len})")
+
+
+def _softcap(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    return softcap * torch.tanh(s / softcap) if softcap > 0 else s
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           sm_scale: Optional[float] = None,
-                          kv_len: Optional[int] = None) -> torch.Tensor:
+                          kv_len: Optional[int] = None, window: int = 0,
+                          softcap: float = 0.0,
+                          q_block: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the same function (one fp32 softmax over
     the whole key axis; the query heads of a group share their KV head
-    without a repeat)."""
+    without a repeat). ``q_block`` computes the same rows ``q_block``
+    queries at a time, so that the fp32 scores of a long prefill need not
+    be held at once."""
     b, h, kvh, sq, sk, d, kv_len = _shapes(q, k, v, kv_len)
+    _check_window(sq, kv_len, window, softcap)
     if sm_scale is None:
         sm_scale = d**-0.5
     g = h // kvh
-    qg = q.float().reshape(b, kvh, g * sq, d)
-    s = (qg @ k.float().transpose(-1, -2)) * sm_scale
-    s = s.reshape(b, kvh, g, sq, sk)
+    kf, vf = k.float(), v.float()
     kpos = torch.arange(sk, device=q.device)[None, :]
-    valid = kpos < kv_len
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None]
-        valid = valid & (qpos >= kpos)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1).reshape(b, kvh, g * sq, sk)
-    return (p @ v.float()).reshape(b, h, sq, d).to(q.dtype)
+    outs = []
+    step = sq if q_block is None else q_block
+    for q0 in range(0, sq, step):
+        n = min(step, sq - q0)
+        qg = q[:, :, q0:q0 + n].float().reshape(b, kvh, g * n, d)
+        s = _softcap((qg @ kf.transpose(-1, -2)) * sm_scale, softcap)
+        s = s.reshape(b, kvh, g, n, sk)
+        qpos = q0 + torch.arange(n, device=q.device)[:, None]
+        valid = kpos < kv_len
+        if causal:
+            valid = valid & (qpos >= kpos)
+        if window > 0:
+            valid = valid & (qpos - kpos < window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1).reshape(b, kvh, g * n, sk)
+        outs.append((p @ vf).reshape(b, h, n, d))
+    return torch.cat(outs, dim=2).to(q.dtype)
 
 
 def decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, kv_len: int, splits: int,
-                          split_len: int, sm_scale: Optional[float] = None
+                          split_len: int, sm_scale: Optional[float] = None,
+                          softcap: float = 0.0
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """Plain version of the split-KV decode kernel: for q ``[B, H, 1, D]``,
@@ -155,7 +193,8 @@ def decode_partials_plain(q: torch.Tensor, k: torch.Tensor,
         lo, hi = s * split_len, min((s + 1) * split_len, kv_len)
         if lo >= hi:
             continue
-        sc = (qg @ k[:, :, lo:hi].float().transpose(-1, -2)) * sm_scale
+        sc = _softcap((qg @ k[:, :, lo:hi].float().transpose(-1, -2))
+                      * sm_scale, softcap)
         ms = sc.amax(-1, keepdim=True)
         p = torch.exp(sc - ms)
         m[:, :, s] = ms.reshape(b, h)
@@ -178,17 +217,20 @@ def decode_combine_plain(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: Optional[float] = None,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
+                    kv_len: Optional[int] = None, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """CPU tensors take the plain version; CUDA tensors launch the kernels
-    (anything else raises). ``sm_scale`` defaults to ``D ** -0.5`` and
-    ``kv_len`` to ``Sk``."""
+    (anything else raises). ``sm_scale`` defaults to ``D ** -0.5``,
+    ``kv_len`` to ``Sk``; ``window`` 0 is no window, ``softcap`` 0 no
+    cap."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale, kv_len=kv_len)
+                                     sm_scale=sm_scale, kv_len=kv_len,
+                                     window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     return _launch_kernel(q, k, v, causal=causal, sm_scale=sm_scale,
-                          kv_len=kv_len)
+                          kv_len=kv_len, window=window, softcap=softcap)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -211,17 +253,20 @@ def _checked(q, k, v, kv_len):
     return b, h, kvh, sq, sk, d, kv_len
 
 
-def _launch_kernel(q, k, v, *, causal, sm_scale, kv_len) -> torch.Tensor:
+def _launch_kernel(q, k, v, *, causal, sm_scale, kv_len, window: int = 0,
+                   softcap: float = 0.0) -> torch.Tensor:
     b, h, kvh, sq, sk, d, kv_len = _checked(q, k, v, kv_len)
+    _check_window(sq, kv_len, window, softcap)
     if sm_scale is None:
         sm_scale = d**-0.5
-    if sq == 1:
+    if sq == 1:  # the window masks nothing for query 0
         if causal:  # top-left: the one query (position 0) sees key 0 only
             kv_len = 1
         splits, split_len = decode_split_plan(
             sk, b * kvh, _decode_target_ctas(q.device.index or 0))
         parts = decode_partials(q, k, v, kv_len=kv_len, splits=splits,
-                                split_len=split_len, sm_scale=sm_scale)
+                                split_len=split_len, sm_scale=sm_scale,
+                                softcap=softcap)
         return decode_combine(*parts, q.dtype)
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
@@ -230,13 +275,14 @@ def _launch_kernel(q, k, v, *, causal, sm_scale, kv_len) -> torch.Tensor:
     with torch.cuda.device(q.device):
         KERNEL.call(f"flash_prefill_{_TAG[q.dtype]}", q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kvh,
-                    sq, sk, d, kv_len, int(causal), float(sm_scale),
+                    sq, sk, d, kv_len, int(causal), int(window),
+                    float(sm_scale), float(softcap),
                     torch.cuda.current_stream().cuda_stream)
     return out
 
 
 def decode_partials(q, k, v, *, kv_len: int, splits: int, split_len: int,
-                    sm_scale: Optional[float] = None):
+                    sm_scale: Optional[float] = None, softcap: float = 0.0):
     """The split-KV decode kernel on CUDA tensors alone: the partials of
     :func:`decode_partials_plain`, in fp32 scratch from ``torch.empty``."""
     b, h, kvh, sq, sk, d, kv_len = _checked(q, k, v, kv_len)
@@ -254,7 +300,7 @@ def decode_partials(q, k, v, *, kv_len: int, splits: int, split_len: int,
         KERNEL.call(f"flash_decode_split_{_TAG[q.dtype]}", q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(),
                     o.data_ptr(), b, h, kvh, sk, d, kv_len, splits,
-                    split_len, float(sm_scale),
+                    split_len, float(sm_scale), float(softcap),
                     torch.cuda.current_stream().cuda_stream)
     return m, l, o
 

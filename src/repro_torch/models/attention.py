@@ -1,22 +1,32 @@
-"""GQA attention with RoPE and a KV cache (port of the full-attention,
-self-attention parts of ``repro.models.attention``).
+"""GQA attention with RoPE, local (chunked-window) attention, logit
+soft-capping and a KV cache (port of the self-attention parts of
+``repro.models.attention``).
 
 Training runs :func:`attn_train`: the reference's blocked attention in
 plain PyTorch under autograd (float32 scores, one ``[blk, S]`` row block
-of queries at a time), as the reference trains through plain einsums and
-not through its Pallas kernel, which has no gradient.
+of queries at a time; a local layer's block reads only its ``[blk,
+window + blk]`` key band once ``window + blk < S``), as the reference
+trains through plain einsums and not through its Pallas kernel, which has
+no gradient.
 
 Prefill and decode both run kernel B6 (:mod:`repro_torch.kernels.
 flash_attention`), where the reference computes the same functions with
 plain einsums: prefill is causal attention with ``Sq == Sk`` (the
-reference's ``_blocked_attn``), decode is attention over the cache with
-keys ``<= index`` valid (``attn_decode``'s ``valid = kpos <= index``), i.e.
-``causal=False, kv_len=min(index + 1, S_max)``. Softmax in fp32 either way.
+reference's ``_blocked_attn``; a local layer passes its window), decode is
+attention over the cache with keys ``<= index`` valid (``attn_decode``'s
+``valid = kpos <= index``), i.e. ``causal=False, kv_len=min(index + 1,
+S_max)``. Softmax in fp32 either way; ``cfg.logit_softcap > 0`` caps the
+scaled scores before the mask everywhere.
 
-Not ported: local (chunked-window) attention, logit soft-capping and
-cross-attention (``ROADMAP.md`` A2); the entry points raise for them
-(:func:`check_supported`, and ``blocks.check_supported`` for encoder
-models).
+A local layer's cache is ``min(local_window, cache_len)`` wide: its
+prefill keeps the last ``local_window`` keys. Its decode writes row
+``min(index, width - 1)`` as every layer's does: past the window that is
+the last row, every row counts as valid, and the reference's ring branch
+(``slot = index % width``) is never taken, because it needs a cache wider
+than the window (ROADMAP.md, reference caveat 4). The port computes what
+the reference runs and refuses a local cache wider than the window.
+
+Not ported: cross-attention (``ROADMAP.md`` A2c).
 """
 from __future__ import annotations
 
@@ -28,16 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.common import ninit
 
-_NOT_PORTED = "not ported (ROADMAP.md A2: local attention and softcap)"
 NEG_INF = -1e30
-
-
-def check_supported(cfg: ModelConfig, local: bool = False) -> None:
-    """Raise for the attention variants the port does not run."""
-    if local:
-        raise NotImplementedError(f"local attention is {_NOT_PORTED}")
-    if cfg.logit_softcap > 0:
-        raise NotImplementedError(f"logit_softcap > 0 is {_NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -110,17 +111,19 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
-          sm_scale: float) -> torch.Tensor:
+          sm_scale: float, softcap: float = 0.0) -> torch.Tensor:
     """q [B, H, Lq, D], k/v [B, KVH, Lk, D], mask [1, 1, Lq, Lk] bool or
-    None. GQA by the static head gather ``h -> h // (H // KVH)``; scores,
-    softmax and the weighted sum in float32, the output cast back to q's
-    dtype."""
+    None. GQA by the static head gather ``h -> h // (H // KVH)``; scores
+    (soft-capped when ``softcap > 0``), softmax and the weighted sum in
+    float32, the output cast back to q's dtype."""
     h, kvh = q.shape[1], k.shape[1]
     if kvh != h:
         idx = torch.arange(h, device=q.device) // (h // kvh)
         k = k.index_select(1, idx)
         v = v.index_select(1, idx)
     s = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
     if mask is not None:
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -128,74 +131,109 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
 
 
 def _blocked_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  cfg: ModelConfig, *, q_block: int,
+                  cfg: ModelConfig, *, local: bool, q_block: int,
                   causal: bool = True) -> torch.Tensor:
     """q [B, H, S, D], k/v [B, KVH, S, D] -> [B, H, S, D], one block of
-    ``min(q_block, S)`` queries at a time against every key (never an
-    [S, S] score matrix); a block that does not divide S becomes S."""
+    ``min(q_block, S)`` queries at a time (never an [S, S] score matrix);
+    a block that does not divide S becomes S. A full layer's block reads
+    every key; a local layer masks keys ``window`` or more before the
+    query and, once ``window + blk < S``, reads only the band of
+    ``window + blk`` keys that ends with the block."""
     s = q.shape[2]
     blk = min(q_block, s)
     if s % blk != 0:  # tiny smoke shapes
         blk = s
     sm = cfg.head_dim**-0.5
-    kpos = torch.arange(s, device=q.device)[None, :]
+    window = cfg.local_window if local else s
+    banded = local and window + blk < s
     outs = []
     for start in range(0, s, blk):
+        k_blk, v_blk, kv_start = k, v, 0
+        if banded:
+            kv_len = window + blk
+            kv_start = min(max(start + blk - kv_len, 0), s - kv_len)
+            k_blk = k[:, :, kv_start:kv_start + kv_len]
+            v_blk = v[:, :, kv_start:kv_start + kv_len]
+        kpos = kv_start + torch.arange(k_blk.shape[2], device=q.device)[None]
         qpos = start + torch.arange(blk, device=q.device)[:, None]
-        mask = (qpos >= kpos)[None, None] if causal else None
-        outs.append(_sdpa(q[:, :, start:start + blk], k, v, mask, sm))
+        mask = (qpos >= kpos) if causal else None
+        if local:
+            near = (qpos - kpos) < window
+            mask = near if mask is None else mask & near
+        outs.append(_sdpa(q[:, :, start:start + blk], k_blk, v_blk,
+                          None if mask is None else mask[None, None], sm,
+                          cfg.logit_softcap))
     return torch.cat(outs, dim=2)
 
 
 def attn_train(params, x: torch.Tensor, cfg: ModelConfig, *,
-               q_block: int = 0, positions=None, causal: bool = True
-               ) -> torch.Tensor:
+               local: bool = False, q_block: int = 0, positions=None,
+               causal: bool = True) -> torch.Tensor:
     """Self-attention for training over x [B, S, D] (positions default to
     0..S-1), blocked by ``q_block or cfg.q_block`` queries; causal or
-    bidirectional. Differentiable: plain PyTorch, no kernel."""
-    check_supported(cfg)
+    bidirectional, windowed when ``local``. Differentiable: plain
+    PyTorch, no kernel."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions)
     o = _blocked_attn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      cfg, q_block=q_block or cfg.q_block, causal=causal)
+                      cfg, local=local, q_block=q_block or cfg.q_block,
+                      causal=causal)
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     return o @ params["wo"]
 
 
-def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache_len: int
-                 ) -> Tuple[torch.Tensor, KVCache]:
+def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
+                 *, local: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """Causal self-attention over x [B, S, D] at positions 0..S-1 (kernel
-    B6), and the KV cache zero-padded to ``cache_len``."""
+    B6, with the layer's window when ``local``), and the KV cache: a local
+    layer whose window is shorter than ``cache_len`` keeps its last
+    ``local_window`` keys, zero-padded to that width; any other layer keeps
+    every key, zero-padded to ``cache_len``."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions)
     q = q.transpose(1, 2)  # [B, H, S, D]
     k = k.transpose(1, 2)  # [B, KVH, S, D]
     v = v.transpose(1, 2)
-    o = fa.flash_attention(q, k, v, causal=True, sm_scale=cfg.head_dim**-0.5)
+    o = fa.flash_attention(q, k, v, causal=True, sm_scale=cfg.head_dim**-0.5,
+                           window=cfg.local_window if local else 0,
+                           softcap=cfg.logit_softcap)
     o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     out = o @ params["wo"]
-    pad = max(cache_len - s, 0)
+    if local and cfg.local_window < cache_len:
+        width = cfg.local_window
+        k, v = k[:, :, -width:], v[:, :, -width:]
+    else:
+        width = cache_len
+    pad = max(width - k.shape[2], 0)
     kc = torch.nn.functional.pad(k, (0, 0, 0, pad))
     vc = torch.nn.functional.pad(v, (0, 0, 0, pad))
     return out, KVCache(kc, vc)
 
 
 def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
-                index: int) -> Tuple[torch.Tensor, KVCache]:
+                index: int, *, local: bool = False
+                ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode. x [B, 1, D]; ``index`` (a host int) is the
     position every row decodes at (RoPE's position). The new K/V are
     written into ``cache`` in place at row ``min(index, S_max - 1)`` (on
     the current stream), then B6 attends over the cache with keys
     ``<= index`` valid. At ``index >= S_max`` that is the reference's rule:
     ``dynamic_update_slice_in_dim`` clamps the write to the last row, and
-    every key counts as valid."""
+    every key counts as valid. A local layer's cache is at most
+    ``local_window`` wide (see the module docstring); a wider one
+    raises."""
     b = x.shape[0]
     s_max = cache.k.shape[2]
     if index < 0:
         raise ValueError(f"decode index {index} < 0")
+    if local and cfg.local_window < s_max:
+        raise ValueError(f"local decode over a cache of {s_max} rows, wider "
+                         f"than the window {cfg.local_window}: the "
+                         "reference's ring branch, which its own caches "
+                         "never reach, is not ported")
     positions = torch.full((b, 1), index, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
     row = min(index, s_max - 1)
@@ -203,13 +241,17 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
     cache.v[:, :, row] = v[:, 0].to(cache.v.dtype)
     o = fa.flash_attention(q.transpose(1, 2), cache.k, cache.v,
                            causal=False, sm_scale=cfg.head_dim**-0.5,
-                           kv_len=min(index + 1, s_max))  # [B, H, 1, D]
+                           kv_len=min(index + 1, s_max),
+                           softcap=cfg.logit_softcap)  # [B, H, 1, D]
     o = o.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return o @ params["wo"], cache
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, s_max: int,
-                  dtype: torch.dtype, device) -> KVCache:
-    shape = (batch, cfg.num_kv_heads, s_max, cfg.head_dim)
+                  dtype: torch.dtype, device, local: bool = False) -> KVCache:
+    """Zeros ``[batch, KVH, width, D]``: width ``s_max``, or
+    ``min(local_window, s_max)`` for a local layer."""
+    width = min(cfg.local_window, s_max) if local else s_max
+    shape = (batch, cfg.num_kv_heads, width, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

@@ -14,9 +14,10 @@ autograd and updates the params and the AdamW moments in place
 step. The reference casts the cotangent back to the model's dtype where
 the float32 loss meets the backbone (``_grad_dtype_boundary``); torch's
 autograd casts every cotangent to its tensor's dtype already, so the
-port needs no such boundary. The encoder (audio) and image-prefix (VLM)
-branches belong to the families the port does not run (``ROADMAP.md``
-A2).
+port needs no such boundary. ``loss_fn`` adds ``aux_coef`` times the sum
+of the MoE layers' router losses. The encoder (audio) and image-prefix
+(VLM) branches belong to the families the port does not run
+(``ROADMAP.md`` A2c).
 """
 from __future__ import annotations
 
@@ -36,11 +37,11 @@ from repro_torch.utils import DeviceLike, resolve_device
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> dict:
     """Random parameters at the reference's scales (``lm.init_params``):
-    embeddings N(0, 0.02), projections N(0, fan_in^-1/2), norms 1, QKV
+    embeddings N(0, 0.02), projections N(0, fan_in^-1/2) (an MoE router
+    in float32 whatever the dtype), norms 1, QKV
     biases 0. Drawn from ``generator`` (default: seed 0) on ``device``
     (default: the CUDA card; raises without one)."""
     dev = resolve_device(device)
-    blocks.check_supported(cfg)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
@@ -48,8 +49,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     dtype = dtype_of(cfg.dtype)
     p = {"embed": ninit(generator, (cfg.vocab_size, cfg.d_model), 0.02,
                         dtype),
-         "layers": [blocks.layer_init(generator, cfg, dtype)
-                    for _ in range(cfg.num_layers)],
+         "layers": [blocks.layer_init(generator, cfg,
+                                      blocks.layer_spec(cfg, i), dtype)
+                    for i in range(cfg.num_layers)],
          "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device)}
     if not cfg.tie_embeddings:
         p["head"] = ninit(generator, (cfg.d_model, cfg.vocab_size),
@@ -149,7 +151,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     ``params`` and ``opt_state`` themselves, which are returned (the
     reference donates them to its jitted step). ``metrics``: ``loss``,
     ``ce``, ``aux`` and ``lr``, as tensors."""
-    blocks.check_supported(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(params, opt_state, batch, step):
@@ -167,7 +168,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
-    blocks.check_supported(cfg)
 
     def prefill_step(params, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, List[attn.KVCache]]:
@@ -180,7 +180,6 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 
 
 def make_decode_step(cfg: ModelConfig):
-    blocks.check_supported(cfg)
 
     def decode_step(params, caches: List[attn.KVCache], token: torch.Tensor,
                     index: int) -> Tuple[torch.Tensor, List[attn.KVCache]]:
@@ -197,6 +196,5 @@ def make_decode_step(cfg: ModelConfig):
 def cache_init(cfg: ModelConfig, batch: int, s_max: int,
                device: DeviceLike = None) -> List[attn.KVCache]:
     dev = resolve_device(device)
-    blocks.check_supported(cfg)
     return blocks.stack_cache_init(cfg, batch, s_max, dtype_of(cfg.dtype),
                                    dev)

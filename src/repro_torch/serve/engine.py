@@ -12,10 +12,12 @@ prompt's direct greedy generation (``ROADMAP.md``, reference caveats).
 A request is done at ``max_new`` tokens or when its slot reaches
 ``max_len - 1``.
 
-The KV caches are per layer ``[num_slots, KVH, max_len, D]``, written in
-place on the current stream (a prefill's padded cache is copied into its
-slot; a decode writes its row). ``reuse_ratio`` is the share of attention
-context served from the cache rather than recomputed.
+The KV caches are per layer ``[num_slots, KVH, width, D]`` from
+``lm.cache_init``: width ``max_len``, or ``min(local_window, max_len)``
+for a local-attention layer. They are written in place on the current
+stream (a prefill's cache, which has its layer's width, is copied into its
+slot's rows; a decode writes its row). ``reuse_ratio`` is the share of
+attention context served from the cache rather than recomputed.
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ class ServeEngine:
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                  device=self.device)
         logits, caches = self.prefill(self.params, {"tokens": tokens})
-        for dst, src in zip(self.caches, caches):  # the whole padded cache
+        for dst, src in zip(self.caches, caches):  # each layer's width
             dst.k[slot:slot + 1].copy_(src.k)
             dst.v[slot:slot + 1].copy_(src.v)
         req.out.append(int(torch.argmax(logits[0])))
