@@ -230,7 +230,7 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    CPU: equal token streams and stats, prefill logits within 1e-3; B6's
    float32 kernels only. M: moonshot at full width (d 2,048, 16 heads,
    MHA, 64 experts top-6 and the shared expert, ``moe_d_ff`` 1,408,
-   vocab 163,840, bfloat16), 16 of its 48 layers, served as arm F serves
+   vocab 163,840, bfloat16), 8 of its 48 layers, served as arm F serves
    (its 8 requests on 4 slots, max_len 2,084): cold, F2's check, warm,
    then profiled on the first 4 requests with 8 new tokens each. M2:
    llama4-maverick at full
@@ -248,6 +248,39 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    window; M2 also runs two of F2's controls at those limits
    (``M2_F2_CONTROLS``: the planted ``diag_tile_dropped``'s logits must
    break them on every request, the bfloat16 P.V is recorded);
+   Arms R1, R and R2 (the recurrent mixers through the LM
+   ``ServeEngine``: jamba's Mamba layers with MoE and its one attention
+   layer a period, xlstm's mLSTM and sLSTM; random weights from
+   ``torch.Generator`` seeds, each arm's weights freed before the next).
+   R1: jamba-1.5-large and xlstm-350m at their REDUCED widths (float32;
+   jamba's head_dim is the config's 128) serve prompts of 512, 300, 128
+   and 40 tokens on 2 slots (over one 256 / 128-row chunk and not
+   multiples of it) on the card and on the CPU: equal token streams and
+   stats, prefill logits within 1e-3, B6's float32 kernels in jamba's
+   attention layer only; then one train step of each on 2 x 512 tokens,
+   card against CPU at phase L1's tolerances (an mLSTM's gate leaves
+   ``wi``, ``wf``, ``bi``, ``bf`` at their own atol,
+   ``R1_GATE_ATOL_OF_MAX``; an sLSTM's ``bi``, whose gradient is 0 in
+   exact arithmetic, must be rounding noise on both), every grad leaf of
+   both also read against the same step run in float64 on the CPU.
+   R: jamba-1.5-large at full widths (d 8,192, 64 heads, kv 8, d_ff and
+   ``moe_d_ff`` 24,576, vocab 65,536, ``mamba_d_state`` 16, 64 SSM heads
+   of 256, bfloat16), one period (8 of 72 layers: 1 attention, 7 Mamba,
+   4 MoE) and 8 of its 16 experts (top-2), serving arm F's fleet with
+   its 1,280-token prompt replaced by 1,000 (one whole-prompt chunk):
+   cold, F2's check on its attention layer with M2's two controls at
+   the same limits, warm, profiled on the first 4 requests with 8 new
+   tokens each. R2: xlstm-350m at full width and depth (24 layers, d
+   1,024, tied embeddings, bfloat16), prompts of 512, 256, 2,048 and
+   1,000 tokens on 4 slots, 32 new tokens: cold, warm, profiled on the
+   first two (the sLSTM prefill is a step loop). B6's prefill launches once per attention layer and request in
+   R, its decode kernels once per attention layer and tick; R2 launches
+   no kernel. Then, at full width, one layer of each kind (R's first
+   Mamba layer, R2's first mLSTM and its sLSTM) in float32 on the first
+   256 positions of its own input in a prefill: the card's output and
+   final state within 1e-4 x their largest magnitude of the CPU's, and
+   on the card the chunked Mamba (256 and 64-row chunks) and mLSTM
+   against their step recurrences to the same bound;
    Phase L (LM training, ``models/lm.make_train_step`` and
    ``train/trainer.Trainer``; no kernel: the reference trains through
    plain einsums, so every launch count must stay 0; TF32 off). L1: the
@@ -1571,7 +1604,9 @@ B6_SOFTCAP_Q_SCALE = 8.0
 # arms M1, M and M2: the MoE family and local attention through the LM
 # ServeEngine (see the module docstring)
 M_ARCH = "moonshot-v1-16b-a3b"
-M_LAYERS = 16  # of 48: arm F's depth
+# 8 of 48 layers: at arm F's 16 the whole script ran past its time limit
+# once arms R joined it (PERF.md section 4)
+M_LAYERS = 8
 M2_ARCH = "llama4-maverick-400b-a17b"
 M2_EXPERTS = 64  # of 128: all 128 leave too little of the card to prefill
 M2_WINDOW = 8192  # the config's local_window
@@ -1675,13 +1710,22 @@ def moe_model(arch: str, dtype: str, seed: int, device, **widths):
     return cfg, lm.init_params(cfg, gen, device)
 
 
+def attn_layers(cfg) -> int:
+    """The model's attention layers (B6's callers); its other layers are
+    Mamba, mLSTM or sLSTM, which launch no kernel."""
+    return sum(cfg.layer_pattern[i % cfg.period].mixer == "attn"
+               for i in range(cfg.num_layers))
+
+
 def lm_launches_want(cfg, prefills: int, ticks: int, prefill: str) -> dict:
     """B6's launches on an LM serving run: its ``prefill`` kernel once per
-    layer and prefill, the decode's split and combine kernels once per
-    layer and tick; no other kernel."""
-    want = {f"{B6}.{prefill}": cfg.num_layers * prefills,
-            f"{B6}.decode_split": cfg.num_layers * ticks,
-            f"{B6}.decode_combine": cfg.num_layers * ticks}
+    attention layer and prefill, the decode's split and combine kernels
+    once per attention layer and tick; no other kernel (none at all for
+    an attention-free model)."""
+    n = attn_layers(cfg)
+    want = {f"{B6}.{prefill}": n * prefills,
+            f"{B6}.decode_split": n * ticks,
+            f"{B6}.decode_combine": n * ticks}
     want[B6] = sum(want.values())
     return want
 
@@ -1692,12 +1736,14 @@ def check_lm_launches(label: str, launches: dict, want: dict) -> None:
              "kernel")
 
 
-def run_arm_m1(dev, reset, counts, cfgs=None) -> dict:
+def run_arm_m1(dev, reset, counts, cfgs=None, label: str = "M1",
+               prompts=M1_PROMPTS, max_len: int = M1_MAX_LEN) -> dict:
     """Arm M1: moonshot and llama4 at their REDUCED widths (float32,
     head_dim 128; llama4's window 8) served on the card and on the CPU
     from the same weights: equal token streams and stats, prefill logits
     within ``F1_TOL``; B6's float32 kernels only. Prompts longer than the
-    window, decoding past it."""
+    window, decoding past it. Arm R1 is the same check on ``cfgs`` (the
+    recurrent archs) and its own ``prompts``."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.models import lm
@@ -1708,33 +1754,34 @@ def run_arm_m1(dev, reset, counts, cfgs=None) -> dict:
     for arch, cfg in cfgs.items():
         p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(1), cpu)
         p_dev = to_dev(p_cpu, dev)
-        reqs_g = lm_requests(M1_PROMPTS, cfg.vocab_size, M1_MAX_NEW, 1)
+        reqs_g = lm_requests(prompts, cfg.vocab_size, M1_MAX_NEW, 1)
         reset()
         st_g, wall_g, rec_g = serve_lm(cfg, p_dev, reqs_g, M1_SLOTS,
-                                       M1_MAX_LEN, dev)
+                                       max_len, dev)
         launches = counts()
         del p_dev
-        reqs_c = lm_requests(M1_PROMPTS, cfg.vocab_size, M1_MAX_NEW, 1)
+        reqs_c = lm_requests(prompts, cfg.vocab_size, M1_MAX_NEW, 1)
         st_c, wall_c, rec_c = serve_lm(cfg, p_cpu, reqs_c, M1_SLOTS,
-                                       M1_MAX_LEN, cpu)
+                                       max_len, cpu)
         streams = [r.out for r in reqs_g]
         if st_g != st_c or streams != [r.out for r in reqs_c]:
-            fail(f"M1 {arch}: card stats {st_g} streams {streams} vs CPU "
-                 f"{st_c} {[r.out for r in reqs_c]}")
-        check_lm_launches(f"M1 {arch}", launches, lm_launches_want(
-            cfg, len(M1_PROMPTS), st_g["ticks"], "prefill_tile"))
+            fail(f"{label} {arch}: card stats {st_g} streams {streams} vs "
+                 f"CPU {st_c} {[r.out for r in reqs_c]}")
+        check_lm_launches(f"{label} {arch}", launches, lm_launches_want(
+            cfg, len(prompts), st_g["ticks"], "prefill_tile"))
         err = max(check_close(
-            f"M1 {arch} request {i} prefill logits, card vs CPU (float32)",
-            a.cpu(), b, F1_TOL)
+            f"{label} {arch} request {i} prefill logits, card vs CPU "
+            "(float32)", a.cpu(), b, F1_TOL)
             for i, (a, b) in enumerate(zip(rec_g["logits"],
                                            rec_c["logits"])))
         rows[arch] = {
             "widths": {k: getattr(cfg, k) for k in (
                 "num_layers", "d_model", "num_heads", "num_kv_heads",
                 "head_dim", "d_ff", "moe_d_ff", "moe_num_experts",
-                "moe_top_k", "local_window", "vocab_size")},
-            "dtype": cfg.dtype, "prompts": M1_PROMPTS, "slots": M1_SLOTS,
-            "max_len": M1_MAX_LEN, "max_new": M1_MAX_NEW, "stats": st_g,
+                "moe_top_k", "local_window", "mamba_d_state", "xlstm_heads",
+                "vocab_size")},
+            "dtype": cfg.dtype, "prompts": prompts, "slots": M1_SLOTS,
+            "max_len": max_len, "max_new": M1_MAX_NEW, "stats": st_g,
             "streams": streams, "launches": launches,
             "max_abs_err_prefill_logits": err, "card_wall_s": wall_g,
             "cpu_wall_s": wall_c}
@@ -1766,9 +1813,12 @@ def run_lm_serving_arm(label: str, cfg, params, prompts, slots: int,
     alone must break them on every request), warm, then profiled (the
     first ``profile_requests`` requests, 0 = all, with
     ``profile_max_new`` new tokens, 0 = ``max_new``: the profiler's
-    post-processing grows with the launches it holds)."""
+    post-processing grows with the launches it holds). The prefill
+    launches and F2 count the attention layers only; an attention-free
+    model (no B6 call) skips F2."""
     import torch
 
+    n_attn = attn_layers(cfg)
     fleet = lambda: lm_requests(prompts, cfg.vocab_size, max_new)
     part_s, clock = {}, [time.perf_counter()]
 
@@ -1799,8 +1849,9 @@ def run_lm_serving_arm(label: str, cfg, params, prompts, slots: int,
         if lg.shape != (1, cfg.vocab_size) or not torch.isfinite(lg).all():
             fail(f"arm {label}: prefill logits not finite [1, vocab]")
     part("cold")
-    f2 = f2_check(cfg, params, cold, None, max_len, B6_BF16_TOL,
-                  served=rec_cold["logits"], limits=M_F2_LIMITS)
+    f2 = [] if not n_attn else f2_check(
+        cfg, params, cold, None, max_len, B6_BF16_TOL,
+        served=rec_cold["logits"], limits=M_F2_LIMITS)
     part("check")
     for row in f2:
         print(f"arm {label} F2 {json.dumps(row)}")
@@ -1808,11 +1859,11 @@ def run_lm_serving_arm(label: str, cfg, params, prompts, slots: int,
         fail(f"arm {label}: B6's prefill attention or logits are further "
              "from the plain version or the float64 prefill than the "
              f"limits allow (rows {f2})")
-    if any(row["layer_calls"] != cfg.num_layers
+    if any(row["layer_calls"] != n_attn
            or row["windowed_calls"] != windowed_layers for row in f2):
         calls = [(r["layer_calls"], r["windowed_calls"]) for r in f2]
         fail(f"arm {label}: {calls} B6 calls (windowed) a prefill, want "
-             f"{cfg.num_layers} ({windowed_layers})")
+             f"{n_attn} ({windowed_layers})")
     f2_controls = {}
     for kind in controls:
         f2_controls[kind] = f2_check(
@@ -1838,14 +1889,16 @@ def run_lm_serving_arm(label: str, cfg, params, prompts, slots: int,
             profiled, cfg.vocab_size, profile_max_new or max_new), slots,
             max_len, dev)))
     part("profile")
-    widths = [min(cfg.local_window, max_len)
-              if cfg.layer_pattern[i % cfg.period].attn_kind == "local"
-              else max_len for i in range(cfg.num_layers)]
+    specs = [cfg.layer_pattern[i % cfg.period]
+             for i in range(cfg.num_layers)]
+    widths = [min(cfg.local_window, max_len) if spec.attn_kind == "local"
+              else max_len for spec in specs if spec.mixer == "attn"]
     return {
         "params": sum(t.numel() for t in _tree_leaves(params)),
         "config_params": cfg.param_count(),
         "config_active_params": cfg.active_param_count(),
-        "layers": cfg.num_layers, "experts": cfg.moe_num_experts,
+        "layers": cfg.num_layers, "attention_layers": n_attn,
+        "experts": cfg.moe_num_experts,
         "window": cfg.local_window, "requests": len(prompts),
         "prompt_lengths": list(prompts), "max_new": max_new, "slots": slots,
         "max_len": max_len, "cache_widths": widths, "ticks": ticks,
@@ -1908,6 +1961,191 @@ def run_arms_m(dev, reset, counts, profile, *, m_widths=None,
     return out
 
 
+# arms R1, R and R2: the recurrent mixers through the LM ServeEngine (see
+# the module docstring)
+R_ARCH = "jamba-1.5-large-398b"
+# one period (8 of 72 layers: 1 attention, 7 Mamba, 4 MoE) and 8 of its 16
+# experts, top-2 kept: 25.80 B params by the reference's accounting, 51.6
+# GB; all 16 experts would take 90.3 GB
+R_WIDTHS = dict(num_layers=8, moe_num_experts=8)
+# arm F's fleet with its 1,280-token prompt replaced by 1,000, not a
+# multiple of the Mamba's 256-row chunk: that prefill runs as one chunk
+R_PROMPTS = [2048, 1536, 1024, 512, 1792, 768, 1000, 256]
+R2_ARCH = "xlstm-350m"  # all 24 layers, its published widths
+# its two short prompts first: the profiled run serves the first two
+# requests, with 8 new tokens each, since the sLSTM's prefill is a step
+# loop (~20 launches a token and layer; profiling all four with 32 new
+# tokens, the profiler's post-processing took 57 s for 101,322 launches
+# on an H100)
+R2_PROMPTS = [512, 256, 2048, 1000]
+R2_SLOTS = 4
+R2_MAX_NEW = 32
+R2_PROFILED = 2
+# R1: both archs' REDUCED configs (jamba's head_dim is the config's 128,
+# which ``with_`` keeps), card against CPU: prompts over one chunk (256 /
+# 128 rows) and not multiples of it; one train step on 2 x 512 tokens
+R1_PROMPTS = [512, 300, 128, 40]
+R1_TRAIN = dict(steps=1, batch=2, seq=512)
+# R1's grad leaves, card against CPU, at L1's rule (rtol L_GRAD_RTOL + atol
+# L_GRAD_ATOL_OF_MAX x each leaf's largest), but the leaves that the
+# mLSTM layers' backward pass reaches (every mLSTM leaf and the tied
+# embedding), at this atol: there the float64 gradient of R1's xlstm step
+# itself moves by up to 2.4e-4 of a leaf's largest when every param moves
+# by one float32 ulp, and the card's grads sit up to 3.5e-4 from it
+# (``f64_band`` and ``card_vs_f64`` of the readings; PERF.md section 6)
+R1_ATOL_OF_MAX = {"mlstm": 1e-3, (None, "embed"): 1e-3}
+# the relative move of every parameter (one float32 ulp, times a standard
+# normal draw) that ``f64_band`` reads the float64 gradient under
+F32_ULP = 2.0**-23
+# the full-width mixer checks: one layer of each kind in float32 on the
+# first 256 positions of its own input, card against CPU and chunked
+# against the step recurrence, within 1e-4 x the largest magnitude
+R_MIXER_TOKENS = 256
+R_MIXER_TOL = 1e-4
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    want = want.to(got.device).float()
+    return float((got.float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def mixer_checks(cfg, params, prompt, kinds, dev,
+                 tokens: int = R_MIXER_TOKENS) -> dict:
+    """Each recurrent mixer kind of ``kinds`` ("mamba", "mlstm", "slstm")
+    at full width: its first layer's parameters in float32, on the first
+    ``tokens`` positions of that layer's own input in a prefill of
+    ``prompt`` (captured by a spy). The card's output and final state
+    within ``R_MIXER_TOL`` x their largest magnitude of the port's CPU run
+    of the same layer; on the card, the chunked form (Mamba at its
+    256-row chunk and at 64, mLSTM at 128) against the step recurrence
+    (``mamba_decode`` token by token, ``mlstm_scan``) to the same bound.
+    The reference's ``test_mamba_chunk_size_invariance_and_decode`` and
+    ``test_mlstm_chunked_equals_scan``, at full width. Returns the
+    readings per kind."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import xlstm as xlstm_mod
+
+    where = {"mamba": (mamba_mod, "mamba_chunked"),
+             "mlstm": (xlstm_mod, "mlstm_chunked"),
+             "slstm": (xlstm_mod, "slstm_scan")}
+    real = {k: getattr(*where[k]) for k in kinds}
+    seen = {}
+
+    def spy(kind):
+        def fn(p, x, c, *args, **kw):
+            if kind not in seen:
+                seen[kind] = (p, x[:, :tokens].clone())
+            return real[kind](p, x, c, *args, **kw)
+        return fn
+
+    tokens_t = torch.as_tensor(np.asarray(prompt, np.int64)[None],
+                               device=dev)
+    for k in kinds:
+        setattr(*where[k], spy(k))
+    try:
+        lm.make_prefill_step(cfg, len(prompt))(params, {"tokens": tokens_t})
+    finally:
+        for k in kinds:
+            setattr(*where[k], real[k])
+    cfg32 = cfg.with_(dtype="float32")
+    cpu = torch.device("cpu")
+    rows = {}
+    for kind in kinds:
+        p, x = seen[kind]
+        p32 = {n: t.float() for n, t in p.items()}
+        x32 = x.float()
+        out, st = real[kind](p32, x32, cfg32)
+        out_c, st_c = real[kind](to_dev(p32, cpu), x32.cpu(), cfg32)
+        errs = {"vs_cpu": [_rel_err(a, b) for a, b in
+                           zip((out, *st), (out_c, *st_c))]}
+        if kind == "mamba":
+            out64, st64 = mamba_mod.mamba_chunked(p32, x32, cfg32, chunk=64)
+            step = mamba_mod.mamba_state_init(cfg32, 1, torch.float32, dev)
+            ys = []
+            for t in range(x32.shape[1]):
+                y, step = mamba_mod.mamba_decode(p32, x32[:, t:t + 1], cfg32,
+                                                 step)
+                ys.append(y)
+            errs["chunk_64_vs_256"] = [_rel_err(a, b) for a, b in
+                                       zip((out64, *st64), (out, *st))]
+            errs["steps_vs_chunked"] = [_rel_err(a, b) for a, b in zip(
+                (torch.cat(ys, dim=1), *step), (out, *st))]
+        elif kind == "mlstm":
+            out_s, st_s = xlstm_mod.mlstm_scan(p32, x32, cfg32)
+            errs["scan_vs_chunked"] = [_rel_err(a, b) for a, b in
+                                       zip((out_s, *st_s), (out, *st))]
+        worst = max(max(v) for v in errs.values())
+        if not worst <= R_MIXER_TOL:
+            fail(f"{kind} at full width ({tuple(x.shape)}): {errs}, over "
+                 f"{R_MIXER_TOL} of the largest magnitude")
+        rows[kind] = {"input": list(x.shape), "params": sum(
+            t.numel() for t in p32.values()),
+            "rel_err_out_and_state": errs, "worst": worst}
+        del p32, out_c, st_c
+    return rows
+
+
+def run_arms_r(dev, reset, counts, profile, *, r_widths=None,
+               r2_widths=None, r1_cfgs=None, r_prompts=None,
+               r2_prompts=None, r1_prompts=None, r1_train=None, mixer_tokens: int = R_MIXER_TOKENS) -> dict:
+    """Arms R1 (both recurrent archs at REDUCED widths, card against CPU:
+    served, then one train step), R (jamba-1.5-large at full widths, one
+    period, ``R_WIDTHS``) and R2 (xlstm-350m, full width and depth), each
+    with its full-width mixer checks; the keywords shrink them for a
+    rehearsal on the CPU."""
+    import torch
+    from repro_torch.configs import registry
+
+    r1_cfgs = r1_cfgs or {a: registry.get_reduced(a)
+                          for a in (R_ARCH, R2_ARCH)}
+    r1_prompts = r1_prompts or R1_PROMPTS
+    out = {f"R1 {a}": row for a, row in run_arm_m1(
+        dev, reset, counts, r1_cfgs, "R1", r1_prompts,
+        max(r1_prompts) + M1_MAX_NEW + 4).items()}
+    for a, cfg in r1_cfgs.items():
+        t0 = time.perf_counter()
+        reset()
+        row = out[f"R1 {a}"]
+        row["train_steps"] = l1_check_steps(
+            cfg, dev, leaf_atol_of_max=R1_ATOL_OF_MAX, float64=True,
+            **(r1_train or R1_TRAIN))
+        row["train_launches"] = counts()
+        check_lm_launches(f"R1 {a} training", row["train_launches"], {})
+        row["train_s"] = time.perf_counter() - t0
+    # R also runs M2's controls of F2 at the same limits
+    arms = (("R", R_ARCH, r_widths or R_WIDTHS, r_prompts or R_PROMPTS,
+             LM_SLOTS, LM_MAX_NEW, LM_SLOTS, 8, M2_F2_CONTROLS, ("mamba",)),
+            ("R2", R2_ARCH, r2_widths or {}, r2_prompts or R2_PROMPTS,
+             R2_SLOTS, R2_MAX_NEW, R2_PROFILED, 8, (), ("mlstm", "slstm")))
+    for (label, arch, widths, prompts, slots, max_new, profiled,
+         profiled_new, controls, kinds) in arms:
+        t0 = time.perf_counter()
+        cfg, params = moe_model(arch, "bfloat16", 0, dev, **widths)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        max_len = max(prompts) + max_new + 4
+        out[label] = dict(run_lm_serving_arm(
+            label, cfg, params, prompts, slots, max_len, max_new, dev,
+            reset, counts, profile, profile_requests=profiled,
+            profile_max_new=profiled_new, controls=controls),
+            arch=arch, widths=widths, init_s=init_s)
+        t0 = time.perf_counter()
+        out[label]["mixer_checks"] = mixer_checks(
+            cfg, params, lm_requests(prompts, cfg.vocab_size, max_new)[0]
+            .prompt, kinds, dev, mixer_tokens)
+        out[label]["part_s"]["mixer_checks"] = time.perf_counter() - t0
+        del params  # free the arm's weights before the next one
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 # phase L: LM training (see the module docstring). L1 and L3 train the
 # ~100M config of the reference's example (examples/train_lm.py: the
 # minitron-4b layout at 8 layers, d 768, 12 heads, kv 4, d_ff 3,072,
@@ -1951,6 +2189,85 @@ def _tree_leaves(tree):
     return tree_flatten(tree)[0]
 
 
+# the leaf whose gradient is 0 in exact arithmetic: an sLSTM layer's
+# input-gate bias (a shift of every input gate moves the stabilizer ``m``
+# with it and changes nothing downstream)
+EXACT_ZERO_GRADS = {("slstm", "mixer/bi")}
+
+
+def _leaf_paths(tree, prefix=()) -> list:
+    """Each leaf's path of keys, in ``tree_flatten``'s order (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k],
+                                                             (*prefix, k))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, (*prefix, i))]
+    return [prefix]
+
+
+def leaf_kinds(cfg, params) -> list:
+    """Each LM param leaf as (its layer's mixer or None, its path below the
+    layer, e.g. "mixer/wf"), in ``tree_flatten``'s order."""
+    return [(cfg.layer_pattern[p[1] % cfg.period].mixer,
+             "/".join(map(str, p[2:]))) if p[0] == "layers"
+            else (None, "/".join(map(str, p))) for p in _leaf_paths(params)]
+
+
+def _perturbed(tree, rel: float, seed: int):
+    """``tree``'s leaves in float64, each element times (1 + ``rel`` x a
+    standard normal draw from a CPU generator seeded ``seed``)."""
+    import torch
+    from repro_torch.optim.adamw import tree_flatten
+
+    gen = torch.Generator().manual_seed(seed)
+    leaves, unflatten = tree_flatten(tree)
+    return unflatten([t.detach().cpu().double() * (1 + rel * torch.randn(
+        t.shape, generator=gen, dtype=torch.float64)) for t in leaves])
+
+
+def float64_loss_and_grads(params, batch, cfg):
+    """``lm.loss_and_grads`` in float64 on the CPU: the exact arithmetic
+    that a float32 step is read against. The params are cast to float64,
+    and every float32 the model asks for (``.float()``, a float32
+    ``dtype``, ``cfg.dtype``) is given as float64 by a
+    ``TorchFunctionMode``; the chunks and periods that autograd would
+    recompute run straight (``checkpoint`` changes memory only, and its
+    recompute in the backward pass would run outside the mode)."""
+    from unittest import mock
+
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.models import blocks, lm
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.optim.adamw import tree_flatten
+
+    f32, f64 = torch.float32, torch.float64
+
+    class Float64(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = dict(kwargs or {})
+            if func is torch.Tensor.float:
+                return args[0].double()
+            if kwargs.get("dtype") is f32:
+                kwargs["dtype"] = f64
+            return func(*(f64 if a is f32 else a for a in args), **kwargs)
+
+    leaves, unflatten = tree_flatten(params)
+    p64 = unflatten([t.detach().cpu().double() for t in leaves])
+    straight = lambda fn, *args, use_reentrant=None: fn(*args)
+    with mock.patch.object(blocks, "checkpoint", straight), \
+            mock.patch.object(mamba_mod, "checkpoint", straight), \
+            mock.patch.object(xlstm_mod, "checkpoint", straight), Float64():
+        loss, _, grads = lm.loss_and_grads(
+            p64, {k: v.cpu() for k, v in batch.items()}, cfg)
+    if loss.dtype != f64:
+        fail(f"the float64 run's loss came out {loss.dtype}")
+    return loss, grads
+
+
 def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tree_leaves(tree))
 
@@ -1964,14 +2281,26 @@ def _lm_batch(dcfg, step: int, dev):
 
 
 def l1_check_steps(cfg, dev, steps: int = L1_CHECK_STEPS,
-                   batch: int = L1_BATCH, seq: int = L1_SEQ) -> list:
+                   batch: int = L1_BATCH, seq: int = L1_SEQ,
+                   leaf_atol_of_max=None, float64: bool = False) -> list:
     """The first ``steps`` train steps on ``dev`` and, from the same params
     and AdamW state each step, on the CPU. The step is
     ``make_train_step``'s body in its two halves: ``lm.loss_and_grads``
     (the loss and every grad leaf allclose to the CPU's), then
     ``cosine_warmup`` and the in-place ``adamw_update_`` on ``dev``, whose
     new params and moments must equal the functional ``adamw_update`` run
-    on the CPU on ``dev``'s own grads."""
+    on the CPU on ``dev``'s own grads. Each grad leaf is held at rtol
+    ``L_GRAD_RTOL`` + atol ``L_GRAD_ATOL_OF_MAX`` x its largest magnitude
+    (``leaf_atol_of_max``: another atol for the leaves of a ``leaf_kinds``
+    entry or of a mixer), but a leaf whose gradient is 0 in exact
+    arithmetic (``EXACT_ZERO_GRADS``: an sLSTM's ``bi``), which must be
+    rounding noise on both devices, within 1e-6 of the largest gradient.
+    With ``float64``, each step's row also reads, per leaf and over the
+    leaf's largest float64 magnitude, how far the card's and the CPU's
+    grads each sit from :func:`float64_loss_and_grads` on the same params
+    and batch, and how far that float64 gradient moves when every param
+    moves by ``F32_ULP`` times a standard normal draw (``f64_band``: the
+    spread that float32 rounding of the inputs alone would give)."""
     import torch
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import lm
@@ -1985,6 +2314,10 @@ def l1_check_steps(cfg, dev, steps: int = L1_CHECK_STEPS,
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                       global_batch=batch)
     cpu = torch.device("cpu")
+    kinds = leaf_kinds(cfg, params)
+    atol_of = leaf_atol_of_max or {}
+    atols = [atol_of.get(k, atol_of.get(k[0], L_GRAD_ATOL_OF_MAX))
+             for k in kinds]
     rows = []
     for s in range(steps):
         cpu_p, cpu_o = _cpu_tree(params), _cpu_tree(opt)
@@ -1996,18 +2329,47 @@ def l1_check_steps(cfg, dev, steps: int = L1_CHECK_STEPS,
         if loss_err > L_LOSS_RTOL * abs(float(cpu_loss)):
             fail(f"phase L1 step {s}: loss {float(loss)} on the card, "
                  f"{float(cpu_loss)} on the CPU")
-        worst = 0.0
-        for i, (g, c) in enumerate(zip(_tree_leaves(grads),
-                                       _tree_leaves(cpu_grads))):
+        worst, bad, readings = 0.0, [], []
+        cpu_leaves = _tree_leaves(cpu_grads)
+        top = max(float(c.abs().max()) for c in cpu_leaves)
+        f64_leaves = band_leaves = [None] * len(cpu_leaves)
+        if float64:
+            f64_leaves, band_leaves = (_tree_leaves(float64_loss_and_grads(
+                p, _lm_batch(dcfg, s, cpu), cfg)[1]) for p in (
+                    cpu_p, _perturbed(cpu_p, F32_ULP, s)))
+        for i, (g, c, e, e2, kind, atol) in enumerate(zip(
+                _tree_leaves(grads), cpu_leaves, f64_leaves, band_leaves,
+                kinds, atols)):
             g = g.cpu()
+            name = f"{i} {kind[0] or ''} {kind[1]} {tuple(c.shape)}"
+            if e is not None and kind not in EXACT_ZERO_GRADS:
+                exact = max(float(e.abs().max()), 1e-30)
+                readings.append({
+                    "leaf": name, "f64_max": float(e.abs().max()),
+                    "card_vs_cpu": float((g - c).abs().max()) / exact,
+                    "card_vs_f64": float((g.double() - e).abs().max())
+                    / exact,
+                    "cpu_vs_f64": float((c.double() - e).abs().max())
+                    / exact,
+                    "f64_band": float((e2 - e).abs().max()) / exact})
+            if kind in EXACT_ZERO_GRADS:
+                if max(float(g.abs().max()), float(c.abs().max())) \
+                        > 1e-6 * top:
+                    bad.append(f"grad leaf {name}, 0 in exact arithmetic, "
+                               f"reads {float(g.abs().max()):.3g} (card) / "
+                               f"{float(c.abs().max()):.3g} (CPU)")
+                continue
             scale = float(c.abs().max())
             err = (g - c).abs()
-            if bool((err > L_GRAD_ATOL_OF_MAX * scale
-                     + L_GRAD_RTOL * c.abs()).any()):
-                fail(f"phase L1 step {s}: grad leaf {i} {tuple(c.shape)} "
-                     f"differs from the CPU's by {float(err.max()):.3g} "
-                     f"(largest grad {scale:.3g})")
+            if bool((err > atol * scale + L_GRAD_RTOL * c.abs()).any()):
+                bad.append(f"grad leaf {name} differs from the CPU's by "
+                           f"{float(err.max()):.3g} (largest grad "
+                           f"{scale:.3g}, atol {atol:g} of it)")
             worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        for r in readings:
+            print(f"{cfg.name} grad reading step {s} {json.dumps(r)}")
+        if bad:
+            fail(f"phase L1 step {s}: {bad}")
         lr = cosine_warmup(s, *(L_SCHEDULE[k] for k in (
             "base_lr", "warmup", "total_steps")))
         host_p, host_o = adamw_update(_cpu_tree(grads), cpu_p, cpu_o, s,
@@ -2026,7 +2388,11 @@ def l1_check_steps(cfg, dev, steps: int = L1_CHECK_STEPS,
         rows.append({"step": s, "loss": float(loss),
                      "loss_rel_err": loss_err / abs(float(cpu_loss)),
                      "grad_err_of_leaf_max": worst,
-                     "adamw_max_abs_err": adam_err})
+                     "adamw_max_abs_err": adam_err,
+                     "grad_readings": readings, **{
+                         f"{k}_max": max(r[k] for r in readings)
+                         for k in ("card_vs_f64", "cpu_vs_f64", "f64_band")
+                         if readings}})
         del grads, cpu_grads, host_p, host_o
     return rows
 
@@ -3931,6 +4297,8 @@ def main() -> int:
     phase_done("arm F")
     arms.update(run_arms_m(dev, reset, counts, profile_run))
     phase_done("arms M")
+    arms.update(run_arms_r(dev, reset, counts, profile_run))
+    phase_done("arms R")
     training_l = run_phase_l(dev, reset, counts)
     phase_done("L")
     for name, arm in arms.items():
@@ -4039,6 +4407,30 @@ def main() -> int:
         print(f"arm M1 {a}: card vs CPU equal streams and stats "
               f"{m['stats']}, prefill logits within "
               f"{m['max_abs_err_prefill_logits']:.3g}")
+    for n in ("R", "R2"):
+        m, prof = arms[n], arms[n]["profile"]
+        f2 = (f", F2 max err "
+              f"{max(r['layers_max_abs_err'] for r in m['F2']):.3g}"
+              if m["F2"] else "")
+        print(f"arm {n} {m['arch']} ({m['params']:,} params, {m['layers']} "
+              f"layers, {m['attention_layers']} attention, {m['experts']} "
+              f"experts, {smi}): warm {m['warm_wall_s']:.3f} s (cold "
+              f"{m['cold_wall_s']:.3f} s), {m['generated_tok_per_s']:.1f} "
+              f"generated tok/s, prefill {m['prefill_prompt_tok_per_s']:.0f}"
+              f" prompt tok/s, {m['ticks']} ticks, "
+              f"{m['decode_s_per_tick'] * 1e3:.1f} ms a tick, busy "
+              f"{prof['device_busy_share']} (profiled "
+              f"{m['profiled_prompts']}), peak "
+              f"{m['max_memory_allocated'] / 1e9:.2f} GB, B6 launches "
+              f"{m['launches'][B6]}{f2}; parts {json.dumps(m['part_s'])}")
+        for mixer, row in m["mixer_checks"].items():
+            print(f"arm {n} full-width {mixer} ({smi}): {json.dumps(row)}")
+    for a in (R_ARCH, R2_ARCH):
+        m = arms[f"R1 {a}"]
+        print(f"arm R1 {a}: card vs CPU equal streams and stats "
+              f"{m['stats']}, prefill logits within "
+              f"{m['max_abs_err_prefill_logits']:.3g}; one train step "
+              f"{json.dumps(m['train_steps'])}")
     l1, l2, l3 = (training_l[k] for k in ("L1", "L2", "L3"))
     print(f"phase L1 {L_ARCH}-100m ({training_l['l1_config']['params']:,} "
           f"params, {smi}): card vs CPU, first {len(l1)} train steps: "
@@ -4384,7 +4776,7 @@ def main() -> int:
             "warm_fps": a["warm_fps"], "cold_wall_s": a["cold_wall_s"]}
         for n, a in arms.items()
         if n not in ("F", "H", "D_adaptive", "I oracle")
-        and not n.startswith("M")},
+        and not n.startswith(("M", "R"))},
         "baselines_H": {n: {k: b[k] for k in ("warm_wall_s", "warm_fps",
                                                "mean_psnr_vs_full_db")}
                         for n, b in arms["H"]["baselines"].items()},
@@ -4396,7 +4788,7 @@ def main() -> int:
             n: {k: arms[n][k] for k in (
                 "warm_wall_s", "cold_wall_s", "generated_tok_per_s",
                 "prefill_prompt_tok_per_s", "ticks", "max_memory_allocated")}
-            for n in ("M", "M2")},
+            for n in ("M", "M2", "R", "R2")},
         "steady_tick_S": steady,
         "training_T": training,
         "training_L": training_l,
@@ -4428,6 +4820,8 @@ EAGER_LAUNCHES = {
         "F": (0, 0, 0, 0, 0), "F1": (0, 0, 0, 0, 0),
         "M": (0, 0, 0, 0, 0), "M2": (0, 0, 0, 0, 0),
         f"M1 {M_ARCH}": (0, 0, 0, 0, 0), f"M1 {M2_ARCH}": (0, 0, 0, 0, 0),
+        "R": (0, 0, 0, 0, 0), "R2": (0, 0, 0, 0, 0),
+        f"R1 {R_ARCH}": (0, 0, 0, 0, 0), f"R1 {R2_ARCH}": (0, 0, 0, 0, 0),
         "L": (0, 0, 0, 0, 0),
         "I cicero-dvgo": (258, 258, 0, 0, 0),
         "I cicero-ngp": (0, 258, 0, 0, 0),

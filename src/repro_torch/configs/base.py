@@ -2,19 +2,26 @@
 
 A model is a stack of ``LayerSpec`` periods; ``num_layers / period``
 repeats of the pattern. The port keeps its own copy of the dataclasses so
-that it never imports the reference package. It runs the dense and MoE
-families of attention layers, full or local (chunked-window), with a dense
-SwiGLU or a mixture-of-experts FFN (the hybrid, SSM, audio and VLM
-families are ROADMAP.md A2b / A2c), so it has only the reference's fields
-that such a model reads, under their names: the model's widths, the MoE
-and attention fields, numerics, and the training knobs ``q_block`` (the
+that it never imports the reference package. It runs the dense, MoE,
+hybrid and SSM families: attention layers, full or local (chunked-window),
+Mamba layers and xLSTM's mLSTM and sLSTM layers, each with a dense SwiGLU
+FFN, a mixture-of-experts FFN or none (the audio and VLM families are
+ROADMAP.md A2c). So it has only the reference's fields that such a model
+reads, under their names: the model's widths, the MoE, attention, Mamba
+and xLSTM fields, numerics, and the training knobs ``q_block`` (the
 blocked attention's query tile), ``loss_chunk`` (the cross-entropy's
 sequence chunk) and ``remat`` (recompute each period in the backward
 pass). It also records the two fields the configs set that only a sharded
 run reads (``sharding_strategy``, ``skip_shapes``; ROADMAP.md A3), so that
 the configs copy over value for value; the port runs on one device and
-reads them nowhere. A layer or family it does not run raises when the
-config is built.
+reads them nowhere. A family it does not run raises when the config is
+built.
+
+The parameter accounting is the reference's, value for value, where it
+differs from what ``init_params`` builds (ROADMAP.md, reference caveat 5):
+``_mamba_params`` leaves out ``a_log`` and ``d_skip``, and
+``_xlstm_params`` counts an mLSTM of inner width ``2 d`` and an sLSTM
+with ``4 d / 3``-wide projections, which no init builds.
 """
 from __future__ import annotations
 
@@ -26,20 +33,22 @@ from typing import Optional, Tuple
 class LayerSpec:
     """One layer inside the repeating pattern."""
 
-    mixer: str = "attn"  # attn (the reference's mamba | mlstm | slstm raise)
+    mixer: str = "attn"  # attn | mamba | mlstm | slstm
     attn_kind: str = "full"  # full | local (chunked windowed attention)
-    ffn: str = "dense"  # dense | moe (the reference's none raises)
+    ffn: str = "dense"  # dense | moe | none
 
 
-_NOT_PORTED = ("not ported (ROADMAP.md A2b / A2c: the LM substrate's other "
+_NOT_PORTED = ("not ported (ROADMAP.md A2c: the LM substrate's frontend "
                "families)")
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe (the reference's other families raise)
+    family: str  # dense | moe | hybrid | ssm (audio | vlm raise)
     num_layers: int
     d_model: int
     num_heads: int
@@ -63,6 +72,15 @@ class ModelConfig:
     local_window: int = 8192  # for attn_kind == "local"
     logit_softcap: float = 0.0
 
+    # --- mamba ---
+    mamba_d_state: int = 128
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_n_groups: int = 1
+
+    # --- xlstm ---
+    xlstm_heads: int = 4
+
     # --- training knobs ---
     q_block: int = 1024  # blocked-attention query tile
     loss_chunk: int = 512  # cross-entropy sequence chunk
@@ -82,9 +100,8 @@ class ModelConfig:
             raise NotImplementedError(
                 f"{self.name}: family {self.family!r} is {_NOT_PORTED}")
         for spec in self.layer_pattern:
-            if spec.mixer != "attn" or spec.ffn not in ("dense", "moe"):
-                raise NotImplementedError(
-                    f"{self.name}: layer {spec} is {_NOT_PORTED}")
+            if spec.mixer not in MIXERS or spec.ffn not in FFNS:
+                raise ValueError(f"{self.name}: unknown layer {spec}")
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_layers % len(self.layer_pattern) != 0:
@@ -121,16 +138,41 @@ class ModelConfig:
     def _expert_params(self) -> int:
         return self._dense_ffn_params(self.moe_d_ff or self.d_ff)
 
+    def _mamba_params(self) -> int:
+        d_inner = self.mamba_expand * self.d_model
+        in_proj = self.d_model * 2 * d_inner
+        conv = self.mamba_d_conv * d_inner
+        x_proj = d_inner * (2 * self.mamba_d_state + self.num_heads)
+        dt = self.num_heads
+        out = d_inner * self.d_model
+        return in_proj + conv + x_proj + dt + out
+
+    def _xlstm_params(self, kind: str) -> int:
+        d = self.d_model
+        if kind == "mlstm":
+            d_inner = 2 * d
+            return (d * (2 * d_inner) + 3 * d_inner * d_inner
+                    // self.xlstm_heads * self.xlstm_heads + d_inner * d)
+        # sLSTM: 4 gates, recurrent + input
+        return 8 * d * d + 2 * d * (4 * d // 3)
+
     def layer_params(self, spec: LayerSpec) -> int:
-        """One attention layer, its dense or MoE FFN and its two norms."""
-        p = self._attn_params()
-        if spec.ffn == "moe":
+        """One layer's mixer, its dense or MoE FFN (if any) and its two
+        norms (two whatever the FFN, as the reference counts)."""
+        p = 0
+        if spec.mixer == "attn":
+            p += self._attn_params()
+        elif spec.mixer == "mamba":
+            p += self._mamba_params()
+        else:
+            p += self._xlstm_params(spec.mixer)
+        if spec.ffn == "dense":
+            p += self._dense_ffn_params(self.d_ff)
+        elif spec.ffn == "moe":
             p += self.moe_num_experts * self._expert_params()
             p += self.d_model * self.moe_num_experts  # router
             if self.moe_shared_expert:
                 p += self._expert_params()
-        else:
-            p += self._dense_ffn_params(self.d_ff)
         return p + 2 * self.d_model  # norms
 
     def param_count(self) -> int:

@@ -11,10 +11,13 @@ AdamW state (``adamw_init``'s ``{"m", "v"}``) with
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks
 from repro_torch.models.common import dtype_of
 from repro_torch.utils import DeviceLike, resolve_device
 
@@ -46,24 +49,38 @@ def _tensor(x, dev: torch.device) -> torch.Tensor:
 
 
 def _lm_tree(cfg: ModelConfig, tree: dict, dev: torch.device,
-             dtype: torch.dtype) -> dict:
+             dtype: Optional[torch.dtype]) -> dict:
     """The reference's LM layout (``{"embed", "blocks", "final_norm",
     "head"?}``) -> the port's (``{"embed", "layers", "final_norm",
-    "head"?}``), each leaf in ``dtype`` on ``dev``; an MoE router stays
-    float32, as ``moe_init`` makes it."""
-    def conv(x, pick=None, name=None):
-        if isinstance(x, dict):
-            return {k: conv(v, pick, k) for k, v in x.items()}
+    "head"?}``) on ``dev``: every leaf in ``dtype``, or with ``dtype``
+    None each in the dtype the reference's init gives it: float32 for the
+    leaves of ``blocks.float32_leaves`` (an MoE router, a Mamba layer's
+    ``dt_bias`` / ``a_log`` / ``d_skip``, an mLSTM's gates, every sLSTM
+    leaf but ``w_out``), ``cfg.dtype`` for the rest."""
+    model = dtype_of(cfg.dtype)
+
+    def leaf(x, pick, f32: bool):
         a = np.asarray(x) if pick is None else np.asarray(x)[pick]
-        return _tensor(a, dev).to(torch.float32 if name == "router"
-                                  else dtype)
+        return _tensor(a, dev).to(dtype or (torch.float32 if f32 else model))
+
+    def conv(x, pick=None, f32=()):
+        """A leaf, or a dict whose leaves named in ``f32`` are float32."""
+        if isinstance(x, dict):
+            return {k: conv(v, pick, f32) if isinstance(v, dict) else
+                    leaf(v, pick, k in f32) for k, v in x.items()}
+        return leaf(x, pick, False)
+
+    def layer(sub, spec, pick):
+        return {part: conv(v, pick, blocks.float32_leaves(spec, part))
+                for part, v in sub.items()}
 
     period = tree["blocks"]
     if len(period) != cfg.period:
         raise ValueError(f"{cfg.name}: {len(period)} pattern layers in the "
                          f"tree, the config has {cfg.period}")
     out = {"embed": conv(tree["embed"]),
-           "layers": [conv(period[i], p) for p in range(cfg.num_periods)
+           "layers": [layer(period[i], cfg.layer_pattern[i], p)
+                      for p in range(cfg.num_periods)
                       for i in range(cfg.period)],
            "final_norm": conv(tree["final_norm"])}
     if "head" in tree:
@@ -76,15 +93,17 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
     """The reference's LM parameters (``{"embed", "blocks", "final_norm",
     "head"?}``, leaves as numpy arrays) -> the port's (``{"embed",
     "layers", "final_norm", "head"?}``) on ``device`` (default: the CUDA
-    card; raises without one), in ``cfg.dtype``.
+    card; raises without one), each leaf in the dtype the reference's
+    init gives it (``cfg.dtype``, or float32 for the leaves
+    ``blocks.FLOAT32_LEAVES`` names).
 
     ``tree["blocks"]`` holds one dict per layer of the pattern, each leaf
     stacked on a leading ``num_periods`` axis; layer ``p * period + i`` is
     entry ``i`` at index ``p``. An MoE layer's ``ffn`` (``router [D, E]``,
     ``wg``/``wu [E, D, F]``, ``wd [E, F, D]``, ``shared``) comes across
-    the same way; its router stays float32."""
+    the same way; so do a Mamba, mLSTM or sLSTM layer's ``mixer``."""
     dev = resolve_device(device)
-    return _lm_tree(cfg, tree, dev, dtype_of(cfg.dtype))
+    return _lm_tree(cfg, tree, dev, None)
 
 
 def lm_opt_state_from_numpy(cfg: ModelConfig, state: dict,

@@ -1,18 +1,23 @@
-"""Layers and the depth loop (port of the attention-mixer parts of
-``repro.models.blocks``).
+"""Layers and the depth loop (port of ``repro.models.blocks`` without the
+encoder-decoder cross-attention, ROADMAP.md A2c).
 
-A layer is pre-norm attention (full or local, by its ``LayerSpec``) plus a
-pre-norm FFN, dense SwiGLU or mixture-of-experts, each with a residual; an
-MoE layer also gives its router's auxiliary loss. The reference stacks a
-period's parameters on a leading axis and scans over them; the port keeps
-one parameter dict and one KV cache per layer (a local layer's cache is
-``min(local_window, s_max)`` wide) and loops over them in Python; layer
-``i`` has spec ``cfg.layer_pattern[i % cfg.period]``. Training
-(:func:`stack_train`) runs
-the layers period by period; with ``cfg.remat`` each period's forward is
-recomputed in the backward pass (``torch.utils.checkpoint``), the
-reference's ``jax.checkpoint(..., policy=nothing_saveable)``, so only the
-activations between periods stay alive.
+A layer is a pre-norm sequence mixer with a residual, chosen by its
+``LayerSpec.mixer``: attention (full or local), Mamba, mLSTM or sLSTM;
+then, unless ``spec.ffn == "none"``, a pre-norm FFN with a residual,
+dense SwiGLU or mixture-of-experts (which also gives its router's
+auxiliary loss). The reference stacks a period's parameters on a leading
+axis and scans over them; the port keeps one parameter dict and one cache
+per layer and loops over them in Python; layer ``i`` has spec
+``cfg.layer_pattern[i % cfg.period]``. A layer's cache is its mixer's:
+an attention ``KVCache`` (a local layer's ``min(local_window, s_max)``
+wide), a ``MambaState``, an ``MlstmState`` or an ``SlstmState``.
+Training (:func:`stack_train`) runs the layers period by period; with
+``cfg.remat`` each period's forward is recomputed in the backward pass
+(``torch.utils.checkpoint``), the reference's ``jax.checkpoint(...,
+policy=nothing_saveable)``, so only the activations between periods stay
+alive. Decode (:func:`stack_decode`) updates the caches in place: an
+attention layer writes its K/V row, a recurrent layer's new state is
+copied into its state tensors.
 """
 from __future__ import annotations
 
@@ -24,8 +29,20 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import rmsnorm, rmsnorm_init
+
+# each part's leaves that its init makes in float32 whatever the model's
+# dtype, by mixer or FFN kind
+FLOAT32_LEAVES = {"mamba": mamba_mod.FLOAT32_LEAVES,
+                  "mlstm": xlstm_mod.MLSTM_FLOAT32_LEAVES,
+                  "slstm": xlstm_mod.SLSTM_FLOAT32_LEAVES,
+                  "moe": moe_mod.FLOAT32_LEAVES}
+
+Cache = Union[attn.KVCache, mamba_mod.MambaState, xlstm_mod.MlstmState,
+              xlstm_mod.SlstmState]
 
 
 def layer_spec(cfg: ModelConfig, i: int) -> LayerSpec:
@@ -37,21 +54,36 @@ def _local(spec: LayerSpec) -> bool:
     return spec.attn_kind == "local"
 
 
+def float32_leaves(spec: LayerSpec, part: str) -> Tuple[str, ...]:
+    """The names of the leaves of a layer's ``part`` ("mixer" or "ffn")
+    that are float32 whatever the model's dtype."""
+    return FLOAT32_LEAVES.get(spec.mixer if part == "mixer" else spec.ffn,
+                              ())
+
+
 def layer_init(generator: torch.Generator, cfg: ModelConfig,
                spec: LayerSpec, dtype: torch.dtype) -> dict:
     dev = generator.device
-    return {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
-            "mixer": attn.attn_init(generator, cfg, dtype),
-            "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
-            "ffn": (moe_mod.moe_init(generator, cfg, dtype)
+    init = {"attn": attn.attn_init, "mamba": mamba_mod.mamba_init,
+            "mlstm": xlstm_mod.mlstm_init,
+            "slstm": xlstm_mod.slstm_init}[spec.mixer]
+    p = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
+         "mixer": init(generator, cfg, dtype)}
+    if spec.ffn != "none":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["ffn"] = (moe_mod.moe_init(generator, cfg, dtype)
                     if spec.ffn == "moe" else
                     ffn_mod.ffn_init(generator, cfg.d_model, cfg.d_ff,
-                                     dtype))}
+                                     dtype))
+    return p
 
 
 def _ffn_apply(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec
                ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
-    """(x + FFN(norm(x)), aux): a dense FFN's auxiliary loss is 0."""
+    """(x + FFN(norm(x)), aux): a dense FFN's auxiliary loss is 0; no FFN
+    leaves x as it is."""
+    if spec.ffn == "none":
+        return x, 0.0
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if spec.ffn == "moe":
         y, aux = moe_mod.moe(p["ffn"], h, cfg)
@@ -59,13 +91,31 @@ def _ffn_apply(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec
     return x + ffn_mod.ffn(p["ffn"], h), 0.0
 
 
+def _recurrent(p, h: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
+               state=None):
+    """A recurrent mixer over h: the chunked forms for a sequence
+    (``state`` None), the step forms for a decode step."""
+    if spec.mixer == "mamba":
+        if state is None:
+            return mamba_mod.mamba_chunked(p, h, cfg)
+        return mamba_mod.mamba_decode(p, h, cfg, state)
+    if spec.mixer == "mlstm":
+        if state is None:
+            return xlstm_mod.mlstm_chunked(p, h, cfg)
+        return xlstm_mod.mlstm_scan(p, h, cfg, state)
+    return xlstm_mod.slstm_scan(p, h, cfg, state)
+
+
 def layer_train(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, *,
                 causal: bool = True
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """(x, aux): the layer and its FFN's auxiliary loss."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y = attn.attn_train(p["mixer"], h, cfg, local=_local(spec),
-                        causal=causal)
+    if spec.mixer == "attn":
+        y = attn.attn_train(p["mixer"], h, cfg, local=_local(spec),
+                            causal=causal)
+    else:
+        y, _ = _recurrent(p["mixer"], h, cfg, spec)
     return _ffn_apply(p, x + y, cfg, spec)
 
 
@@ -94,26 +144,37 @@ def stack_train(layers: List[dict], x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
-                  cache_len: int) -> Tuple[torch.Tensor, attn.KVCache]:
+                  cache_len: int) -> Tuple[torch.Tensor, Cache]:
+    """(x, the layer's cache): an attention layer's KV cache of
+    ``cache_len`` rows (its window's for a local layer), or a recurrent
+    mixer's state after the sequence."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y, cache = attn.attn_prefill(p["mixer"], h, cfg, cache_len,
-                                 local=_local(spec))
+    if spec.mixer == "attn":
+        y, cache = attn.attn_prefill(p["mixer"], h, cfg, cache_len,
+                                     local=_local(spec))
+    else:
+        y, cache = _recurrent(p["mixer"], h, cfg, spec)
     x, _ = _ffn_apply(p, x + y, cfg, spec)
     return x, cache
 
 
 def layer_decode(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
-                 cache: attn.KVCache, index: int
-                 ) -> Tuple[torch.Tensor, attn.KVCache]:
+                 cache: Cache, index: int) -> Tuple[torch.Tensor, Cache]:
+    """One-token step -> (x, the new cache). An attention layer writes its
+    cache in place and returns it; a recurrent layer returns a new state
+    and leaves ``cache`` as it was."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    y, cache = attn.attn_decode(p["mixer"], h, cfg, cache, index,
-                                local=_local(spec))
+    if spec.mixer == "attn":
+        y, cache = attn.attn_decode(p["mixer"], h, cfg, cache, index,
+                                    local=_local(spec))
+    else:
+        y, cache = _recurrent(p["mixer"], h, cfg, spec, cache)
     x, _ = _ffn_apply(p, x + y, cfg, spec)
     return x, cache
 
 
 def stack_prefill(layers: List[dict], x: torch.Tensor, cfg: ModelConfig,
-                  cache_len: int) -> Tuple[torch.Tensor, List[attn.KVCache]]:
+                  cache_len: int) -> Tuple[torch.Tensor, List[Cache]]:
     caches = []
     for i, p in enumerate(layers):
         x, c = layer_prefill(p, x, cfg, layer_spec(cfg, i), cache_len)
@@ -122,16 +183,32 @@ def stack_prefill(layers: List[dict], x: torch.Tensor, cfg: ModelConfig,
 
 
 def stack_decode(layers: List[dict], x: torch.Tensor, cfg: ModelConfig,
-                 caches: List[attn.KVCache], index: int
-                 ) -> Tuple[torch.Tensor, List[attn.KVCache]]:
+                 caches: List[Cache], index: int
+                 ) -> Tuple[torch.Tensor, List[Cache]]:
+    """Every layer's decode step; each cache is updated in place (a new
+    recurrent state is copied into the cache's tensors, cast to their
+    dtypes, as the reference's ``dynamic_update_index_in_dim`` writes)."""
     for i, (p, c) in enumerate(zip(layers, caches)):
-        # c is updated in place
-        x, _ = layer_decode(p, x, cfg, layer_spec(cfg, i), c, index)
+        x, new = layer_decode(p, x, cfg, layer_spec(cfg, i), c, index)
+        for dst, src in zip(c, new):
+            if dst is not src:
+                dst.copy_(src)
     return x, caches
 
 
+def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     s_max: int, dtype: torch.dtype, device) -> Cache:
+    if spec.mixer == "attn":
+        return attn.kv_cache_init(cfg, batch, s_max, dtype, device,
+                                  local=_local(spec))
+    if spec.mixer == "mamba":
+        return mamba_mod.mamba_state_init(cfg, batch, dtype, device)
+    if spec.mixer == "mlstm":
+        return xlstm_mod.mlstm_state_init(cfg, batch, device)
+    return xlstm_mod.slstm_state_init(cfg, batch, device)
+
+
 def stack_cache_init(cfg: ModelConfig, batch: int, s_max: int,
-                     dtype: torch.dtype, device) -> List[attn.KVCache]:
-    return [attn.kv_cache_init(cfg, batch, s_max, dtype, device,
-                               local=_local(layer_spec(cfg, i)))
-            for i in range(cfg.num_layers)]
+                     dtype: torch.dtype, device) -> List[Cache]:
+    return [layer_cache_init(cfg, layer_spec(cfg, i), batch, s_max, dtype,
+                             device) for i in range(cfg.num_layers)]

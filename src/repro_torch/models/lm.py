@@ -4,6 +4,8 @@ steps, KV caches).
 
 Parameters are a dict ``{"embed" [V, D], "layers": [one dict per layer],
 "final_norm", "head" [D, V] (absent when the embeddings are tied)}``.
+The caches are one per layer, each its mixer's (:data:`blocks.Cache`):
+an attention layer's KV cache or a recurrent layer's state.
 
 Training: :func:`loss_fn` is the backbone (:func:`blocks.stack_train`)
 and the chunked cross-entropy (:func:`chunked_ce`: the head matmul and
@@ -26,7 +28,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import dtype_of, ninit, rmsnorm, rmsnorm_init
 from repro_torch.optim import AdamWConfig, adamw_update_, cosine_warmup
@@ -37,9 +38,10 @@ from repro_torch.utils import DeviceLike, resolve_device
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> dict:
     """Random parameters at the reference's scales (``lm.init_params``):
-    embeddings N(0, 0.02), projections N(0, fan_in^-1/2) (an MoE router
-    in float32 whatever the dtype), norms 1, QKV
-    biases 0. Drawn from ``generator`` (default: seed 0) on ``device``
+    embeddings N(0, 0.02), projections N(0, fan_in^-1/2), norms 1, QKV
+    biases 0, each recurrent mixer's own initializers; every leaf in the
+    dtype the reference's init gives it (``cfg.dtype``, or float32 for an
+    MoE router and the leaves of ``blocks.FLOAT32_LEAVES``). Drawn from ``generator`` (default: seed 0) on ``device``
     (default: the CUDA card; raises without one)."""
     dev = resolve_device(device)
     if generator is None:
@@ -170,7 +172,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
 
     def prefill_step(params, batch: Dict[str, torch.Tensor]
-                     ) -> Tuple[torch.Tensor, List[attn.KVCache]]:
+                     ) -> Tuple[torch.Tensor, List[blocks.Cache]]:
         """batch["tokens"] [B, S] -> (logits [B, V] float32, caches)."""
         x = _embed(params, batch["tokens"])
         x, caches = blocks.stack_prefill(params["layers"], x, cfg, cache_len)
@@ -181,8 +183,8 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 
 def make_decode_step(cfg: ModelConfig):
 
-    def decode_step(params, caches: List[attn.KVCache], token: torch.Tensor,
-                    index: int) -> Tuple[torch.Tensor, List[attn.KVCache]]:
+    def decode_step(params, caches: List[blocks.Cache], token: torch.Tensor,
+                    index: int) -> Tuple[torch.Tensor, List[blocks.Cache]]:
         """token [B, 1]; ``index`` the position decoded (a host int). The
         caches are updated in place and returned."""
         x = _embed(params, token)
@@ -194,7 +196,7 @@ def make_decode_step(cfg: ModelConfig):
 
 
 def cache_init(cfg: ModelConfig, batch: int, s_max: int,
-               device: DeviceLike = None) -> List[attn.KVCache]:
+               device: DeviceLike = None) -> List[blocks.Cache]:
     dev = resolve_device(device)
     return blocks.stack_cache_init(cfg, batch, s_max, dtype_of(cfg.dtype),
                                    dev)

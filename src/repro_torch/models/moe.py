@@ -27,6 +27,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import ninit
 
+# the leaves ``moe_init`` makes in float32 whatever the model's dtype
+FLOAT32_LEAVES = ("router",)
+
 
 def moe_init(generator: torch.Generator, cfg: ModelConfig,
              dtype: torch.dtype) -> dict:

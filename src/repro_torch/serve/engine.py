@@ -12,11 +12,15 @@ prompt's direct greedy generation (``ROADMAP.md``, reference caveats).
 A request is done at ``max_new`` tokens or when its slot reaches
 ``max_len - 1``.
 
-The KV caches are per layer ``[num_slots, KVH, width, D]`` from
-``lm.cache_init``: width ``max_len``, or ``min(local_window, max_len)``
-for a local-attention layer. They are written in place on the current
-stream (a prefill's cache, which has its layer's width, is copied into its
-slot's rows; a decode writes its row). ``reuse_ratio`` is the share of
+The caches are per layer, from ``lm.cache_init``: an attention layer's
+KV cache ``[num_slots, KVH, width, D]`` (width ``max_len``, or
+``min(local_window, max_len)`` for a local-attention layer), or a
+recurrent layer's state (Mamba, mLSTM, sLSTM) with ``num_slots`` rows.
+They are written in place on the current stream: a prefill's cache or
+state (one row, its layer's width) is copied into its slot's row, a
+decode writes its K/V row or copies each new state into its tensors.
+Inactive slots decode token 0 at the shared index, as the reference's
+do; their recurrent state is overwritten at their next admission. ``reuse_ratio`` is the share of
 attention context served from the cache rather than recomputed.
 """
 from __future__ import annotations
@@ -45,15 +49,17 @@ class Request:
 class ServeEngine:
     """Fixed-slot continuous batching (decode batch = num_slots). Runs on
     ``device`` (default: the CUDA card; raises without one), where
-    ``params`` must lie. On a CUDA device ``cfg.head_dim`` must be one of
-    ``flash_attention.HEAD_DIMS`` (a ValueError here, not at the first
-    launch)."""
+    ``params`` must lie. On a CUDA device a model with an attention layer
+    must have ``cfg.head_dim`` in ``flash_attention.HEAD_DIMS`` (a
+    ValueError here, not at the first launch); an attention-free model
+    (xlstm) launches no kernel and has no such rule."""
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int = 4,
                  max_len: int = 256, device: DeviceLike = None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":  # B6's kernels take these head dims
-            fa.check_head_dim(cfg.head_dim)
+        if self.device.type == "cuda" and any(
+                spec.mixer == "attn" for spec in cfg.layer_pattern):
+            fa.check_head_dim(cfg.head_dim)  # B6's kernels take these
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, engine "
                              f"on {self.device}")
@@ -74,9 +80,9 @@ class ServeEngine:
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                  device=self.device)
         logits, caches = self.prefill(self.params, {"tokens": tokens})
-        for dst, src in zip(self.caches, caches):  # each layer's width
-            dst.k[slot:slot + 1].copy_(src.k)
-            dst.v[slot:slot + 1].copy_(src.v)
+        for dst, src in zip(self.caches, caches):  # each layer's cache
+            for d, s in zip(dst, src):  # every tensor, whatever the mixer
+                d[slot:slot + 1].copy_(s)
         req.out.append(int(torch.argmax(logits[0])))
         self.slot_req[slot] = req
         self.slot_pos[slot] = len(req.prompt)
