@@ -197,13 +197,13 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    see, or read back, every call.
    Arm F: LM serving, ``repro_torch.serve.ServeEngine`` on qwen2.5-32b at
    full width (d_model 5120, 40 query and 8 KV heads, d_ff 27648, vocab
-   152064, QKV bias), 16 of its 64 layers, bfloat16, random weights from
+   152064, QKV bias), 8 of its 64 layers, bfloat16, random weights from
    ``torch.Generator`` seed 0 at the reference's scales, QKV biases drawn
    non-zero; 8 requests (prompts of 2048, 1536, 1024, 512, 1792, 768,
    1280 and 256 tokens, 32 new tokens each) on 4 slots, max_len 2084,
    served cold, then warm, then profiled (its first wave, 4 requests).
-   B6's tensor-core prefill must launch 16 x 8 times and its decode
-   kernels 16 x (decode ticks) times each, and nothing else. F2
+   B6's tensor-core prefill must launch 8 x 8 times and its decode
+   kernels 8 x (decode ticks) times each, and nothing else. F2
    (``f2_check``): each request's prefill is rerun with B6 while every
    layer's B6 output is held against the plain version on the same q/k/v
    (atol 8e-3 / rtol 1e-2),
@@ -271,9 +271,9 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    cold, F2's check on its attention layer with M2's two controls at
    the same limits, warm, profiled on the first 4 requests with 8 new
    tokens each. R2: xlstm-350m at full width and depth (24 layers, d
-   1,024, tied embeddings, bfloat16), prompts of 512, 256, 2,048 and
+   1,024, tied embeddings, bfloat16), prompts of 256, 512, 2,048 and
    1,000 tokens on 4 slots, 32 new tokens: cold, warm, profiled on the
-   first two (the sLSTM prefill is a step loop). B6's prefill launches once per attention layer and request in
+   first (the sLSTM prefill is a step loop). B6's prefill launches once per attention layer and request in
    R, its decode kernels once per attention layer and tick; R2 launches
    no kernel. Then, at full width, one layer of each kind (R's first
    Mamba layer, R2's first mLSTM and its sLSTM) in float32 on the first
@@ -281,6 +281,51 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    final state within 1e-4 x their largest magnitude of the CPU's, and
    on the card the chunked Mamba (256 and 64-row chunks) and mLSTM
    against their step recurrences to the same bound;
+   Arms W1, W, V1 and V (the encoder-decoder and the VLM through
+   ``lm.make_prefill_step`` / ``make_decode_step``, the reference's entry
+   points for these families; stub frontends from the synthetic
+   pipeline's ``make_batch``; random weights from ``torch.Generator``
+   seeds). W1: whisper-small's REDUCED (float32, head_dim 64) on 2 rows
+   of 16 stub frames, prompt 24, 8 greedy tokens, on the card and on the
+   CPU: equal streams, prefill logits within 1e-3, B6's float32 kernels
+   (the encoder's, the decoder's self- and cross-attention); one train
+   step at L1's rule. W1 bf16: the same config in bfloat16 over
+   whisper-small's 1,500 frames, the frames in float32 as the Trainer's
+   batches carry them (the encoder, the cross K/V and B6's encoder and
+   cross calls then run in float32), on the card, then on the CPU fed
+   the card's tokens: every step's logits within 6e-2 / 2e-2, the card's
+   token within 6e-2 of the CPU's best logit, the cross K/V float32 on
+   both, B6's fp32 tile prefill for the encoder's and cross calls and
+   its tensor-core prefill for the self-attention. W: whisper-small at full width and depth (12 encoder
+   and 12 decoder layers, d 768, 12 heads of 64, vocab 51,865, bfloat16),
+   4 utterances of 1,500 stub frames (30 s of audio, in bfloat16 as the
+   reference's dry-run specs them), prompts of 192 tokens, 32 greedy
+   tokens, cache_len 448: each prefill launches B6's tensor-core prefill
+   36 times (12 encoder, non-causal at 1,500 x 1,500; 12 causal self; 12
+   cross, 192 rows against 1,500 keys), each tick its decode kernels 24
+   times each (12 self, 12 cross over the 1,500-key cross cache); F2 on
+   every B6 call of the prefill at arm F's limits (1.5x / 1.25x), per
+   batch row, and the planted ``tail_tile_dropped`` (the key-tile loop
+   one tile short: the ragged tail of the 1,500 keys) must break them on
+   every row; the same batch with its frames in float32 (cold with its
+   launches counted as W1 bf16's, the cross K/V float32, warm, and F2
+   with each float32 call within 2e-5 / 1e-4 of the plain version);
+   encoder, prefill and decode times, profiled over the prefill and 8
+   ticks. V1: internvl2-1b at full widths, 2 of 24 layers,
+   float32 (REDUCED's head_dim 14 is not one B6 takes): a prefill of 256
+   stub patch embeddings + 64 tokens and 8 greedy tokens, card against
+   CPU, as W1; F1's fleet through the ``ServeEngine``, text-only; one
+   train step with the image stubs at L1's rule. V: internvl2-1b at full
+   width and depth (24 layers, d 896, 14 heads over 2 KV heads (GQA
+   group 7), d_ff 4,864, vocab 151,655 tied, bfloat16): 4 requests of 256
+   stub patch embeddings + 256 tokens, 32 greedy tokens, F2 at arm F's
+   limits, as W, with the planted ``diag_tile_dropped`` as its control;
+   then arm F's fleet served text-only through the
+   ``ServeEngine`` (cold, F2 with M2's two controls at the serving arms'
+   2x limits, as arm R, warm, profiled on its first wave with 8 new
+   tokens). B6's three new calls are also checked and
+   timed alone (the encoder call, the cross prefill, the cross decode),
+   and a GQA group of 7 is checked in both dtypes;
    Phase L (LM training, ``models/lm.make_train_step`` and
    ``train/trainer.Trainer``; no kernel: the reference trains through
    plain einsums, so every launch count must stay 0; TF32 off). L1: the
@@ -1265,10 +1310,11 @@ def run_arm_i_fitted(fitted: dict, arm_i_models: dict, random_renderers,
     return rows
 
 
-# Arm F: LM serving at qwen2.5-32b's full width, depth cut to 16 of 64
-# layers, random weights; 8 requests on 4 slots.
+# Arm F: LM serving at qwen2.5-32b's full width, depth cut to 8 of 64
+# layers (16 until arms W and V joined the script: PERF.md section 4),
+# random weights; 8 requests on 4 slots.
 LM_ARCH = "qwen2.5-32b"
-LM_LAYERS = 16
+LM_LAYERS = 8
 LM_PROMPTS = [2048, 1536, 1024, 512, 1792, 768, 1280, 256]
 LM_MAX_NEW = 32
 LM_SLOTS = 4
@@ -1374,6 +1420,10 @@ def serve_lm(cfg, params, requests, num_slots: int, max_len: int, device):
 # lower-precision ones (scores, or P and V, in bfloat16) are recorded.
 F2_FAULTS = ("diag_tile_dropped", "strict_causal", "gqa_modulo")
 F2_PRECISION = ("bf16_scores", "bf16_pv")
+# a bug of the non-causal calls (arm W's encoder and cross-attention): the
+# key-tile loop one 64-key tile short, so a row loses its last tile (at
+# kv_len 1,500 the ragged tail, keys 1,472-1,499); causal calls unchanged
+TAIL_FAULT = "tail_tile_dropped"
 
 
 # rows of queries at a time where a check computes attention outside the
@@ -1389,7 +1439,8 @@ def attention_reference(q, k, v, *, causal=True, sm_scale=None, kv_len=None,
     default, the reference F2 holds the kernel and its plain version
     against), ``q_block`` query rows at a time, rounded once to ``q``'s
     dtype; ``fault`` plants one of F2's controls (``F2_FAULTS``,
-    ``F2_PRECISION``). A check harness: the port never calls it."""
+    ``F2_PRECISION``, ``TAIL_FAULT``). A check harness: the port never
+    calls it."""
     import torch
 
     acc = getattr(torch, acc)
@@ -1423,6 +1474,8 @@ def attention_reference(q, k, v, *, causal=True, sm_scale=None, kv_len=None,
             valid = valid & (qpos - kpos < window)
         if fault == "diag_tile_dropped":  # a row loses its own 32-key tile
             valid = valid & (kpos < qpos // 32 * 32)
+        if fault == TAIL_FAULT and not causal:
+            valid = valid & (kpos < (kv_len - 1) // 64 * 64)
         s = torch.where(valid, s, torch.full_like(s, -1e30))
         p = torch.softmax(s, dim=-1).reshape(b, kvh, g * n, sk)
         if fault == "bf16_pv":
@@ -1500,8 +1553,58 @@ def routing(log: list, replay: bool):
         moe._router = real
 
 
+def _b6_spy(attend, tol: dict):
+    """(spy, tally): a stand-in for ``flash_attention`` that runs
+    ``attend`` and holds each call's output against the plain version on
+    the same q/k/v within ``tol`` (a float32 call within
+    ``ATTN_F32_TOL``); ``tally`` counts the calls (windowed, non-causal,
+    float32, GQA groups) and keeps the largest error."""
+    import torch
+
+    tally = {"err": 0.0, "ok": True, "calls": 0, "windowed": 0,
+             "non_causal": 0, "float32": 0, "groups": set()}
+
+    def spy(q, k, v, **kw):
+        out = attend(q, k, v, **kw).float()
+        want = plain_attention(q, k, v, **kw).float()
+        tally["err"] = max(tally["err"], float((out - want).abs().max()))
+        f32 = q.dtype == torch.float32
+        tally["ok"] &= bool(torch.allclose(
+            out, want, **(ATTN_F32_TOL if f32 else tol)))
+        tally["calls"] += 1
+        tally["float32"] += int(f32)
+        tally["windowed"] += int(kw.get("window", 0) > 0)
+        tally["non_causal"] += int(not kw.get("causal", True))
+        tally["groups"].add(q.shape[1] // k.shape[1])
+        return out.to(q.dtype)
+
+    return spy, tally
+
+
+def _logits_within(got, plain, f64, limits) -> dict:
+    """One row's logits against the float64 prefill's: their max and RMS
+    distance, the plain version's, the limits (``limits`` x the plain
+    version's, at least 3e-2 and 1e-3) and whether ``got`` is within
+    both."""
+    dist = lambda a, b: (float((a - b).abs().max()),
+                         float((a - b).pow(2).mean().sqrt()))
+    (k_max, k_rms), (p_max, p_rms) = dist(got, f64), dist(plain, f64)
+    bound = [max(3e-2, limits[0] * p_max), max(1e-3, limits[1] * p_rms)]
+    return {"vs_f64_max_rms": [k_max, k_rms],
+            "plain_vs_f64_max_rms": [p_max, p_rms],
+            "ratio_max_rms": [k_max / p_max if p_max else None,
+                              k_rms / p_rms if p_rms else None],
+            "limits_max_rms": bound,
+            "logits_ok": k_max <= bound[0] and k_rms <= bound[1]}
+
+
+# F2's logit limits in arms F, W and V, against the plain version's
+# distance from the float64 prefill: 1.5x its max, 1.25x its RMS
+F_F2_LIMITS = (1.5, 1.25)
+
+
 def f2_check(cfg, params, requests, refs, max_len: int, tol: dict,
-             attend=None, served=None, limits=(1.5, 1.25)) -> list:
+             attend=None, served=None, limits=F_F2_LIMITS) -> list:
     """F2 for one attention, ``attend`` (default: ``flash_attention`` as the
     path calls it; else one of F2's controls). Each request's prefill is
     rerun on the card with ``attend`` in the path's place, spying on every
@@ -1527,21 +1630,9 @@ def f2_check(cfg, params, requests, refs, max_len: int, tol: dict,
     from repro_torch.kernels import flash_attention as fa
 
     attend = fa.flash_attention if attend is None else attend
-    dist = lambda a, b: (float((a - b).abs().max()),
-                         float((a - b).pow(2).mean().sqrt()))
     rows = []
     for i, r in enumerate(requests):
-        layer = {"err": 0.0, "ok": True, "calls": 0, "windowed": 0}
-
-        def spy(q, k, v, **kw):
-            out = attend(q, k, v, **kw).float()
-            want = plain_attention(q, k, v, **kw).float()
-            layer["err"] = max(layer["err"], float((out - want).abs().max()))
-            layer["ok"] &= bool(torch.allclose(out, want, **tol))
-            layer["calls"] += 1
-            layer["windowed"] += int(kw.get("window", 0) > 0)
-            return out.to(q.dtype)
-
+        spy, layer = _b6_spy(attend, tol)
         log, flips = [], {}
         with routing(log, replay=False):
             got = _prefill_with(cfg, params, r, max_len, spy)
@@ -1554,20 +1645,14 @@ def f2_check(cfg, params, requests, refs, max_len: int, tol: dict,
                 flips[name] = n["tokens"]
         else:
             ref = refs[i]
-        (k_max, k_rms), (p_max, p_rms) = (dist(got, ref["f64"]),
-                                          dist(ref["plain"], ref["f64"]))
-        bound = [max(3e-2, limits[0] * p_max), max(1e-3, limits[1] * p_rms)]
-        logits_ok = k_max <= bound[0] and k_rms <= bound[1]
+        within = _logits_within(got, ref["plain"], ref["f64"], limits)
         rows.append({
             "rid": r.rid, "prompt": len(r.prompt),
             "layers_max_abs_err": layer["err"], "layers_ok": layer["ok"],
             "layer_calls": layer["calls"],
-            "windowed_calls": layer["windowed"],
-            "vs_f64_max_rms": [k_max, k_rms],
-            "plain_vs_f64_max_rms": [p_max, p_rms],
-            "limits_max_rms": bound, "logits_ok": logits_ok,
-            "holds": layer["ok"] and logits_ok,
-            "max_abs_err_vs_plain": dist(got, ref["plain"])[0],
+            "windowed_calls": layer["windowed"], **within,
+            "holds": layer["ok"] and within["logits_ok"],
+            "max_abs_err_vs_plain": float((got - ref["plain"]).abs().max()),
             "within_3e-2_of_plain": bool(torch.allclose(
                 got, ref["plain"], atol=3e-2, rtol=3e-2)),
             "equal_to_served": (None if served is None
@@ -1717,15 +1802,25 @@ def attn_layers(cfg) -> int:
                for i in range(cfg.num_layers))
 
 
-def lm_launches_want(cfg, prefills: int, ticks: int, prefill: str) -> dict:
-    """B6's launches on an LM serving run: its ``prefill`` kernel once per
-    attention layer and prefill, the decode's split and combine kernels
-    once per attention layer and tick; no other kernel (none at all for
-    an attention-free model)."""
+def b6_calls(cfg) -> tuple:
+    """B6's calls in one prefill and in one decode step: one per attention
+    layer; an encoder-decoder's prefill also one per encoder layer, and
+    each of its decoder layers one more (cross-attention) in both."""
     n = attn_layers(cfg)
-    want = {f"{B6}.{prefill}": n * prefills,
-            f"{B6}.decode_split": n * ticks,
-            f"{B6}.decode_combine": n * ticks}
+    if cfg.encoder_layers:
+        return cfg.encoder_layers + 2 * n, 2 * n
+    return n, n
+
+
+def lm_launches_want(cfg, prefills: int, ticks: int, prefill: str) -> dict:
+    """B6's launches on an LM run: its ``prefill`` kernel once per call of
+    each prefill, the decode's split and combine kernels once per call of
+    each tick (``b6_calls``); no other kernel (none at all for an
+    attention-free model)."""
+    pre, dec = b6_calls(cfg)
+    want = {f"{B6}.{prefill}": pre * prefills,
+            f"{B6}.decode_split": dec * ticks,
+            f"{B6}.decode_combine": dec * ticks}
     want[B6] = sum(want.values())
     return want
 
@@ -1815,7 +1910,8 @@ def run_lm_serving_arm(label: str, cfg, params, prompts, slots: int,
     ``profile_max_new`` new tokens, 0 = ``max_new``: the profiler's
     post-processing grows with the launches it holds). The prefill
     launches and F2 count the attention layers only; an attention-free
-    model (no B6 call) skips F2."""
+    model (no B6 call) skips F2. F2's logit limits are
+    ``M_F2_LIMITS``."""
     import torch
 
     n_attn = attn_layers(cfg)
@@ -1972,15 +2068,15 @@ R_WIDTHS = dict(num_layers=8, moe_num_experts=8)
 # multiple of the Mamba's 256-row chunk: that prefill runs as one chunk
 R_PROMPTS = [2048, 1536, 1024, 512, 1792, 768, 1000, 256]
 R2_ARCH = "xlstm-350m"  # all 24 layers, its published widths
-# its two short prompts first: the profiled run serves the first two
-# requests, with 8 new tokens each, since the sLSTM's prefill is a step
-# loop (~20 launches a token and layer; profiling all four with 32 new
-# tokens, the profiler's post-processing took 57 s for 101,322 launches
-# on an H100)
-R2_PROMPTS = [512, 256, 2048, 1000]
+# its shortest prompt first: the profiled run serves the first request,
+# with 8 new tokens, since the sLSTM's prefill is a step loop (~20
+# launches a token and layer; profiling all four with 32 new tokens, the
+# profiler's post-processing took 57 s for 101,322 launches on an H100,
+# and the first two (512 and 256 tokens) took 32.9 s)
+R2_PROMPTS = [256, 512, 2048, 1000]
 R2_SLOTS = 4
 R2_MAX_NEW = 32
-R2_PROFILED = 2
+R2_PROFILED = 1
 # R1: both archs' REDUCED configs (jamba's head_dim is the config's 128,
 # which ``with_`` keeps), card against CPU: prompts over one chunk (256 /
 # 128 rows) and not multiples of it; one train step on 2 x 512 tokens
@@ -2146,6 +2242,462 @@ def run_arms_r(dev, reset, counts, profile, *, r_widths=None,
     return out
 
 
+# arms W1, W, V1 and V: the encoder-decoder (whisper-small) and the VLM
+# (internvl2-1b) through the prefill and decode steps (see the module
+# docstring). W: a batch of 4 utterances of 1,500 stub frames (30 s of
+# audio; in the model's dtype, as the reference's dry-run specs them),
+# decoder prompts of 192 tokens, 32 greedy tokens (the prefill's and 31
+# decode ticks) in whisper's 448-token text context
+W_ARCH = "whisper-small"
+W_SHAPE = dict(batch=4, prompt=192, max_new=32, cache_len=448)
+W_PROFILED_TICKS = 8
+# W1: whisper-reduced (float32, head_dim 64), card against CPU
+W1_SHAPE = dict(batch=2, prompt=24, max_new=8, cache_len=40)
+W1_TRAIN = dict(steps=1, batch=2, seq=24)
+# W1 bf16: whisper-reduced in bfloat16 over whisper-small's 1,500 frames,
+# the frames in float32 as ``make_batch`` gives them and the Trainer's
+# batches carry them. The encoder then runs in float32 (the reference's
+# promotion of float32 frames against bfloat16 weights), the cross K/V
+# stay float32, and B6 takes the encoder's and the cross-attention's
+# calls in float32 and the decoder's self-attention in bfloat16. Card
+# against CPU, the CPU fed the card's tokens: every step's logits within
+# W1_BF16_TOL (4 bfloat16 steps at logits of 2-4), and at every step the
+# card's token within its atol of the CPU's best logit (a near-tie may
+# fall either way on another device's bfloat16 rounding)
+W1_BF16_ENC_SEQ = 1500
+W1_BF16_TOL = dict(atol=6e-2, rtol=2e-2)
+# V: 4 requests of 256 stub patch embeddings + 256 tokens, 32 greedy
+# tokens; then arm F's fleet through the ServeEngine, text-only, F2 at the
+# serving arms' 2x limits with M2's two controls, as arm R runs it: at 24
+# bfloat16 layers the path's P.V in bfloat16 read 1.25x the plain
+# version's RMS distance on the 2,048-token prompt (over F's 1.25x;
+# PERF.md section 6)
+V_ARCH = "internvl2-1b"
+V_SHAPE = dict(batch=4, prompt=256, max_new=32, cache_len=256 + 256 + 32)
+# V1: internvl at full widths, 2 of its 24 layers, float32 (REDUCED's
+# head_dim 14 is not one B6 takes), card against CPU
+V1_LAYERS = 2
+V1_SHAPE = dict(batch=2, prompt=64, max_new=8, cache_len=256 + 64 + 8)
+V1_TRAIN = dict(steps=1, batch=2, seq=64)
+
+
+def stub_batch(cfg, batch: int, prompt: int, dev, embeds_dtype=None,
+               seed: int = 0) -> dict:
+    """The synthetic pipeline's batch at the config's widths: tokens
+    [batch, prompt] and the config's frame or patch embedding stubs (cast
+    to ``embeds_dtype`` where given), on ``dev``; no targets."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    out = make_batch(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=prompt, global_batch=batch,
+        seed=seed, enc_seq_len=cfg.enc_seq_len,
+        num_image_tokens=cfg.num_image_tokens, d_model=cfg.d_model), 0)
+    out = {k: torch.from_numpy(v).to(dev) for k, v in out.items()
+           if k != "targets"}
+    for k in ("frame_embeds", "image_embeds"):
+        if k in out and embeds_dtype is not None:
+            out[k] = out[k].to(embeds_dtype)
+    return out
+
+
+def lm_generate(cfg, params, batch, cache_len: int, max_new: int,
+                forced=None) -> dict:
+    """Greedy generation through ``lm.make_prefill_step`` and
+    ``make_decode_step`` (the reference's entry points for these
+    families): the prefill's argmax, then ``max_new - 1`` decode ticks
+    from index P + S (P the image prefix's length), every token kept on
+    the device and read once at the end; ``forced`` [B, max_new]: these
+    tokens are fed instead of the argmax. Returns the streams [B,
+    max_new] (the tokens fed), the prefill's logits, every step's logits
+    (``step_logits``: the prefill's, then each tick's), the caches and
+    the synchronized seconds of the prefill and of the decode ticks."""
+    import torch
+    from repro_torch.models import lm
+
+    cuda = params["embed"].device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    prefill = lm.make_prefill_step(cfg, cache_len)
+    decode = lm.make_decode_step(cfg)
+    sync()
+    t0 = time.perf_counter()
+    pick = (lambda i, lg: torch.argmax(lg, -1)[:, None]) if forced is None \
+        else (lambda i, lg: forced[:, i:i + 1].to(lg.device))
+    logits, caches = prefill(params, batch)
+    first = logits.clone()
+    steps = [first]
+    tok = pick(0, logits)
+    sync()
+    t1 = time.perf_counter()
+    index = batch["tokens"].shape[1] + (
+        batch["image_embeds"].shape[1]
+        if cfg.num_image_tokens and "image_embeds" in batch else 0)
+    out = [tok]
+    for i in range(max_new - 1):
+        logits, caches = decode(params, caches, tok, index + i)
+        steps.append(logits)
+        tok = pick(i + 1, logits)
+        out.append(tok)
+    streams = torch.cat(out, 1).cpu()
+    t2 = time.perf_counter()
+    return {"streams": streams, "prefill_logits": first,
+            "step_logits": steps, "caches": caches,
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "ticks": max_new - 1}
+
+
+def f2_batch_check(cfg, params, batch, cache_len: int, tol: dict,
+                   attend=None) -> list:
+    """F2 (``f2_check``) for a batched prefill of the step functions:
+    every B6 call of the prefill (the encoder's, the decoder's causal
+    self-attention, its cross-attention) held against the plain version
+    on its own q/k/v within ``tol``, and each batch row's logits no
+    further from the same prefill with float64 attention than
+    ``F_F2_LIMITS`` x the plain version's max and RMS distance. ``attend``
+    replaces B6 (one of F2's controls). Returns one row per batch row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+
+    spy, layer = _b6_spy(fa.flash_attention if attend is None else attend,
+                         tol)
+
+    def prefill(fn):
+        real = fa.flash_attention
+        fa.flash_attention = fn
+        try:
+            return lm.make_prefill_step(cfg, cache_len)(params, batch)[0]
+        finally:
+            fa.flash_attention = real
+
+    got = prefill(spy)
+    ref = {name: prefill(fn) for name, fn in (("plain", plain_attention),
+                                              ("f64", attention_reference))}
+    rows = []
+    for i in range(got.shape[0]):
+        within = _logits_within(got[i], ref["plain"][i], ref["f64"][i],
+                                F_F2_LIMITS)
+        rows.append({
+            "row": i, "layers_max_abs_err": layer["err"],
+            "layers_ok": layer["ok"], "b6_calls": layer["calls"],
+            "non_causal_calls": layer["non_causal"],
+            "float32_calls": layer["float32"],
+            "gqa_groups": sorted(layer["groups"]), **within,
+            "holds": layer["ok"] and within["logits_ok"]})
+    return rows
+
+
+def promoted_launches_want(cfg, ticks: int) -> dict:
+    """B6's launches on one greedy run of an encoder-decoder in bfloat16
+    over float32 frames: the encoder's and the cross-attention's prefill
+    calls on the float32 tile prefill, the decoder's self-attention on the
+    tensor-core prefill, the decode kernels as ``lm_launches_want``."""
+    want = lm_launches_want(cfg, 1, ticks, "prefill_mma")
+    want[f"{B6}.prefill_mma"] = attn_layers(cfg)
+    want[f"{B6}.prefill_tile"] = cfg.encoder_layers + attn_layers(cfg)
+    return want
+
+
+def check_promoted_caches(label: str, cfg, caches) -> None:
+    """Over float32 frames: every decoder layer's cross K/V in float32,
+    its self K/V in the model's dtype."""
+    import torch
+
+    own_dt = getattr(torch, cfg.dtype)
+    dtypes = [(own.k.dtype, own.v.dtype, cross.k.dtype, cross.v.dtype)
+              for own, cross in caches]
+    if any(d != (own_dt, own_dt, torch.float32, torch.float32)
+           for d in dtypes):
+        fail(f"{label}: cache dtypes (self k, v, cross k, v) {dtypes}")
+
+
+def run_promoted_check(label: str, cfg, dev, reset, counts,
+                       shape: dict) -> dict:
+    """W1 bf16 (see ``W1_BF16_TOL``): ``cfg`` greedy on the card over
+    float32 stub frames, then the same steps on the CPU fed the card's
+    tokens, and the CPU's own greedy stream (recorded); launches as
+    ``promoted_launches_want``, the cross K/V float32 on both devices."""
+    import torch
+    from repro_torch.models import lm
+
+    cpu = torch.device("cpu")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(1), cpu)
+    p_dev = to_dev(p_cpu, dev)
+    b_cpu = stub_batch(cfg, shape["batch"], shape["prompt"], cpu, seed=1)
+    run = lambda p, b, forced=None: lm_generate(
+        cfg, p, b, shape["cache_len"], shape["max_new"], forced=forced)
+    reset()
+    g = run(p_dev, to_dev(b_cpu, dev))
+    launches = counts()
+    del p_dev
+    check_lm_launches(label, launches, promoted_launches_want(
+        cfg, g["ticks"]))
+    c = run(p_cpu, b_cpu, forced=g["streams"])
+    for side, r in (("card", g), ("CPU", c)):
+        check_promoted_caches(f"{label} {side}", cfg, r["caches"])
+    errs, below_best = [], []
+    for t, (lg, lc) in enumerate(zip(g["step_logits"], c["step_logits"])):
+        errs.append(check_close(f"{label} step {t} logits, card vs CPU",
+                                lg.cpu(), lc, W1_BF16_TOL))
+        picked = lc.gather(-1, g["streams"][:, t:t + 1].long())[:, 0]
+        below_best.append(float((lc.max(-1).values - picked).max()))
+    if max(below_best) > W1_BF16_TOL["atol"]:
+        fail(f"{label}: the card's tokens sit {below_best} below the CPU's "
+             f"best logit, more than {W1_BF16_TOL['atol']}")
+    own = run(p_cpu, b_cpu)["streams"]
+    return {"widths": {k: getattr(cfg, k) for k in (
+        "num_layers", "encoder_layers", "enc_seq_len", "d_model",
+        "num_heads", "head_dim", "vocab_size")}, "dtype": cfg.dtype,
+        "frames_dtype": "float32", **shape,
+        "streams": g["streams"].tolist(), "launches": launches,
+        "max_abs_err_step_logits": errs,
+        "card_token_below_cpu_best": below_best,
+        "cpu_own_streams_equal": bool(torch.equal(own, g["streams"]))}
+
+
+def run_step_check(label: str, cfg, dev, reset, counts, shape: dict,
+                   train: dict) -> dict:
+    """W1 / V1: ``cfg`` (float32) greedy through the step functions on the
+    card and on the CPU from the same weights and stub batch: equal
+    streams, prefill logits within ``F1_TOL``, B6's float32 kernels
+    launched as ``lm_launches_want`` says; then ``train`` steps of
+    ``l1_check_steps`` (L1's rule) on batches with the stubs, which launch
+    no kernel."""
+    import torch
+    from repro_torch.models import lm
+
+    cpu = torch.device("cpu")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(1), cpu)
+    p_dev = to_dev(p_cpu, dev)
+    b_cpu = stub_batch(cfg, shape["batch"], shape["prompt"], cpu, seed=1)
+    run = lambda p, b: lm_generate(cfg, p, b, shape["cache_len"],
+                                   shape["max_new"])
+    reset()
+    g = run(p_dev, to_dev(b_cpu, dev))
+    launches = counts()
+    del p_dev
+    c = run(p_cpu, b_cpu)
+    if not torch.equal(g["streams"], c["streams"]):
+        fail(f"{label}: card streams {g['streams'].tolist()} vs CPU "
+             f"{c['streams'].tolist()}")
+    err = check_close(f"{label} prefill logits, card vs CPU (float32)",
+                      g["prefill_logits"].cpu(), c["prefill_logits"],
+                      F1_TOL)
+    check_lm_launches(label, launches, lm_launches_want(
+        cfg, 1, g["ticks"], "prefill_tile"))
+    t0 = time.perf_counter()
+    reset()
+    steps = l1_check_steps(cfg, dev, **train)
+    train_launches = counts()
+    check_lm_launches(f"{label} training", train_launches, {})
+    return {"widths": {k: getattr(cfg, k) for k in (
+        "num_layers", "encoder_layers", "enc_seq_len", "num_image_tokens",
+        "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
+        "vocab_size")}, "dtype": cfg.dtype, **shape,
+        "streams": g["streams"].tolist(), "launches": launches,
+        "max_abs_err_prefill_logits": err, "card_wall_s": g["prefill_s"]
+        + g["decode_s"], "cpu_wall_s": c["prefill_s"] + c["decode_s"],
+        "train": train, "train_steps": steps,
+        "train_launches": train_launches,
+        "train_s": time.perf_counter() - t0}
+
+
+def run_step_arm(label: str, cfg, params, batch, shape: dict, dev, reset,
+                 counts, profile, controls=(), frames32=None) -> dict:
+    """W / V part 1 at bfloat16 through the step functions: cold
+    (launches counted, ``lm_launches_want`` with the tensor-core
+    prefill), ``f2_batch_check`` at arm F's limits (every B6 call of the
+    prefill, each batch row's logits), each of ``controls`` (planted
+    faults) in B6's place, whose logits must break the limits on every
+    row; ``frames32`` (W: the batch with its frames in float32, as the
+    Trainer's batches carry them): cold (launches as
+    ``promoted_launches_want``, the cross K/V float32), warm (timed) and
+    ``f2_batch_check`` (the float32 calls within ``ATTN_F32_TOL``); then
+    warm (timed; with ``frames32`` the encoder alone too), then profiled
+    over the prefill and its first ``W_PROFILED_TICKS`` ticks."""
+    import torch
+    from repro_torch.models import lm
+
+    part_s, clock = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name], clock[0] = now - clock[0], now
+
+    run = lambda max_new: lm_generate(cfg, params, batch, shape["cache_len"],
+                                      max_new)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset()
+    cold = run(shape["max_new"])
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    want = lm_launches_want(cfg, 1, cold["ticks"], "prefill_mma")
+    check_lm_launches(f"arm {label}", launches, want)
+    streams, logits = cold["streams"], cold["prefill_logits"]
+    if streams.shape != (shape["batch"], shape["max_new"]) \
+            or int(streams.min()) < 0 \
+            or int(streams.max()) >= cfg.vocab_size:
+        fail(f"arm {label}: streams {streams.tolist()}")
+    if logits.shape != (shape["batch"], cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        fail(f"arm {label}: prefill logits not finite [B, vocab]")
+    part("cold")
+    f2 = f2_batch_check(cfg, params, batch, shape["cache_len"], B6_BF16_TOL)
+    for row in f2:
+        print(f"arm {label} F2 {json.dumps(row)}")
+    pre_calls = b6_calls(cfg)[0]
+    if not all(r["holds"] and r["b6_calls"] == pre_calls for r in f2):
+        fail(f"arm {label}: B6's prefill attention or logits are further "
+             "from the plain version or the float64 prefill than F's "
+             f"limits allow, or not {pre_calls} B6 calls (rows {f2})")
+    part("check")
+    f2_controls = {}
+    for kind in controls:
+        f2_controls[kind] = f2_batch_check(
+            cfg, params, batch, shape["cache_len"], B6_BF16_TOL,
+            attend=functools.partial(attention_reference, acc="float32",
+                                     fault=kind))
+        for row in f2_controls[kind]:
+            print(f"arm {label} F2 {kind} {json.dumps(row)}")
+        seen = [r["row"] for r in f2_controls[kind] if r["logits_ok"]]
+        if seen:
+            fail(f"arm {label}: F2's logit limits cannot see the planted "
+                 f"fault {kind}: its logits held for rows {seen}")
+    part("controls")
+    promoted = None
+    if frames32 is not None:
+        name = f"arm {label} float32 frames"
+        run32 = lambda: lm_generate(cfg, params, frames32,
+                                    shape["cache_len"], shape["max_new"])
+        reset()
+        cold32 = run32()
+        launches32 = counts()
+        check_lm_launches(name, launches32,
+                          promoted_launches_want(cfg, cold32["ticks"]))
+        check_promoted_caches(name, cfg, cold32["caches"])
+        del cold32["caches"]
+        warm32 = run32()
+        del warm32["caches"]
+        f2_32 = f2_batch_check(cfg, params, frames32, shape["cache_len"],
+                               B6_BF16_TOL)
+        for row in f2_32:
+            print(f"{name} F2 {json.dumps(row)}")
+        n32 = cfg.encoder_layers + attn_layers(cfg)
+        if not all(r["holds"] and r["b6_calls"] == pre_calls
+                   and r["float32_calls"] == n32 for r in f2_32):
+            fail(f"{name}: B6's prefill attention or logits are further "
+                 "from the plain version or the float64 prefill than F's "
+                 f"limits allow, or not {pre_calls} B6 calls of which "
+                 f"{n32} float32 (rows {f2_32})")
+        promoted = {
+            "launches": launches32, "F2": f2_32,
+            "prefill_s": warm32["prefill_s"],
+            "decode_s_per_tick": warm32["decode_s"] / warm32["ticks"],
+            "streams_equal_bf16_frames": bool(torch.equal(
+                cold32["streams"], streams))}
+        part("float32 frames")
+    warm = run(shape["max_new"])
+    enc_s = None
+    if frames32 is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.encode_prefill(params, batch["frame_embeds"], cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    generated = warm["streams"].numel()
+    part("warm")
+    prof = None if profile is None else profile(
+        lambda: run(W_PROFILED_TICKS + 1))
+    part("profile")
+    return {
+        "params": sum(t.numel() for t in _tree_leaves(params)),
+        "config_params": cfg.param_count(),
+        "weight_bytes": _tree_bytes(params), **shape,
+        "enc_seq_len": cfg.enc_seq_len,
+        "image_tokens": (batch["image_embeds"].shape[1]
+                         if "image_embeds" in batch else 0),
+        "launches": launches, "b6_launches_expected": want,
+        "b6_calls_prefill_tick": list(b6_calls(cfg)),
+        "cold_wall_s": cold["prefill_s"] + cold["decode_s"],
+        "warm_wall_s": warm["prefill_s"] + warm["decode_s"],
+        "encoder_s": enc_s, "prefill_s": warm["prefill_s"],
+        "decode_s_per_tick": warm["decode_s"] / warm["ticks"],
+        "ticks": warm["ticks"], "generated_tokens": generated,
+        "generated_tok_per_s": generated / (warm["prefill_s"]
+                                            + warm["decode_s"]),
+        "warm_streams_equal_cold": bool(torch.equal(warm["streams"],
+                                                    streams)),
+        "max_memory_allocated": peak, "F2": f2,
+        "F2_controls": f2_controls, "float32_frames": promoted,
+        "profile": prof, "profiled_ticks": W_PROFILED_TICKS,
+        "part_s": part_s}
+
+
+def run_arms_wv(dev, reset, counts, profile, *, w1_cfg=None, v1_cfg=None,
+                w_widths=None, v_widths=None, w_shape=None, v_shape=None,
+                w1_shape=None, v1_shape=None, w1_train=None, v1_train=None,
+                v_prompts=None, w1_bf16_enc_seq=None) -> dict:
+    """Arms W1, W (whisper-small at full width and depth), V1 and V
+    (internvl2-1b at full width and depth, then its text-only fleet
+    through the ServeEngine); the keywords shrink them for a rehearsal on
+    the CPU."""
+    import torch
+    from repro_torch.configs import registry
+
+    out = {}
+    w1_cfg = w1_cfg or registry.get_reduced(W_ARCH)
+    out["W1"] = run_step_check("W1", w1_cfg, dev, reset, counts,
+                               w1_shape or W1_SHAPE, w1_train or W1_TRAIN)
+    out["W1 bf16"] = run_promoted_check(
+        "W1 bf16", w1_cfg.with_(dtype="bfloat16",
+                                enc_seq_len=w1_bf16_enc_seq
+                                or W1_BF16_ENC_SEQ),
+        dev, reset, counts, w1_shape or W1_SHAPE)
+    v1_cfg = v1_cfg or registry.get(V_ARCH).with_(num_layers=V1_LAYERS,
+                                                  dtype="float32")
+    out["V1"] = run_step_check("V1", v1_cfg, dev, reset, counts,
+                               v1_shape or V1_SHAPE, v1_train or V1_TRAIN)
+    # V1's ServeEngine check: F1's fleet, text-only, card against CPU
+    v1_prompts = v_prompts[:len(F1_PROMPTS)] if v_prompts else F1_PROMPTS
+    out["V1 serve"] = run_arm_m1(dev, reset, counts, {V_ARCH: v1_cfg},
+                                 "V1 serve", v1_prompts,
+                                 max(v1_prompts) + M1_MAX_NEW + 4)[V_ARCH]
+    for label, arch, widths, shape, controls in (
+            ("W", W_ARCH, w_widths or {}, w_shape or W_SHAPE, (TAIL_FAULT,)),
+            ("V", V_ARCH, v_widths or {}, v_shape or V_SHAPE,
+             ("diag_tile_dropped",))):
+        t0 = time.perf_counter()
+        cfg, params = moe_model(arch, "bfloat16", 0, dev, **widths)
+        batch = stub_batch(cfg, shape["batch"], shape["prompt"], dev,
+                           embeds_dtype=torch.bfloat16)
+        frames32 = (stub_batch(cfg, shape["batch"], shape["prompt"], dev)
+                    if label == "W" else None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        out[label] = dict(run_step_arm(
+            label, cfg, params, batch, shape, dev, reset, counts, profile,
+            controls=controls, frames32=frames32),
+            arch=arch, widths=widths, init_s=init_s)
+        if label == "V":  # part 2: arm F's fleet, text-only
+            prompts = v_prompts or LM_PROMPTS
+            t0 = time.perf_counter()
+            out["V serve"] = dict(run_lm_serving_arm(
+                "V serve", cfg, params, prompts, LM_SLOTS,
+                max(prompts) + LM_MAX_NEW + 4, LM_MAX_NEW, dev, reset,
+                counts, profile, profile_requests=LM_SLOTS,
+                profile_max_new=W_PROFILED_TICKS,
+                controls=M2_F2_CONTROLS), arch=arch, widths=widths,
+                serve_s=time.perf_counter() - t0)
+        del params, batch, frames32  # free the arm's weights
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 # phase L: LM training (see the module docstring). L1 and L3 train the
 # ~100M config of the reference's example (examples/train_lm.py: the
 # minitron-4b layout at 8 layers, d 768, 12 heads, kv 4, d_ff 3,072,
@@ -2284,7 +2836,9 @@ def l1_check_steps(cfg, dev, steps: int = L1_CHECK_STEPS,
                    batch: int = L1_BATCH, seq: int = L1_SEQ,
                    leaf_atol_of_max=None, float64: bool = False) -> list:
     """The first ``steps`` train steps on ``dev`` and, from the same params
-    and AdamW state each step, on the CPU. The step is
+    and AdamW state each step, on the CPU, on the synthetic pipeline's
+    batches (with the config's frame or patch embedding stubs where it has
+    them). The step is
     ``make_train_step``'s body in its two halves: ``lm.loss_and_grads``
     (the loss and every grad leaf allclose to the CPU's), then
     ``cosine_warmup`` and the in-place ``adamw_update_`` on ``dev``, whose
@@ -2312,7 +2866,9 @@ def l1_check_steps(cfg, dev, steps: int = L1_CHECK_STEPS,
     opt = adamw_init(params)
     opt_cfg = AdamWConfig(grad_clip_norm=L_GRAD_CLIP)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                      global_batch=batch)
+                      global_batch=batch, enc_seq_len=cfg.enc_seq_len,
+                      num_image_tokens=cfg.num_image_tokens,
+                      d_model=cfg.d_model)
     cpu = torch.device("cpu")
     kinds = leaf_kinds(cfg, params)
     atol_of = leaf_atol_of_max or {}
@@ -3202,6 +3758,24 @@ def main() -> int:
                      "flash", lambda q=q, k=k, v=v: sdpa(
                          q, k[:, :, :2049], v[:, :, :2049], enable_gqa=True),
                      b6_cost(LM_SLOTS, 40, 8, 2, 2049, 128, False, 2)))
+    # arm W's three new calls (whisper-small: 12 heads, MHA, head_dim 64;
+    # 1,500 encoder keys, a ragged last 64-key tile): the encoder's
+    # non-causal self-attention, the decoder's cross-attention in prefill
+    # (192 rows against 1,500 keys) and in decode (kv_len = Sk = 1,500)
+    wb, wh, wd, wt = (W_SHAPE["batch"], 12, 64, 1500)
+    rnd6 = lambda *shape: torch.randn(shape, generator=gen6, device=dev,
+                                      dtype=torch.float32).bfloat16()
+    for name, sq in (("encoder", wt), ("cross prefill", W_SHAPE["prompt"]),
+                     ("cross decode", 1)):
+        q, k, v = rnd6(wb, wh, sq, wd), rnd6(wb, wh, wt, wd), \
+            rnd6(wb, wh, wt, wd)
+        b6_cases.append((
+            f"arm W {name} bf16 q {list(q.shape)} k/v {list(k.shape)} "
+            f"non-causal" + (f" kv_len {wt}" if sq == 1 else ""), (q, k, v),
+            dict(causal=False), "flash",
+            lambda q=q, k=k, v=v: sdpa(q, k, v),
+            b6_cost(wb, wh, wh, sq, wt, wd, False, 2)))
+
     def b6_route(q):
         """The kernel the wrapper routes ``q`` to (launches, errors)."""
         if q.shape[2] == 1:
@@ -3268,6 +3842,22 @@ def main() -> int:
         f"[2, 2, {LM_MAX_LEN}, 128] kv_len 2049",
         fa_k.flash_attention(q, k, v, **kw),
         fa_k.flash_attention_plain(q, k, v, **kw), B6_BF16_TOL))
+    # GQA groups of 7 (internvl2-1b: 14 query heads over 2 KV heads, head
+    # dim 64), prefill and decode in both dtypes
+    for dt in (torch.bfloat16, torch.float32):
+        tol = B6_BF16_TOL if dt == torch.bfloat16 else ATTN_F32_TOL
+        for b, sq, sk, kw in ((1, 2048, 2048, dict(causal=True)),
+                              (LM_SLOTS, 1, LM_MAX_LEN,
+                               dict(causal=False, kv_len=2049))):
+            q = torch.randn((b, 14, sq, 64), generator=gen6,
+                            device=dev).to(dt)
+            k, v = (torch.randn((b, 2, sk, 64), generator=gen6,
+                                device=dev).to(dt) for _ in range(2))
+            key = b6_err_key(q)
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                f"B6 group 7 {dt} q {list(q.shape)} k/v {list(k.shape)} "
+                f"{kw}", fa_k.flash_attention(q, k, v, **kw),
+                fa_k.flash_attention_plain(q, k, v, **kw), tol))
     # B6's window and softcap (b6_variant_cases), each against the plain
     # version (by query blocks at arm M2's 10,240 rows); the softcapped
     # decode's split kernel also alone against its plain partials
@@ -3721,7 +4311,7 @@ def main() -> int:
               "cpu_wall_s": wall_c}
         part("F1")
 
-        # the full arm: 16 layers at full width in bfloat16
+        # the full arm: LM_LAYERS layers at full width in bfloat16
         cfg, params = lm_model(LM_LAYERS, "bfloat16", 0, dev)
         weight_bytes = tree_bytes(params)
         fleet = lambda: lm_requests(LM_PROMPTS, cfg.vocab_size, LM_MAX_NEW)
@@ -4299,6 +4889,8 @@ def main() -> int:
     phase_done("arms M")
     arms.update(run_arms_r(dev, reset, counts, profile_run))
     phase_done("arms R")
+    arms.update(run_arms_wv(dev, reset, counts, profile_run))
+    phase_done("arms W V")
     training_l = run_phase_l(dev, reset, counts)
     phase_done("L")
     for name, arm in arms.items():
@@ -4688,6 +5280,8 @@ def main() -> int:
     path_launches["E_c40_fused"] = wide["launches_fused"]
     path_launches["E_c40_staged"] = wide["launches_staged"]
     path_launches["F1"] = arms["F"]["F1"]["launches"]
+    path_launches["W float32 frames"] = \
+        arms["W"]["float32_frames"]["launches"]
     path_launches["L"] = training_l["launches"]
     for name, want in EAGER_LAUNCHES.items():
         got = {k: path_launches[name][k] for k in want}
@@ -4776,7 +5370,7 @@ def main() -> int:
             "warm_fps": a["warm_fps"], "cold_wall_s": a["cold_wall_s"]}
         for n, a in arms.items()
         if n not in ("F", "H", "D_adaptive", "I oracle")
-        and not n.startswith(("M", "R"))},
+        and not n.startswith(("M", "R", "W", "V"))},
         "baselines_H": {n: {k: b[k] for k in ("warm_wall_s", "warm_fps",
                                                "mean_psnr_vs_full_db")}
                         for n, b in arms["H"]["baselines"].items()},
@@ -4788,7 +5382,12 @@ def main() -> int:
             n: {k: arms[n][k] for k in (
                 "warm_wall_s", "cold_wall_s", "generated_tok_per_s",
                 "prefill_prompt_tok_per_s", "ticks", "max_memory_allocated")}
-            for n in ("M", "M2", "R", "R2")},
+            for n in ("M", "M2", "R", "R2", "V serve")},
+        "lm_steps_WV": {
+            n: {k: arms[n][k] for k in (
+                "warm_wall_s", "cold_wall_s", "encoder_s", "prefill_s",
+                "decode_s_per_tick", "generated_tok_per_s", "ticks",
+                "max_memory_allocated")} for n in ("W", "V")},
         "steady_tick_S": steady,
         "training_T": training,
         "training_L": training_l,
@@ -4822,6 +5421,10 @@ EAGER_LAUNCHES = {
         f"M1 {M_ARCH}": (0, 0, 0, 0, 0), f"M1 {M2_ARCH}": (0, 0, 0, 0, 0),
         "R": (0, 0, 0, 0, 0), "R2": (0, 0, 0, 0, 0),
         f"R1 {R_ARCH}": (0, 0, 0, 0, 0), f"R1 {R2_ARCH}": (0, 0, 0, 0, 0),
+        "W1": (0, 0, 0, 0, 0), "W1 bf16": (0, 0, 0, 0, 0),
+        "W": (0, 0, 0, 0, 0), "W float32 frames": (0, 0, 0, 0, 0),
+        "V1": (0, 0, 0, 0, 0), "V1 serve": (0, 0, 0, 0, 0),
+        "V": (0, 0, 0, 0, 0), "V serve": (0, 0, 0, 0, 0),
         "L": (0, 0, 0, 0, 0),
         "I cicero-dvgo": (258, 258, 0, 0, 0),
         "I cicero-ngp": (0, 258, 0, 0, 0),

@@ -2,31 +2,37 @@
 
 A model is a stack of ``LayerSpec`` periods; ``num_layers / period``
 repeats of the pattern. The port keeps its own copy of the dataclasses so
-that it never imports the reference package. It runs the dense, MoE,
-hybrid and SSM families: attention layers, full or local (chunked-window),
-Mamba layers and xLSTM's mLSTM and sLSTM layers, each with a dense SwiGLU
-FFN, a mixture-of-experts FFN or none (the audio and VLM families are
-ROADMAP.md A2c). So it has only the reference's fields that such a model
-reads, under their names: the model's widths, the MoE, attention, Mamba
-and xLSTM fields, numerics, and the training knobs ``q_block`` (the
-blocked attention's query tile), ``loss_chunk`` (the cross-entropy's
-sequence chunk) and ``remat`` (recompute each period in the backward
-pass). It also records the two fields the configs set that only a sharded
-run reads (``sharding_strategy``, ``skip_shapes``; ROADMAP.md A3), so that
-the configs copy over value for value; the port runs on one device and
-reads them nowhere. A family it does not run raises when the config is
-built.
+that it never imports the reference package. It runs every family of the
+reference: attention layers, full or local (chunked-window), Mamba layers
+and xLSTM's mLSTM and sLSTM layers, each with a dense SwiGLU FFN, a
+mixture-of-experts FFN or none; the audio family's encoder-decoder
+(``encoder_layers`` layers over ``enc_seq_len`` stub frame embeddings,
+cross-attention in every decoder layer) and the VLM family's prefix of
+``num_image_tokens`` stub patch embeddings. So it has the reference's
+fields that such a model reads, under their names: the model's widths, the
+MoE, attention, Mamba, xLSTM, encoder and image fields, numerics, and the
+training knobs ``q_block`` (the blocked attention's query tile),
+``loss_chunk`` (the cross-entropy's sequence chunk) and ``remat``
+(recompute each period in the backward pass). It also records the two
+fields the configs set that only a sharded run reads
+(``sharding_strategy``, ``skip_shapes``; ROADMAP.md A3), so that the
+configs copy over value for value; the port runs on one device and reads
+them nowhere. :data:`SHAPES` is the reference's LM shape suite, which
+the registry's cell accounting reads (its ``tokens_per_step`` and the
+NeRF shape suite come with the launcher that reads them, ROADMAP.md A3).
 
 The parameter accounting is the reference's, value for value, where it
-differs from what ``init_params`` builds (ROADMAP.md, reference caveat 5):
-``_mamba_params`` leaves out ``a_log`` and ``d_skip``, and
+differs from what ``init_params`` builds (ROADMAP.md, reference caveats 5
+and 6): ``_mamba_params`` leaves out ``a_log`` and ``d_skip``,
 ``_xlstm_params`` counts an mLSTM of inner width ``2 d`` and an sLSTM
-with ``4 d / 3``-wide projections, which no init builds.
+with ``4 d / 3``-wide projections, which no init builds, and the encoder
+term leaves out each decoder layer's cross-attention norm (``norm_x``) and
+the encoder's final norm.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -38,9 +44,7 @@ class LayerSpec:
     ffn: str = "dense"  # dense | moe | none
 
 
-_NOT_PORTED = ("not ported (ROADMAP.md A2c: the LM substrate's frontend "
-               "families)")
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "none")
 
@@ -48,7 +52,7 @@ FFNS = ("dense", "moe", "none")
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | hybrid | ssm (audio | vlm raise)
+    family: str  # dense | moe | hybrid | ssm | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -81,6 +85,13 @@ class ModelConfig:
     # --- xlstm ---
     xlstm_heads: int = 4
 
+    # --- encoder-decoder (audio) ---
+    encoder_layers: int = 0
+    enc_seq_len: int = 0  # stub frontend: number of precomputed frame embeddings
+
+    # --- vlm ---
+    num_image_tokens: int = 0  # stub frontend: precomputed patch embeddings
+
     # --- training knobs ---
     q_block: int = 1024  # blocked-attention query tile
     loss_chunk: int = 512  # cross-entropy sequence chunk
@@ -97,8 +108,7 @@ class ModelConfig:
 
     def __post_init__(self):
         if self.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{self.name}: family {self.family!r} is {_NOT_PORTED}")
+            raise ValueError(f"{self.name}: unknown family {self.family!r}")
         for spec in self.layer_pattern:
             if spec.mixer not in MIXERS or spec.ffn not in FFNS:
                 raise ValueError(f"{self.name}: unknown layer {spec}")
@@ -182,6 +192,12 @@ class ModelConfig:
             total += self.vocab_size * self.d_model  # lm head
         total += self.num_periods * sum(self.layer_params(s)
                                         for s in self.layer_pattern)
+        if self.encoder_layers:
+            enc_spec = LayerSpec(mixer="attn", ffn="dense")
+            # encoder layers + each decoder layer's cross-attention (not
+            # its norm_x, nor the encoder's final norm: caveat 6)
+            total += self.encoder_layers * self.layer_params(enc_spec)
+            total += self.num_layers * self._attn_params()
         total += self.d_model  # final norm
         return total
 
@@ -198,3 +214,24 @@ class ModelConfig:
                 p += self.moe_top_k * self._expert_params()
             act += p
         return total + self.num_periods * act + self.d_model
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+# the reference's four LM shape suites
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", seq_len=4096, global_batch=256,
+                            kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32768,
+                               global_batch=32, kind="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32768, global_batch=128,
+                              kind="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524288, global_batch=1,
+                             kind="decode"),
+}

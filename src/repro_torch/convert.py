@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks
+from repro_torch.models import blocks, lm
 from repro_torch.models.common import dtype_of
 from repro_torch.utils import DeviceLike, resolve_device
 
@@ -51,8 +51,9 @@ def _tensor(x, dev: torch.device) -> torch.Tensor:
 def _lm_tree(cfg: ModelConfig, tree: dict, dev: torch.device,
              dtype: Optional[torch.dtype]) -> dict:
     """The reference's LM layout (``{"embed", "blocks", "final_norm",
-    "head"?}``) -> the port's (``{"embed", "layers", "final_norm",
-    "head"?}``) on ``dev``: every leaf in ``dtype``, or with ``dtype``
+    "head"?, "encoder"?: {"blocks", "final_norm"}}``) -> the port's
+    (``{"embed", "layers", "final_norm", "head"?, "encoder"?: {"layers",
+    "final_norm"}}``) on ``dev``: every leaf in ``dtype``, or with ``dtype``
     None each in the dtype the reference's init gives it: float32 for the
     leaves of ``blocks.float32_leaves`` (an MoE router, a Mamba layer's
     ``dt_bias`` / ``a_log`` / ``d_skip``, an mLSTM's gates, every sLSTM
@@ -74,17 +75,23 @@ def _lm_tree(cfg: ModelConfig, tree: dict, dev: torch.device,
         return {part: conv(v, pick, blocks.float32_leaves(spec, part))
                 for part, v in sub.items()}
 
-    period = tree["blocks"]
-    if len(period) != cfg.period:
-        raise ValueError(f"{cfg.name}: {len(period)} pattern layers in the "
-                         f"tree, the config has {cfg.period}")
+    def stack(period, c: ModelConfig):
+        if len(period) != c.period:
+            raise ValueError(f"{c.name}: {len(period)} pattern layers in "
+                             f"the tree, the config has {c.period}")
+        return [layer(period[i], c.layer_pattern[i], p)
+                for p in range(c.num_periods) for i in range(c.period)]
+
     out = {"embed": conv(tree["embed"]),
-           "layers": [layer(period[i], cfg.layer_pattern[i], p)
-                      for p in range(cfg.num_periods)
-                      for i in range(cfg.period)],
+           "layers": stack(tree["blocks"], cfg),
            "final_norm": conv(tree["final_norm"])}
     if "head" in tree:
         out["head"] = conv(tree["head"])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"layers": stack(enc["blocks"],
+                                          lm._encoder_cfg(cfg)),
+                          "final_norm": conv(enc["final_norm"])}
     return out
 
 
@@ -101,7 +108,9 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
     stacked on a leading ``num_periods`` axis; layer ``p * period + i`` is
     entry ``i`` at index ``p``. An MoE layer's ``ffn`` (``router [D, E]``,
     ``wg``/``wu [E, D, F]``, ``wd [E, F, D]``, ``shared``) comes across
-    the same way; so do a Mamba, mLSTM or sLSTM layer's ``mixer``."""
+    the same way; so do a Mamba, mLSTM or sLSTM layer's ``mixer``, an
+    encoder-decoder's ``encoder`` (its layers stacked the same way) and
+    each decoder layer's ``norm_x`` and ``cross``."""
     dev = resolve_device(device)
     return _lm_tree(cfg, tree, dev, None)
 

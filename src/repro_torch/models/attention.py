@@ -26,7 +26,19 @@ the last row, every row counts as valid, and the reference's ring branch
 than the window (ROADMAP.md, reference caveat 4). The port computes what
 the reference runs and refuses a local cache wider than the window.
 
-Not ported: cross-attention (``ROADMAP.md`` A2c).
+The encoder-decoder's attention (the audio family): the encoder's
+self-attention is bidirectional at positions ``0..T-1``; training runs
+:func:`attn_train` with ``causal=False``, a prefill :func:`attn_encode`
+(kernel B6, ``causal=False``). Cross-attention (:func:`cross_attn`) has no
+RoPE and no mask; its K/V (:func:`encode_cross_kv`) are projected from the
+encoder's output once per prefill and reused by every decode step. A
+prefill and a decode step run it through B6 (``causal=False``), training
+through the reference's plain ``_sdpa``: the caller says which
+(``flash``). Where the encoder runs in a wider dtype than the decoder (the
+reference's float32 stub frames against bfloat16 weights), its products
+promote as the reference's do: a projection of the encoder's output runs
+in the wider dtype, the cross K/V stay in it, and B6 gets the queries in
+it too; the output comes back in the queries' dtype, as ``_sdpa``'s does.
 """
 from __future__ import annotations
 
@@ -47,7 +59,9 @@ NEG_INF = -1e30
 
 
 def attn_init(generator: torch.Generator, cfg: ModelConfig,
-              dtype: torch.dtype) -> dict:
+              dtype: torch.dtype, cross: bool = False) -> dict:
+    """wq, wk, wv, wo (and the QKV biases where the config has them; a
+    cross-attention layer has none)."""
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = d**-0.5
     p = {
@@ -56,7 +70,7 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig,
         "wv": ninit(generator, (d, kvh * hd), s, dtype),
         "wo": ninit(generator, (h * hd, d), (h * hd) ** -0.5, dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         dev = generator.device
         p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((kvh * hd,), dtype=dtype, device=dev)
@@ -213,6 +227,21 @@ def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
     return out, KVCache(kc, vc)
 
 
+def attn_encode(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder's bidirectional self-attention over x [B, T, D] at
+    positions 0..T-1 (kernel B6, ``causal=False``): what :func:`attn_train`
+    computes with ``causal=False``, without a cache."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=False,
+                           sm_scale=cfg.head_dim**-0.5,
+                           softcap=cfg.logit_softcap)
+    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return o @ params["wo"]
+
+
 def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
                 index: int, *, local: bool = False
                 ) -> Tuple[torch.Tensor, KVCache]:
@@ -245,6 +274,43 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
                            softcap=cfg.logit_softcap)  # [B, H, 1, D]
     o = o.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return o @ params["wo"], cache
+
+
+def _promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the wider of the two dtypes (jnp's promotion)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def cross_attn(params, x: torch.Tensor, enc_kv: KVCache, cfg: ModelConfig,
+               *, flash: bool = True) -> torch.Tensor:
+    """Encoder-decoder cross-attention (no mask, no RoPE). x [B, S, D]
+    against ``enc_kv`` [B, KVH, T, D]: kernel B6 with ``causal=False``
+    (``flash``: a prefill or a decode step) or the plain ``_sdpa``
+    (training, under autograd)."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, hd).transpose(1, 2)
+    if flash:
+        dt = torch.promote_types(q.dtype, enc_kv.k.dtype)
+        o = fa.flash_attention(q.to(dt), enc_kv.k.to(dt), enc_kv.v.to(dt),
+                               causal=False, sm_scale=hd**-0.5).to(q.dtype)
+    else:
+        o = _sdpa(q, enc_kv.k, enc_kv.v, None, hd**-0.5)
+    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    return o @ params["wo"]
+
+
+def encode_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig
+                    ) -> KVCache:
+    """A layer's cross-attention K/V [B, KVH, T, D] from the encoder's
+    states [B, T, D] (computed once at prefill, reused every decode step),
+    in the wider of their dtype and the weights'."""
+    b, s, _ = enc_out.shape
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    k = _promoted_matmul(enc_out, params["wk"]).reshape(b, s, kvh, hd)
+    v = _promoted_matmul(enc_out, params["wv"]).reshape(b, s, kvh, hd)
+    return KVCache(k.transpose(1, 2), v.transpose(1, 2))
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, s_max: int,

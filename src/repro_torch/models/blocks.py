@@ -1,23 +1,29 @@
-"""Layers and the depth loop (port of ``repro.models.blocks`` without the
-encoder-decoder cross-attention, ROADMAP.md A2c).
+"""Layers and the depth loop (port of ``repro.models.blocks``).
 
 A layer is a pre-norm sequence mixer with a residual, chosen by its
 ``LayerSpec.mixer``: attention (full or local), Mamba, mLSTM or sLSTM;
-then, unless ``spec.ffn == "none"``, a pre-norm FFN with a residual,
-dense SwiGLU or mixture-of-experts (which also gives its router's
-auxiliary loss). The reference stacks a period's parameters on a leading
-axis and scans over them; the port keeps one parameter dict and one cache
-per layer and loops over them in Python; layer ``i`` has spec
-``cfg.layer_pattern[i % cfg.period]``. A layer's cache is its mixer's:
-an attention ``KVCache`` (a local layer's ``min(local_window, s_max)``
-wide), a ``MambaState``, an ``MlstmState`` or an ``SlstmState``.
-Training (:func:`stack_train`) runs the layers period by period; with
-``cfg.remat`` each period's forward is recomputed in the backward pass
-(``torch.utils.checkpoint``), the reference's ``jax.checkpoint(...,
-policy=nothing_saveable)``, so only the activations between periods stay
-alive. Decode (:func:`stack_decode`) updates the caches in place: an
-attention layer writes its K/V row, a recurrent layer's new state is
-copied into its state tensors.
+in an encoder-decoder's decoder (``cross``) a pre-norm cross-attention
+over the encoder's output with a residual; then, unless ``spec.ffn ==
+"none"``, a pre-norm FFN with a residual, dense SwiGLU or
+mixture-of-experts (which also gives its router's auxiliary loss). The
+reference stacks a period's parameters on a leading axis and scans over
+them; the port keeps one parameter dict and one cache per layer and loops
+over them in Python; layer ``i`` has spec ``cfg.layer_pattern[i %
+cfg.period]``. A layer's cache is its mixer's: an attention ``KVCache``
+(a local layer's ``min(local_window, s_max)`` wide), a ``MambaState``, an
+``MlstmState`` or an ``SlstmState``; a cross layer's is the pair (its
+mixer's cache, its cross-attention ``KVCache`` over the encoder's
+output), as the reference's. Training (:func:`stack_train`) runs the
+layers period by period; with ``cfg.remat`` each period's forward is
+recomputed in the backward pass (``torch.utils.checkpoint``), the
+reference's ``jax.checkpoint(..., policy=nothing_saveable)``, so only the
+activations between periods stay alive. The encoder of a prefill
+(:func:`stack_encode`) runs its bidirectional attention through kernel
+B6; training's encoder is :func:`stack_train` with ``causal=False``.
+Decode (:func:`stack_decode`) updates the caches in place: an attention
+layer writes its K/V row, a recurrent layer's new state is copied into
+its state tensors, and a cross layer's encoder K/V stay as the prefill
+wrote them.
 """
 from __future__ import annotations
 
@@ -41,8 +47,10 @@ FLOAT32_LEAVES = {"mamba": mamba_mod.FLOAT32_LEAVES,
                   "slstm": xlstm_mod.SLSTM_FLOAT32_LEAVES,
                   "moe": moe_mod.FLOAT32_LEAVES}
 
-Cache = Union[attn.KVCache, mamba_mod.MambaState, xlstm_mod.MlstmState,
-              xlstm_mod.SlstmState]
+MixerCache = Union[attn.KVCache, mamba_mod.MambaState,
+                   xlstm_mod.MlstmState, xlstm_mod.SlstmState]
+# a cross layer's cache: (its mixer's cache, its encoder K/V)
+Cache = Union[MixerCache, Tuple[MixerCache, attn.KVCache]]
 
 
 def layer_spec(cfg: ModelConfig, i: int) -> LayerSpec:
@@ -62,13 +70,17 @@ def float32_leaves(spec: LayerSpec, part: str) -> Tuple[str, ...]:
 
 
 def layer_init(generator: torch.Generator, cfg: ModelConfig,
-               spec: LayerSpec, dtype: torch.dtype) -> dict:
+               spec: LayerSpec, dtype: torch.dtype,
+               cross: bool = False) -> dict:
     dev = generator.device
     init = {"attn": attn.attn_init, "mamba": mamba_mod.mamba_init,
             "mlstm": xlstm_mod.mlstm_init,
             "slstm": xlstm_mod.slstm_init}[spec.mixer]
     p = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
          "mixer": init(generator, cfg, dtype)}
+    if cross:
+        p["norm_x"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["cross"] = attn.attn_init(generator, cfg, dtype, cross=True)
     if spec.ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["ffn"] = (moe_mod.moe_init(generator, cfg, dtype)
@@ -106,28 +118,42 @@ def _recurrent(p, h: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     return xlstm_mod.slstm_scan(p, h, cfg, state)
 
 
+def _cross(p, x: torch.Tensor, cfg: ModelConfig, kv: attn.KVCache, *,
+           flash: bool) -> torch.Tensor:
+    """x + cross-attention of norm_x(x) over the encoder K/V ``kv``."""
+    hx = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    return x + attn.cross_attn(p["cross"], hx, kv, cfg, flash=flash)
+
+
 def layer_train(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, *,
-                causal: bool = True
+                enc_out=None, causal: bool = True
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
-    """(x, aux): the layer and its FFN's auxiliary loss."""
+    """(x, aux): the layer (with its cross-attention over ``enc_out``
+    where it has one) and its FFN's auxiliary loss."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         y = attn.attn_train(p["mixer"], h, cfg, local=_local(spec),
                             causal=causal)
     else:
         y, _ = _recurrent(p["mixer"], h, cfg, spec)
-    return _ffn_apply(p, x + y, cfg, spec)
+    x = x + y
+    if "cross" in p and enc_out is not None:
+        kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
+        x = _cross(p, x, cfg, kv, flash=False)
+    return _ffn_apply(p, x, cfg, spec)
 
 
 def stack_train(layers: List[dict], x: torch.Tensor, cfg: ModelConfig, *,
-                causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                enc_out=None, causal: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every layer, period by period -> (x, the float32 sum of the layers'
     auxiliary losses)."""
 
-    def period_fwd(x, period_layers):
+    def period_fwd(x, enc_out, period_layers):
         aux_total = 0.0
         for p, spec in zip(period_layers, cfg.layer_pattern):
-            x, aux = layer_train(p, x, cfg, spec, causal=causal)
+            x, aux = layer_train(p, x, cfg, spec, enc_out=enc_out,
+                                 causal=causal)
             aux_total = aux_total + aux
         return x, aux_total
 
@@ -135,26 +161,44 @@ def stack_train(layers: List[dict], x: torch.Tensor, cfg: ModelConfig, *,
     for start in range(0, cfg.num_layers, cfg.period):
         period_layers = layers[start:start + cfg.period]
         if cfg.remat:
-            x, a = checkpoint(period_fwd, x, period_layers,
+            x, a = checkpoint(period_fwd, x, enc_out, period_layers,
                               use_reentrant=False)
         else:
-            x, a = period_fwd(x, period_layers)
+            x, a = period_fwd(x, enc_out, period_layers)
         aux = aux + a
     return x, aux
 
 
+def stack_encode(layers: List[dict], x: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """An encoder's layers (bidirectional attention through kernel B6,
+    dense FFN) over x [B, T, D], as a prefill runs them."""
+    for p in layers:
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        x, _ = _ffn_apply(p, x + attn.attn_encode(p["mixer"], h, cfg), cfg,
+                          layer_spec(cfg, 0))
+    return x
+
+
 def layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
-                  cache_len: int) -> Tuple[torch.Tensor, Cache]:
+                  cache_len: int, *, enc_out=None
+                  ) -> Tuple[torch.Tensor, Cache]:
     """(x, the layer's cache): an attention layer's KV cache of
     ``cache_len`` rows (its window's for a local layer), or a recurrent
-    mixer's state after the sequence."""
+    mixer's state after the sequence; a cross layer's paired with its
+    encoder K/V, projected here from ``enc_out`` once."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         y, cache = attn.attn_prefill(p["mixer"], h, cfg, cache_len,
                                      local=_local(spec))
     else:
         y, cache = _recurrent(p["mixer"], h, cfg, spec)
-    x, _ = _ffn_apply(p, x + y, cfg, spec)
+    x = x + y
+    if "cross" in p and enc_out is not None:
+        kv = attn.encode_cross_kv(p["cross"], enc_out, cfg)
+        x = _cross(p, x, cfg, kv, flash=True)
+        cache = (cache, kv)
+    x, _ = _ffn_apply(p, x, cfg, spec)
     return x, cache
 
 
@@ -162,22 +206,33 @@ def layer_decode(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
                  cache: Cache, index: int) -> Tuple[torch.Tensor, Cache]:
     """One-token step -> (x, the new cache). An attention layer writes its
     cache in place and returns it; a recurrent layer returns a new state
-    and leaves ``cache`` as it was."""
+    and leaves ``cache`` as it was; a cross layer attends over its encoder
+    K/V and returns them as they were, paired with its mixer's new
+    cache."""
+    cross_kv = None
+    if "cross" in p:
+        cache, cross_kv = cache
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         y, cache = attn.attn_decode(p["mixer"], h, cfg, cache, index,
                                     local=_local(spec))
     else:
         y, cache = _recurrent(p["mixer"], h, cfg, spec, cache)
-    x, _ = _ffn_apply(p, x + y, cfg, spec)
+    x = x + y
+    if cross_kv is not None:
+        x = _cross(p, x, cfg, cross_kv, flash=True)
+        cache = (cache, cross_kv)
+    x, _ = _ffn_apply(p, x, cfg, spec)
     return x, cache
 
 
 def stack_prefill(layers: List[dict], x: torch.Tensor, cfg: ModelConfig,
-                  cache_len: int) -> Tuple[torch.Tensor, List[Cache]]:
+                  cache_len: int, *, enc_out=None
+                  ) -> Tuple[torch.Tensor, List[Cache]]:
     caches = []
     for i, p in enumerate(layers):
-        x, c = layer_prefill(p, x, cfg, layer_spec(cfg, i), cache_len)
+        x, c = layer_prefill(p, x, cfg, layer_spec(cfg, i), cache_len,
+                             enc_out=enc_out)
         caches.append(c)
     return x, caches
 
@@ -185,11 +240,14 @@ def stack_prefill(layers: List[dict], x: torch.Tensor, cfg: ModelConfig,
 def stack_decode(layers: List[dict], x: torch.Tensor, cfg: ModelConfig,
                  caches: List[Cache], index: int
                  ) -> Tuple[torch.Tensor, List[Cache]]:
-    """Every layer's decode step; each cache is updated in place (a new
-    recurrent state is copied into the cache's tensors, cast to their
-    dtypes, as the reference's ``dynamic_update_index_in_dim`` writes)."""
+    """Every layer's decode step; each mixer's cache is updated in place (a
+    new recurrent state is copied into the cache's tensors, cast to their
+    dtypes, as the reference's ``dynamic_update_index_in_dim`` writes). A
+    cross layer's encoder K/V are read, never written."""
     for i, (p, c) in enumerate(zip(layers, caches)):
         x, new = layer_decode(p, x, cfg, layer_spec(cfg, i), c, index)
+        if "cross" in p:
+            c, new = c[0], new[0]
         for dst, src in zip(c, new):
             if dst is not src:
                 dst.copy_(src)
@@ -197,18 +255,29 @@ def stack_decode(layers: List[dict], x: torch.Tensor, cfg: ModelConfig,
 
 
 def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                     s_max: int, dtype: torch.dtype, device) -> Cache:
+                     s_max: int, dtype: torch.dtype, device,
+                     cross: bool = False) -> Cache:
+    """A layer's zero cache; with ``cross`` paired with zero encoder K/V
+    of ``enc_seq_len`` rows (1 when the config has none)."""
     if spec.mixer == "attn":
-        return attn.kv_cache_init(cfg, batch, s_max, dtype, device,
-                                  local=_local(spec))
-    if spec.mixer == "mamba":
-        return mamba_mod.mamba_state_init(cfg, batch, dtype, device)
-    if spec.mixer == "mlstm":
-        return xlstm_mod.mlstm_state_init(cfg, batch, device)
-    return xlstm_mod.slstm_state_init(cfg, batch, device)
+        c = attn.kv_cache_init(cfg, batch, s_max, dtype, device,
+                               local=_local(spec))
+    elif spec.mixer == "mamba":
+        c = mamba_mod.mamba_state_init(cfg, batch, dtype, device)
+    elif spec.mixer == "mlstm":
+        c = xlstm_mod.mlstm_state_init(cfg, batch, device)
+    else:
+        c = xlstm_mod.slstm_state_init(cfg, batch, device)
+    if cross:
+        shape = (batch, cfg.num_kv_heads, cfg.enc_seq_len or 1, cfg.head_dim)
+        c = (c, attn.KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                             torch.zeros(shape, dtype=dtype, device=device)))
+    return c
 
 
 def stack_cache_init(cfg: ModelConfig, batch: int, s_max: int,
-                     dtype: torch.dtype, device) -> List[Cache]:
+                     dtype: torch.dtype, device,
+                     cross: bool = False) -> List[Cache]:
     return [layer_cache_init(cfg, layer_spec(cfg, i), batch, s_max, dtype,
-                             device) for i in range(cfg.num_layers)]
+                             device, cross=cross)
+            for i in range(cfg.num_layers)]

@@ -3,9 +3,21 @@ loss and train step, and the serving entry points (prefill and decode
 steps, KV caches).
 
 Parameters are a dict ``{"embed" [V, D], "layers": [one dict per layer],
-"final_norm", "head" [D, V] (absent when the embeddings are tied)}``.
-The caches are one per layer, each its mixer's (:data:`blocks.Cache`):
-an attention layer's KV cache or a recurrent layer's state.
+"final_norm", "head" [D, V] (absent when the embeddings are tied)}``; an
+encoder-decoder (``cfg.encoder_layers > 0``, the audio family) also has
+``"encoder": {"layers", "final_norm"}``, and each of its decoder layers a
+cross-attention (``"norm_x"``, ``"cross"``). The caches are one per layer,
+each its mixer's (:data:`blocks.Cache`): an attention layer's KV cache or
+a recurrent layer's state; an encoder-decoder's paired with the layer's
+encoder K/V.
+
+The frontends are the reference's stubs: an encoder-decoder reads
+precomputed frame embeddings ``batch["frame_embeds"] [B, T, D]``
+(:func:`encode`), a VLM (``cfg.num_image_tokens > 0``) takes precomputed
+patch embeddings ``batch["image_embeds"] [B, P, D]`` as a prefix before
+the text (RoPE positions ``0..P-1``, the text after them; the loss reads
+the text positions only). The encoder runs in the wider of the frame
+embeddings' dtype and the model's, as the reference's promotes.
 
 Training: :func:`loss_fn` is the backbone (:func:`blocks.stack_train`)
 and the chunked cross-entropy (:func:`chunked_ce`: the head matmul and
@@ -17,9 +29,11 @@ step. The reference casts the cotangent back to the model's dtype where
 the float32 loss meets the backbone (``_grad_dtype_boundary``); torch's
 autograd casts every cotangent to its tensor's dtype already, so the
 port needs no such boundary. ``loss_fn`` adds ``aux_coef`` times the sum
-of the MoE layers' router losses. The encoder (audio) and image-prefix
-(VLM) branches belong to the families the port does not run
-(``ROADMAP.md`` A2c).
+of the MoE layers' router losses.
+
+A prefill runs every attention through kernel B6 (the encoder's
+bidirectional attention, the decoder's causal self-attention and its
+cross-attention), training runs plain PyTorch under autograd.
 """
 from __future__ import annotations
 
@@ -27,7 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.common import dtype_of, ninit, rmsnorm, rmsnorm_init
 from repro_torch.optim import AdamWConfig, adamw_update_, cosine_warmup
@@ -49,16 +63,33 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     dtype = dtype_of(cfg.dtype)
+    cross = cfg.encoder_layers > 0
     p = {"embed": ninit(generator, (cfg.vocab_size, cfg.d_model), 0.02,
                         dtype),
          "layers": [blocks.layer_init(generator, cfg,
-                                      blocks.layer_spec(cfg, i), dtype)
+                                      blocks.layer_spec(cfg, i), dtype,
+                                      cross=cross)
                     for i in range(cfg.num_layers)],
          "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device)}
     if not cfg.tie_embeddings:
         p["head"] = ninit(generator, (cfg.d_model, cfg.vocab_size),
                           cfg.d_model**-0.5, dtype)
+    if cross:
+        enc_cfg = _encoder_cfg(cfg)
+        p["encoder"] = {
+            "layers": [blocks.layer_init(generator, enc_cfg,
+                                         enc_cfg.layer_pattern[0], dtype)
+                       for _ in range(enc_cfg.num_layers)],
+            "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device)}
     return p
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's own config: ``encoder_layers`` attention layers with a
+    dense FFN at the model's widths."""
+    return cfg.with_(num_layers=cfg.encoder_layers,
+                     layer_pattern=(LayerSpec(mixer="attn", ffn="dense"),),
+                     encoder_layers=0)
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -83,11 +114,58 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def backbone(params, tokens: torch.Tensor, cfg: ModelConfig
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (normed hidden [B, S, D], auxiliary loss)."""
+def _encoder_params(params, frame_embeds: torch.Tensor, cfg: ModelConfig):
+    """The encoder's params, cast to the dtype it runs in: the wider of the
+    frame embeddings' and the model's (jnp's promotion of the reference's
+    float32 stub frames against bfloat16 weights), and that dtype."""
+    dt = torch.promote_types(frame_embeds.dtype, dtype_of(cfg.dtype))
+    enc = params["encoder"]
+    if dt != dtype_of(cfg.dtype):
+        leaves, unflatten = tree_flatten(enc)
+        enc = unflatten([t.to(dt) for t in leaves])
+    return enc, dt
+
+
+def encode(params, frame_embeds: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """The encoder over stub frame embeddings [B, T, D] as training runs
+    it (bidirectional blocked attention, plain PyTorch under autograd) ->
+    normed states [B, T, D]."""
+    enc, dt = _encoder_params(params, frame_embeds, cfg)
+    x, _ = blocks.stack_train(enc["layers"], frame_embeds.to(dt),
+                              _encoder_cfg(cfg), causal=False)
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+
+def encode_prefill(params, frame_embeds: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """:func:`encode` as a prefill runs it: every layer's attention
+    through kernel B6 (``causal=False``)."""
+    enc, dt = _encoder_params(params, frame_embeds, cfg)
+    x = blocks.stack_encode(enc["layers"], frame_embeds.to(dt),
+                            _encoder_cfg(cfg))
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _embed_with_prefix(params, tokens: torch.Tensor,
+                       extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The token embeddings, after ``extra_embeds`` [B, P, D] (cast to the
+    model's dtype) where given."""
     x = _embed(params, tokens)
-    x, aux = blocks.stack_train(params["layers"], x, cfg)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def backbone(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+             extra_embeds: Optional[torch.Tensor] = None,
+             enc_out: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] (after an optional prefix of embeddings [B, P, D]),
+    cross-attending to ``enc_out`` where given -> (normed hidden [B, P + S,
+    D], auxiliary loss)."""
+    x = _embed_with_prefix(params, tokens, extra_embeds)
+    x, aux = blocks.stack_train(params["layers"], x, cfg, enc_out=enc_out)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -121,8 +199,18 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             aux_coef: float = 0.01) -> Tuple[torch.Tensor, Dict]:
     """(loss, {"ce", "aux"}): the chunked cross-entropy of ``batch
     ["targets"]`` given ``batch["tokens"]`` (weighted by
-    ``batch["loss_mask"]`` when present) plus ``aux_coef`` x aux."""
-    h, aux = backbone(params, batch["tokens"], cfg)
+    ``batch["loss_mask"]`` when present) plus ``aux_coef`` x aux. An
+    encoder-decoder encodes ``batch["frame_embeds"]`` first; a batch's
+    ``image_embeds`` are a prefix whose positions the loss skips when
+    ``cfg.num_image_tokens > 0``."""
+    enc_out = None
+    if cfg.encoder_layers > 0:
+        enc_out = encode(params, batch["frame_embeds"], cfg)
+    h, aux = backbone(params, batch["tokens"], cfg,
+                      extra_embeds=batch.get("image_embeds"),
+                      enc_out=enc_out)
+    if cfg.num_image_tokens > 0:
+        h = h[:, cfg.num_image_tokens:]  # loss on text positions only
     ce = chunked_ce(h, batch["targets"], _head(params, cfg),
                     mask=batch.get("loss_mask"), chunk=cfg.loss_chunk)
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}
@@ -173,9 +261,19 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 
     def prefill_step(params, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, List[blocks.Cache]]:
-        """batch["tokens"] [B, S] -> (logits [B, V] float32, caches)."""
-        x = _embed(params, batch["tokens"])
-        x, caches = blocks.stack_prefill(params["layers"], x, cfg, cache_len)
+        """batch["tokens"] [B, S] -> (logits [B, V] float32, caches). An
+        encoder-decoder encodes ``batch["frame_embeds"]`` (kernel B6) and
+        caches each layer's encoder K/V; a VLM puts ``batch
+        ["image_embeds"]`` (where given) before the text, so the next
+        decode index is ``P + S``."""
+        enc_out = None
+        if cfg.encoder_layers > 0:
+            enc_out = encode_prefill(params, batch["frame_embeds"], cfg)
+        image = batch.get("image_embeds")
+        x = _embed_with_prefix(params, batch["tokens"],
+                               image if cfg.num_image_tokens > 0 else None)
+        x, caches = blocks.stack_prefill(params["layers"], x, cfg, cache_len,
+                                         enc_out=enc_out)
         return _logits(params, x, cfg), caches
 
     return prefill_step
@@ -197,6 +295,9 @@ def make_decode_step(cfg: ModelConfig):
 
 def cache_init(cfg: ModelConfig, batch: int, s_max: int,
                device: DeviceLike = None) -> List[blocks.Cache]:
+    """Zero caches of ``batch`` rows (an encoder-decoder's each paired with
+    zero encoder K/V of ``enc_seq_len`` rows) on ``device`` (default: the
+    CUDA card; raises without one)."""
     dev = resolve_device(device)
     return blocks.stack_cache_init(cfg, batch, s_max, dtype_of(cfg.dtype),
-                                   dev)
+                                   dev, cross=cfg.encoder_layers > 0)

@@ -12,6 +12,12 @@ prompt's direct greedy generation (``ROADMAP.md``, reference caveats).
 A request is done at ``max_new`` tokens or when its slot reaches
 ``max_len - 1``.
 
+A request carries tokens only, as the reference's does: a VLM is served
+text-only (no image prefix), and an encoder-decoder, whose prefill needs
+frame embeddings, is refused at construction (the reference's engine
+builds and then fails at its first admission); its entry points are
+``lm.make_prefill_step`` and ``lm.make_decode_step``.
+
 The caches are per layer, from ``lm.cache_init``: an attention layer's
 KV cache ``[num_slots, KVH, width, D]`` (width ``max_len``, or
 ``min(local_window, max_len)`` for a local-attention layer), or a
@@ -56,6 +62,13 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int = 4,
                  max_len: int = 256, device: DeviceLike = None):
+        if cfg.encoder_layers > 0:
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder's prefill reads "
+                "batch['frame_embeds'], which the engine's requests do not "
+                "carry (the reference's engine raises KeyError at its first "
+                "admission); serve it with lm.make_prefill_step and "
+                "make_decode_step")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and any(
                 spec.mixer == "attn" for spec in cfg.layer_pattern):

@@ -2,7 +2,7 @@
 inputs and weights: RoPE, RMSNorm, the SwiGLU FFN, attention prefill (and
 its padded cache) and decode, prefill and decode logits of the four ported
 architectures' REDUCED configs, the weight conversion, the configs value
-for value and the parameter accounting."""
+for value, the parameter accounting and the registry's cell accounting."""
 import dataclasses
 
 import jax
@@ -18,7 +18,6 @@ from repro.models import ffn as j_ffn
 from repro.models import lm as j_lm
 from repro_torch import convert
 from repro_torch.configs import registry as t_registry
-from repro_torch.configs.base import LayerSpec
 from repro_torch.models import attention as t_attn
 from repro_torch.models import common as t_common
 from repro_torch.models import ffn as t_ffn
@@ -184,11 +183,11 @@ def test_lm_params_from_numpy_unstacks_the_period_axis():
 
 
 @pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + [
-    "jamba-1.5-large-398b", "xlstm-350m"])
+    "jamba-1.5-large-398b", "xlstm-350m", "whisper-small", "internvl2-1b"])
 def test_configs_and_param_counts_match_jax(arch):
     """Every field of the port's config equals the reference's field of
-    that name; the reference's fields the port does not have (its other
-    families' and its perf knobs) are at their defaults in these configs."""
+    that name; the reference's fields the port does not have (its
+    sharded-run knobs) are at their defaults in these configs."""
     for t_cfg, j_cfg in ((t_registry.get(arch), j_registry.get(arch)),
                          _cfg(arch)):
         t_fields, j_fields = (dataclasses.asdict(t_cfg),
@@ -214,20 +213,20 @@ def test_port_init_matches_the_reference_layout_and_scales():
     assert float(p["layers"][1]["mixer"]["bk"].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
-def test_unported_archs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_registry.get(arch)
+def test_registry_and_its_cell_accounting_match_jax():
+    """All ten archs in the reference's order; the dry-run cells and the
+    skipped ones; the LM shape suite field for field."""
+    from repro.configs import base as j_base
+    from repro_torch.configs import base as t_base
 
-
-def test_unported_attention_variants_raise():
-    cfg = t_registry.get_reduced("qwen2.5-32b")
-    for kw in (dict(family="audio"), dict(family="vlm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cfg.with_(**kw)
-    for kw in (dict(encoder_layers=1), dict(num_image_tokens=4)):
-        with pytest.raises(TypeError):
-            cfg.with_(**kw)
+    assert t_registry.list_archs() == j_registry.list_archs()
+    assert len(t_registry.list_archs()) == 10
+    assert t_registry.runnable_cells() == j_registry.runnable_cells()
+    assert t_registry.skipped_cells() == j_registry.skipped_cells()
+    assert {k: dataclasses.asdict(v) for k, v in t_base.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in j_base.SHAPES.items()}
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_registry.get("whisper-large")
 
 
 @pytest.mark.parametrize("past", [0, 2])
