@@ -195,6 +195,32 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    arm's warm renders) likewise. The spies of
    the kernel checks and of C2 turn their engine's graphs off: they must
    see, or read back, every call.
+   Phase P, session sharding and ``parallel/`` over ranks
+   (:func:`run_phase_p`). P1, in this process, a one-rank NCCL group
+   through a ``FileStore``: ``launch.mesh.make_smoke_mesh`` on the card;
+   ``sharded_decode_attention`` at arm F's first decode tick (q
+   [4, 40, 1, 128] against the [4, 8, 2084, 128] cache, index 2,048,
+   bfloat16) within B6's bfloat16 tolerance of B6's decode and of the
+   plain version; ``compress_with_feedback`` + ``compressed_psum``, int8
+   and bfloat16, on a float32 tree with a [4096, 4096] leaf, bit for bit
+   ``dequantize(quantize(g + ef))`` over two error-feedback steps;
+   ``pipelined_forward`` over one stage bit-equal to ``reference_forward``
+   (M = 1; M = 4 within 1e-5); the group destroyed. P2, two gloo ranks
+   started with ``spawn`` on this card (CUDA is initialized, so no fork;
+   NCCL refuses two ranks on one device), in one start-up: (1) arm A's
+   config, 2 sessions x 32 frames through ``render_windows`` with
+   ``num_slots=2``, ``ShardConfig(num_devices=2)``; (2) arm B's model
+   served staged on 4 slots, 4 sessions x 32 frames; both bit for bit
+   the script's unsharded card runs of the same windows and fleet (every
+   field, frames, hole counts, overflow flags, serving statistics), with
+   ``"devices"`` 2 and each rank launching B1 (and B2 in (2)), its counts
+   joining the kernels line; (3) ``sharded_decode_attention`` with the
+   cache split 1,042 rows per rank against B6's decode on the whole
+   cache; (4) ``pipelined_forward`` over 2 stages, M = 2 and 4, within
+   1e-5 of ``reference_forward``; (5) ``compressed_psum`` bit for bit the
+   mean of the two ranks' dequantized payloads. The warm walls of (1) and
+   (2) are recorded beside the unsharded ones, not gated; a rank's
+   failure or a rank past its deadline fails the phase.
    Arm F: LM serving, ``repro_torch.serve.ServeEngine`` on qwen2.5-32b at
    full width (d_model 5120, 40 query and 8 KV heads, d_ff 27648, vocab
    152064, QKV bias), 8 of its 64 layers, bfloat16, random weights from
@@ -804,14 +830,14 @@ def c2_compare_warps(card: list, host: list) -> list:
     return rows
 
 
-def arm_b_params(seed: int = 0, hidden: int = 64) -> dict:
+def arm_b_params(seed: int = 0, hidden: int = 64, res: int = 64) -> dict:
     """Random (untrained) parameters at NerfConfig's defaults (hidden
-    width ``hidden``), with the reference initializer's scales, drawn from
-    numpy."""
+    width ``hidden``, grid ``res``), with the reference initializer's
+    scales, drawn from numpy."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    c, h, res = 8, hidden, 64
+    c, h = 8, hidden
     f32 = lambda a: np.asarray(a, np.float32)
     normal = lambda rows, cols: f32(rng.standard_normal((rows, cols))
                                     / np.sqrt(rows))
@@ -3180,6 +3206,478 @@ def run_phase_l(dev, reset, counts, *, l1_cfg=None, l2_cfg=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase P: session sharding and the parallel/ collectives over ranks
+# ---------------------------------------------------------------------------
+
+# P2's checks 1 and 2 (arm A's windows, arm B's served fleet), arm F's first
+# decode tick for the sharded decode attention (q [4, 40, 1, 128] against
+# the [4, 8, 2084, 128] cache at index 2048), the gradient tree of the
+# compression checks and the reference's gpipe test (L 8, D 16, B 8)
+P_SHAPES = dict(frames=32, a_sessions=2, b_sessions=4,
+                decode=dict(batch=4, heads=40, kv_heads=8, cache=2084,
+                            dim=128, index=2048),
+                grad=(4096, 4096), pipe=dict(layers=8, width=16, batch=8))
+P_DEADLINE_S = 300.0  # the parent kills P2's ranks past this
+P_COLLECTIVE_TIMEOUT_S = 120.0
+P_FIELDS = ("frames", "holes", "hole_counts", "overflowed", "fine_counts")
+
+
+def port_kernels() -> list:
+    """The six kernel sources of the path, in the launch line's order."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import fused_nerf_mlp as mlp_k
+    from repro_torch.kernels import gather_trilerp as gt_k
+    from repro_torch.kernels import streaming_pipeline as sp_k
+
+    return [gt_k.KERNEL, mlp_k.KERNEL, sp_k.KERNEL, gt_k.KERNEL_PER_SEG,
+            sp_k.KERNEL_PER_SEG, fa_k.KERNEL]
+
+
+def launch_counts(kernels) -> dict:
+    """Each kernel source's launches, and B6's by kernel."""
+    from repro_torch.kernels import flash_attention as fa_k
+
+    c = {k.name: k.launches for k in kernels}
+    c.update({f"{B6}.{n}": m for n, m in fa_k.launches_by_kernel().items()})
+    return c
+
+
+def p_windows(n_sessions: int, n_frames: int, window: int) -> list:
+    """Per warp window of ``n_sessions`` orbits (25 degrees apart in
+    phase), the sessions' reference poses [S, 4, 4] and targets
+    [S, N, 4, 4], as the trajectory schedule cuts them."""
+    import torch
+
+    from repro_torch.core import schedule
+    from repro_torch.core.pipeline import orbit_trajectory
+
+    trajs = [orbit_trajectory(n_frames, phase_deg=25.0 * i)
+             for i in range(n_sessions)]
+    plans = [schedule.WarpSchedule(window, "offtraj").windows(t)
+             for t in trajs]
+    return [(torch.stack([p[w]["ref_pose"] for p in plans]),
+             torch.stack([torch.stack([t[j] for j in p[w]["frames"]])
+                          for p, t in zip(plans, trajs)]))
+            for w in range(len(plans[0]))]
+
+
+def p_fleet(n_sessions: int, n_frames: int) -> list:
+    from repro_torch.core.config import RenderRequest
+    from repro_torch.core.pipeline import orbit_trajectory
+
+    return [RenderRequest(poses=tuple(orbit_trajectory(
+        n_frames, phase_deg=25.0 * i))) for i in range(n_sessions)]
+
+
+def p_render_windows(renderer, windows, reset, counts) -> dict:
+    """``windows`` through the renderer's engine (``render_windows``), cold
+    with the launch counts set to 0 before and read after, then warm:
+    every result's fields on the host and both walls."""
+    eng = renderer.pipeline.device_engine
+    dev = renderer.device
+
+    def run():
+        t0 = time.perf_counter()
+        res = [eng.render_windows(r.to(dev), t.to(dev)) for r, t in windows]
+        fields = [{k: getattr(x, k).cpu() for k in P_FIELDS} for x in res]
+        return fields, time.perf_counter() - t0
+
+    reset()
+    cold, cold_s = run()
+    launches = counts()
+    _, warm_s = run()
+    return {"windows": cold, "launches": launches, "cold_wall_s": cold_s,
+            "warm_wall_s": warm_s}
+
+
+def p_run_stats(m: dict) -> dict:
+    """A serving run's statistics without walls, latencies and waits."""
+    return {"ticks": m["ticks"], "complete": m["complete"],
+            "total_frames": m["total_frames"], "pool": m["pool"],
+            "memory": m["memory"], "slots": m["slots"],
+            "scene_cache": m["scene_cache"],
+            "queue": {k: m["queue"][k]
+                      for k in ("depth_mean", "depth_max", "shed")},
+            "per_session": {s: {k: v for k, v in row.items()
+                                if "latency" not in k}
+                            for s, row in m["per_session"].items()}}
+
+
+def p_serve(renderer, fleet, reset, counts) -> dict:
+    """``fleet`` served, cold (launches counted) then warm: each session's
+    frames on the host and stats, the warm run's statistics (a warm run
+    adds no bucket key: ``pool.recompiles`` 0), both walls."""
+    import torch
+
+    reset()
+    results, m = renderer.serve(fleet)
+    launches = counts()
+    _, m_warm = renderer.serve(fleet)
+    return {"frames": [torch.stack(r.frames).cpu() for r in results],
+            "stats": [dataclasses.asdict(r.stats) for r in results],
+            "run": p_run_stats(m_warm), "devices": m["devices"],
+            "launches": launches, "cold_wall_s": m["wall_s"],
+            "warm_wall_s": m_warm["wall_s"]}
+
+
+def _tanh_layer(p, h):
+    import torch
+
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def p_pipe_inputs(dev, pipe: dict, seed: int = 0):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, d, b = pipe["layers"], pipe["width"], pipe["batch"]
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return {"w": 0.3 * rnd(n, d, d), "b": 0.01 * rnd(n, d)}, rnd(b, d)
+
+
+def p_decode_inputs(dev, d: dict, seed: int = 0):
+    """q, k, v of arm F's first decode tick, bfloat16."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev
+                                     ).to(torch.bfloat16)
+    return (rnd(d["batch"], d["heads"], 1, d["dim"]),
+            rnd(d["batch"], d["kv_heads"], d["cache"], d["dim"]),
+            rnd(d["batch"], d["kv_heads"], d["cache"], d["dim"]))
+
+
+def p_decode_check(label: str, q, k_local, v_local, k, v, index: int,
+                   mesh) -> dict:
+    """``sharded_decode_attention`` of this rank's cache slice against B6's
+    decode (and against B6's plain version) on the whole cache, at B6's
+    bfloat16 tolerance."""
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.parallel.decode_attention import \
+        sharded_decode_attention
+
+    b, h, _, d = q.shape
+    got = sharded_decode_attention(q, k_local, v_local, index, mesh=mesh,
+                                   seq_axis="model", sm_scale=d**-0.5)
+    out = {}
+    for name, fn in (("B6", fa_k.flash_attention),
+                     ("plain", fa_k.flash_attention_plain)):
+        want = fn(q, k, v, causal=False, sm_scale=d**-0.5,
+                  kv_len=index + 1).reshape(b, 1, h * d)
+        out[f"max_abs_err_vs_{name}"] = check_close(
+            f"{label} vs {name}", got, want, B6_BF16_TOL)
+    return out
+
+
+def p2_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
+    """One rank of phase P2: join the gloo group through a ``FileStore``
+    in ``tmp``, run :func:`p2_checks` once ``tmp/go`` exists and save what
+    it returns (or the traceback) to ``tmp``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    out = Path(tmp)
+    torch.set_num_threads(2)  # two ranks and this process share the host
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out / "store"), world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=P_COLLECTIVE_TIMEOUT_S))
+    try:
+        torch.save(p2_checks(rank, world, out, spec), out / f"rank{rank}.pt")
+        dist.barrier()  # no rank leaves while another is in a collective
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+    # the result is written and the group is gone: end before the
+    # interpreter's teardown, which has aborted a gloo rank after its work
+    # ("terminate called without an active exception")
+    os._exit(0)
+
+
+def p2_checks(rank: int, world: int, out: Path, spec: dict) -> dict:
+    """P2's five checks on this rank (see :func:`run_phase_p`)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import api
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.config import ShardConfig
+    from repro_torch.nerf import models
+    from repro_torch.parallel import compression
+    from repro_torch.parallel import dist as pdist
+    from repro_torch.parallel.pipeline import pipelined_forward, \
+        reference_forward
+
+    kernels = port_kernels()
+    reset = lambda: [k.reset() for k in kernels]
+    counts = lambda: launch_counts(kernels)
+    shapes = spec["shapes"]
+    shard = ShardConfig(num_devices=world)
+    dev = pdist.rank_device(spec["device"])
+    ren_a = api.make_renderer(spec["cfg_a"].replace(shard=shard),
+                              device=spec["device"])
+    model_b, _ = models.make_model(**spec["model_b"])
+    ren_b = api.make_renderer(
+        spec["cfg_b"].replace(shard=shard), model=model_b,
+        params=params_from_numpy(arm_b_params(**spec["params_b"]), dev),
+        device=spec["device"])
+    windows = p_windows(shapes["a_sessions"], shapes["frames"],
+                        spec["cfg_a"].window)
+    fleet = p_fleet(shapes["b_sessions"], shapes["frames"])
+    deadline = time.monotonic() + P_DEADLINE_S
+    while not (out / "go").exists():  # the parent's unsharded runs first
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase P2: the parent never started the run")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    res = {"A": p_render_windows(ren_a, windows, reset, counts),
+           "B": p_serve(ren_b, fleet, reset, counts)}
+    res["check_s"] = {"1_2": time.perf_counter() - t0}
+    # 3: the decode attention, the cache split evenly over the ranks
+    d = shapes["decode"]
+    q, k, v = p_decode_inputs(dev, d)
+    per = d["cache"] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    seq_mesh = DeviceMesh(dev.type, torch.arange(world).reshape(1, world),
+                          mesh_dim_names=("data", "model"))
+    res["decode"] = p_decode_check(f"P2 decode rank {rank}", q, k[:, :, rows],
+                                   v[:, :, rows], k, v, d["index"], seq_mesh)
+    res["check_s"]["3"] = time.perf_counter() - t0
+    # 4: gpipe over the ranks
+    pod = DeviceMesh(dev.type, list(range(world)), mesh_dim_names=("pod",))
+    params, x = p_pipe_inputs(dev, shapes["pipe"])
+    want = reference_forward(_tanh_layer, params, x)
+    res["pipeline"] = {}
+    for m in (2, 4):
+        got = pipelined_forward(_tanh_layer, params, x, mesh=pod,
+                                num_microbatches=m)
+        res["pipeline"][m] = float((got - want).abs().max())
+    res["check_s"]["4"] = time.perf_counter() - t0
+    # 5: compressed_psum against the mean of every rank's payloads
+    gen = torch.Generator(device=dev).manual_seed(1 + rank)
+    grads = {"w": torch.randn(shapes["grad"], generator=gen, device=dev),
+             "b": torch.randn((7,), generator=gen, device=dev)}
+    group = pdist.axis(pod, "pod").group
+    res["psum_bit_equal"] = {}
+    for mode in ("int8", "bfloat16"):
+        ef = compression.make_ef_state(grads)
+        qs, ss, _ = compression.compress_with_feedback(grads, ef, mode)
+        mean, _ = compression.compressed_psum(grads, group, ef, mode)
+        res["psum_bit_equal"][mode] = all(
+            torch.equal(mean[n], sum(pdist.all_gather0(
+                compression.dequantize(qs[n], ss[n])[None], group)) / world)
+            for n in grads)
+    res["check_s"]["5"] = time.perf_counter() - t0
+    return res
+
+
+def run_phase_p1(dev, shapes: dict = P_SHAPES) -> dict:
+    """P1, in this process: a process group of one rank (NCCL on the card,
+    gloo on the CPU) through a ``FileStore``: ``make_smoke_mesh``, the sharded
+    decode attention at arm F's decode tick against B6, compression with
+    ``compressed_psum`` bit for bit, gpipe over one stage; the group is
+    destroyed at the end."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel import compression
+    from repro_torch.parallel import dist as pdist
+    from repro_torch.parallel.pipeline import pipelined_forward, \
+        reference_forward
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1,
+            timeout=datetime.timedelta(seconds=P_COLLECTIVE_TIMEOUT_S))
+        try:
+            mesh = make_smoke_mesh(device=None if dev.type == "cuda"
+                                   else dev)
+            out["backend"] = dist.get_backend(mesh.get_group("model"))
+            out["mesh"] = [tuple(mesh.shape), mesh.mesh_dim_names]
+            d = shapes["decode"]
+            q, k, v = p_decode_inputs(dev, d)
+            out["decode"] = p_decode_check("P1 decode", q, k, v, k, v,
+                                           d["index"], mesh)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            grads = {"w": torch.randn(shapes["grad"], generator=gen,
+                                      device=dev),
+                     "b": torch.randn((7,), generator=gen, device=dev)}
+            group = pdist.axis(mesh, "data").group
+            out["psum_bit_equal"] = {}
+            for mode in ("int8", "bfloat16"):
+                ef, equal = compression.make_ef_state(grads), True
+                for step in range(2):  # the second carries a residual
+                    g = {n: t * (step + 1) for n, t in grads.items()}
+                    red, new_ef = compression.compressed_psum(g, group, ef,
+                                                              mode)
+                    equal &= all(torch.equal(red[n], compression.dequantize(
+                        *compression.quantize(g[n] + ef[n], mode)))
+                        for n in g)
+                    ef = new_ef
+                out["psum_bit_equal"][mode] = equal
+                out[f"wire_bytes_{mode}"] = compression.wire_bytes(grads,
+                                                                   mode)
+            params, x = p_pipe_inputs(dev, shapes["pipe"])
+            want = reference_forward(_tanh_layer, params, x)
+            one = pipelined_forward(_tanh_layer, params, x, mesh=mesh,
+                                    num_microbatches=1, axis="data")
+            four = pipelined_forward(_tanh_layer, params, x, mesh=mesh,
+                                     num_microbatches=4, axis="data")
+            out["pipeline_one_stage_bit_equal"] = bool(torch.equal(one, want))
+            out["pipeline_one_stage_m4_err"] = float(
+                (four - want).abs().max())
+        finally:
+            dist.destroy_process_group()
+    if not all(out["psum_bit_equal"].values()):
+        fail(f"P1: compressed_psum differs from dequantize(quantize(g + ef)) "
+             f"{out['psum_bit_equal']}")
+    if not out["pipeline_one_stage_bit_equal"] \
+            or out["pipeline_one_stage_m4_err"] > 1e-5:
+        fail(f"P1: one-stage gpipe differs from reference_forward: {out}")
+    return out
+
+
+def run_phase_p(dev, reset, counts, *, cfg_a, cfg_b, model_b_kw: dict,
+                params_b: dict, renderer_b=None, shapes: dict = P_SHAPES
+                ) -> dict:
+    """Phase P: P2's two gloo ranks are started with ``spawn`` on this
+    card (NCCL refuses two ranks on one device); while they start, this
+    process runs P1 (:func:`run_phase_p1`) and the unsharded runs P2 is
+    held against, then writes the file the ranks wait on to run
+    :func:`p2_checks`. Arm B's params are ``arm_b_params(**params_b)``
+    in every process; ``renderer_b`` (arm D's staged renderer, whose keys
+    its fleet captured: that fleet's first 4 sessions are P2's) serves
+    the unsharded fleet, else a new one. Any rank's failure or a rank
+    past ``P_DEADLINE_S`` fails the phase."""
+    import multiprocessing as mp
+    import tempfile
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.nerf import models
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    world = 2
+    cfg_a, cfg_b = cfg_a.replace(num_slots=world), cfg_b.replace(
+        num_slots=shapes["b_sessions"])
+    # small: the ranks' start waits for nothing bulky through the pipe
+    spec = dict(device=None if cuda else str(dev), shapes=shapes,
+                cfg_a=cfg_a, cfg_b=cfg_b, model_b=model_b_kw,
+                params_b=params_b)
+    out = {}
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=p2_rank, args=(r, world, tmp, spec),
+                             daemon=True) for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            # P1 and the unsharded runs, while the ranks start
+            out["P1"] = run_phase_p1(dev, shapes)
+            out["P1_s"] = time.perf_counter() - t1
+            base_a = p_render_windows(
+                api.make_renderer(cfg_a, device=dev),
+                p_windows(shapes["a_sessions"], shapes["frames"],
+                          cfg_a.window), reset, counts)
+            reused_b = renderer_b is not None
+            if renderer_b is None:
+                model_b, _ = models.make_model(**model_b_kw)
+                renderer_b = api.make_renderer(
+                    cfg_b, model=model_b, params=params_from_numpy(
+                        arm_b_params(**params_b), dev), device=dev)
+            base_b = p_serve(renderer_b, p_fleet(shapes["b_sessions"],
+                                                 shapes["frames"]),
+                             reset, counts)
+            Path(tmp, "go").touch()
+            out["P2_go_s"] = time.perf_counter() - t1
+            end = time.monotonic() + P_DEADLINE_S
+            for p in procs:
+                p.join(max(end - time.monotonic(), 0.0))
+            stalled = [r for r, p in enumerate(procs) if p.is_alive()]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        errors = {r: Path(tmp, f"rank{r}.err").read_text()
+                  for r in range(world) if Path(tmp, f"rank{r}.err").exists()}
+        if stalled or errors or any(p.exitcode for p in procs):
+            fail(f"phase P2: ranks stalled {stalled}, exit codes "
+                 f"{[p.exitcode for p in procs]}, errors {errors}")
+        out["P2_joined_s"] = time.perf_counter() - t1
+        print(f"phase P2: the ranks ran from {out['P2_go_s']:.1f} s to "
+              f"{out['P2_joined_s']:.1f} s", flush=True)
+        ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    out["P_s"] = time.perf_counter() - t1
+    rank_launches, p2 = {}, {}
+    for r, res in enumerate(ranks):
+        for w, (got, want) in enumerate(zip(res["A"]["windows"],
+                                            base_a["windows"])):
+            for k in P_FIELDS:
+                if not torch.equal(got[k], want[k]):
+                    fail(f"P2 check 1 rank {r} window {w}: {k} differs "
+                         f"from the unsharded render")
+        if res["B"]["stats"] != base_b["stats"] \
+                or res["B"]["run"] != base_b["run"] \
+                or res["B"]["devices"] != world:
+            fail(f"P2 check 2 rank {r}: stats {res['B']['run']} (devices "
+                 f"{res['B']['devices']}) vs unsharded {base_b['run']}")
+        for s, (got, want) in enumerate(zip(res["B"]["frames"],
+                                            base_b["frames"])):
+            if not torch.equal(got, want):
+                fail(f"P2 check 2 rank {r} session {s}: frames differ from "
+                     f"the unsharded serving run")
+        la, lb = res["A"]["launches"], res["B"]["launches"]
+        if la["gather_trilerp"] == 0 or lb["gather_trilerp"] == 0 \
+                or lb["fused_nerf_mlp"] == 0:
+            fail(f"P2 rank {r}: B1 / B2 unlaunched: A {la}, B {lb}")
+        rank_launches[f"P2 A rank {r}"] = la
+        rank_launches[f"P2 B rank {r}"] = lb
+        if max(res["pipeline"].values()) > 1e-5:
+            fail(f"P2 check 4 rank {r}: gpipe {res['pipeline']}")
+        if not all(res["psum_bit_equal"].values()):
+            fail(f"P2 check 5 rank {r}: compressed_psum "
+                 f"{res['psum_bit_equal']}")
+        p2[f"rank {r}"] = {
+            "decode": res["decode"], "pipeline_max_abs_err": res["pipeline"],
+            "seconds_at_end_of_check": res["check_s"],
+            "psum_bit_equal": res["psum_bit_equal"],
+            **{f"{c}_{k}": res[c][k] for c in ("A", "B")
+               for k in ("cold_wall_s", "warm_wall_s")}}
+    p2["unsharded"] = {f"{c}_{k}": b[k] for c, b in (("A", base_a),
+                                                     ("B", base_b))
+                       for k in ("cold_wall_s", "warm_wall_s")}
+    # arm D's renderer comes warm: both of its "unsharded B" runs are warm
+    p2["unsharded"]["B_renderer_warm_at_entry"] = reused_b
+    p2["unsharded"]["launches"] = {c: {k: b["launches"][k] for k in (
+        "gather_trilerp", "fused_nerf_mlp")} for c, b in (("A", base_a),
+                                                          ("B", base_b))}
+    p2["checks_1_2"] = "bit-equal"  # every field, every rank
+    out["P2"] = p2
+    out["rank_launches"] = rank_launches
+    return out
+
+
 def main() -> int:
     import math
 
@@ -3208,8 +3706,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = [gt_k.KERNEL, mlp_k.KERNEL, sp_k.KERNEL, gt_k.KERNEL_PER_SEG,
-               sp_k.KERNEL_PER_SEG, fa_k.KERNEL]
+    kernels = port_kernels()
     phase_s = {}
     clock = [time.perf_counter()]
 
@@ -3891,11 +4388,7 @@ def main() -> int:
             k.reset()
 
     def counts():
-        # each kernel source's launches, and B6's by kernel
-        c = {k.name: k.launches for k in kernels}
-        c.update({f"{B6}.{n}": m
-                  for n, m in fa_k.launches_by_kernel().items()})
-        return c
+        return launch_counts(kernels)
 
     def all_stats(st):
         """Every field of a RenderStats, per-frame hole fractions too."""
@@ -4883,6 +5376,11 @@ def main() -> int:
         for label, row in rows.items():
             print(f"phase S {part} {label}: {json.dumps(row)}")
     phase_done("S")
+    arms["P"] = run_phase_p(
+        dev, reset, counts, cfg_a=cfg_a, cfg_b=cfg_b,
+        model_b_kw=dict(kind="dvgo", backend="streaming", decoder="mlp"),
+        params_b=dict(seed=0), renderer_b=gpu_s)
+    phase_done("P")
     arms["F"] = run_lm_arm()
     phase_done("arm F")
     arms.update(run_arms_m(dev, reset, counts, profile_run))
@@ -4975,6 +5473,11 @@ def main() -> int:
     print(f"arm E multi-scene serving: warm {m_warm_line(arms['E'])}; "
           f"scene cache {arms['E']['scene_cache']}; launches "
           f"{arms['E']['launches']}")
+    p = arms["P"]
+    print(f"phase P: {p['P_s']:.1f} s, P1 {p['P1_s']:.1f} s "
+          f"({p['P1']['backend']}, mesh {p['P1']['mesh']}), P2's ranks "
+          f"started at {p['P2_go_s']:.1f} s; sharded walls "
+          + "; ".join(f"{r}: {json.dumps(v)}" for r, v in p["P2"].items()))
     f = arms["F"]
     print(f"arm F LM serving: warm {f['warm_wall_s']:.3f} s (cold "
           f"{f['cold_wall_s']:.3f} s), {f['generated_tok_per_s']:.1f} "
@@ -5283,6 +5786,7 @@ def main() -> int:
     path_launches["W float32 frames"] = \
         arms["W"]["float32_frames"]["launches"]
     path_launches["L"] = training_l["launches"]
+    path_launches.update(arms["P"]["rank_launches"])
     for name, want in EAGER_LAUNCHES.items():
         got = {k: path_launches[name][k] for k in want}
         if got != want:
@@ -5369,7 +5873,7 @@ def main() -> int:
         n: {"frames": a["frames"], "warm_wall_s": a["warm_wall_s"],
             "warm_fps": a["warm_fps"], "cold_wall_s": a["cold_wall_s"]}
         for n, a in arms.items()
-        if n not in ("F", "H", "D_adaptive", "I oracle")
+        if n not in ("F", "H", "D_adaptive", "I oracle", "P")
         and not n.startswith(("M", "R", "W", "V"))},
         "baselines_H": {n: {k: b[k] for k in ("warm_wall_s", "warm_fps",
                                                "mean_psnr_vs_full_db")}

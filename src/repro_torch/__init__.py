@@ -9,7 +9,10 @@ grids) and the analytic oracle, the multi-session render serving engine
 scene_loader=...)``), and the LM
 substrate's serving path (``repro_torch.serve.ServeEngine`` over the
 dense GQA transformer of :mod:`repro_torch.models`, configs in
-:mod:`repro_torch.configs`). Every TPU kernel of the reference has a
+:mod:`repro_torch.configs`); the render path's session sharding over
+``torch.distributed`` ranks (``RenderConfig.shard``) and the reference's
+multi-device helpers (:mod:`repro_torch.parallel`,
+:mod:`repro_torch.launch`). Every TPU kernel of the reference has a
 hand-written CUDA kernel here: the Gathering Unit and its mixed-scene
 variant (:mod:`repro_torch.kernels.gather_trilerp`), the fused radiance
 MLP (:mod:`repro_torch.kernels.fused_nerf_mlp`), the fused tick's

@@ -15,6 +15,13 @@ into a full-budget and a coarse sub-pool; ``engine="host"`` and
 ``Renderer.render_baseline`` and ``render_ds2`` are the paper's full-NeRF
 and DS-2 baselines.
 
+Multi-device serving: ``RenderConfig(shard=ShardConfig(num_devices=D))``
+lays the session axis of the flat ray-batch core over D ranks of a
+``torch.distributed`` process group, one per device
+(:mod:`repro_torch.core.raybatch`): each rank runs the same program, a
+sharded renderer runs on card ``rank % device_count`` unless given a
+device, and sessions are pinned whole to ranks.
+
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, or ``RenderConfig(device="cpu")``), where the kernels'
 plain PyTorch versions run; with no card and no explicit CPU they raise.
@@ -31,6 +38,7 @@ from repro_torch.core.config import (  # noqa: F401 (facade re-exports)
     RenderRequest,
     RenderResult,
     RenderStats,
+    ShardConfig,
 )
 from repro_torch.nerf import models, scenes
 from repro_torch.serve.policies import (  # noqa: F401 (facade re-exports)
@@ -38,6 +46,7 @@ from repro_torch.serve.policies import (  # noqa: F401 (facade re-exports)
     PriorityPolicy,
     SchedulingPolicy,
 )
+from repro_torch.parallel.dist import rank_device
 from repro_torch.utils import DeviceLike, resolve_device
 
 
@@ -97,7 +106,8 @@ def make_renderer(config: RenderConfig, *,
                   params: Optional[dict] = None,
                   device: DeviceLike = None) -> Renderer:
     """Build a :class:`Renderer` for ``config`` on ``device`` (default:
-    ``config.device``, else the CUDA card).
+    ``config.device``, else the CUDA card; with an enabled
+    ``config.shard``, card ``rank % device_count``).
 
     With no ``model``/``params`` the scene is baked into a dense grid
     (``model_kind="dvgo"`` only) for the configured backend; otherwise both
@@ -107,7 +117,9 @@ def make_renderer(config: RenderConfig, *,
     ``{}``. The renderer's config records the device.
     """
     config = config.resolved()
-    dev = resolve_device(device if device is not None else config.device)
+    want = device if device is not None else config.device
+    sharded = config.shard is not None and config.shard.enabled
+    dev = rank_device(want) if sharded else resolve_device(want)
     if config.device is None:
         config = config.replace(device=str(dev))
     if (model is None) != (params is None):

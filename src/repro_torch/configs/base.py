@@ -15,11 +15,11 @@ training knobs ``q_block`` (the blocked attention's query tile),
 ``loss_chunk`` (the cross-entropy's sequence chunk) and ``remat``
 (recompute each period in the backward pass). It also records the two
 fields the configs set that only a sharded run reads
-(``sharding_strategy``, ``skip_shapes``; ROADMAP.md A3), so that the
+(``sharding_strategy``, ``skip_shapes``; ROADMAP.md A3b), so that the
 configs copy over value for value; the port runs on one device and reads
 them nowhere. :data:`SHAPES` is the reference's LM shape suite, which
 the registry's cell accounting reads (its ``tokens_per_step`` and the
-NeRF shape suite come with the launcher that reads them, ROADMAP.md A3).
+NeRF shape suite come with the launcher that reads them, ROADMAP.md A3c).
 
 The parameter accounting is the reference's, value for value, where it
 differs from what ``init_params`` builds (ROADMAP.md, reference caveats 5

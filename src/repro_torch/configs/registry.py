@@ -4,7 +4,7 @@ All ten of the reference's architectures; their ``CONFIG`` and
 ``REDUCED`` are the reference's, value for value. ``list_archs``,
 ``runnable_cells`` and ``skipped_cells`` are the reference's accounting of
 the (arch, shape) cells its dry-run launcher visits, pure functions of the
-configs and of ``base.SHAPES``; the launcher itself is ROADMAP.md A3.
+configs and of ``base.SHAPES``; the launcher itself is ROADMAP.md A3c.
 """
 from __future__ import annotations
 

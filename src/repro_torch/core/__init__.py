@@ -7,8 +7,9 @@ from repro_torch.core.config import (  # noqa: F401
     RenderRequest,
     RenderResult,
     RenderStats,
+    ShardConfig,
 )
 
 __all__ = ["config", "costmodel", "engine", "layout", "pipeline", "schedule",
            "sparw", "streaming", "RenderConfig", "RenderRequest",
-           "RenderResult", "RenderStats"]
+           "RenderResult", "RenderStats", "ShardConfig"]

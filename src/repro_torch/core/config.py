@@ -5,7 +5,8 @@ pooled hole-capacity controller (port of ``repro.core.config``).
 and of the serving engine (multi-scene paging included); ``device`` takes
 the place of the reference's Pallas interpret flag (None = the CUDA card,
 which must exist; "cpu" runs the plain PyTorch versions of the kernels).
-The reference's legacy-kwarg shims and its sharding knobs are not ported.
+:class:`ShardConfig` lays the session axis over the ranks of a process
+group (one per device). The reference's legacy-kwarg shims are not ported.
 """
 from __future__ import annotations
 
@@ -106,6 +107,33 @@ class HoleCapController:
 
 
 @dataclass(frozen=True)
+class ShardConfig:
+    """Lay the session axis of the flat ray-batch core over devices.
+
+    ``num_devices`` ranks of a ``torch.distributed`` process group, one per
+    device, each own a contiguous block of session slots: the flat ray
+    batch is session-major, so every session's reference rays, hole
+    samples and output frames stay on one rank, and the segment scatter
+    back to frames never crosses ranks. ``num_devices=1`` (and
+    ``shard=None`` on :class:`RenderConfig`) is the unsharded engine.
+    """
+
+    num_devices: int = 1
+    axis_name: str = "sessions"
+
+    def __post_init__(self) -> None:
+        if self.num_devices < 1:
+            raise ValueError(
+                f"num_devices must be >= 1, got {self.num_devices}")
+        if not self.axis_name:
+            raise ValueError("axis_name must be a non-empty string")
+
+    @property
+    def enabled(self) -> bool:
+        return self.num_devices > 1
+
+
+@dataclass(frozen=True)
 class RenderConfig:
     """Everything that shapes a render, in one frozen, hashable value
     (equal configs share a cached engine)."""
@@ -145,6 +173,7 @@ class RenderConfig:
     # window's reference through one dual-RIT MVoxel sweep (kernel B3),
     # for trajectories and for the serving engine
     fused_tick: bool = False
+    shard: Optional[ShardConfig] = None  # multi-device session sharding
     # --- model shape (what make_renderer builds) ---------------------------
     model_kind: str = "dvgo"
     backend: str = "reference"  # reference | streaming (kernel hot path)
@@ -217,10 +246,21 @@ class RenderConfig:
             raise ValueError(
                 "fused_tick=True does not support adaptive_sampling: the "
                 "fused sweep carries one hole RIT, not a fine/coarse split")
+        if self.fused_tick and self.shard is not None and self.shard.enabled:
+            raise ValueError(
+                "fused_tick=True does not support session sharding yet: "
+                "the cross-tick reference recurrence is not laid over the "
+                "device mesh (serve fused sessions unsharded)")
         if self.scene_cache_bytes < 0:
             raise ValueError(
                 f"scene_cache_bytes must be >= 0 (0 disables the byte "
                 f"budget), got {self.scene_cache_bytes}")
+        if self.shard is not None and self.shard.enabled \
+                and self.num_slots % self.shard.num_devices != 0:
+            raise ValueError(
+                f"num_slots={self.num_slots} must be divisible by "
+                f"shard.num_devices={self.shard.num_devices} (sessions are "
+                f"pinned whole to devices — no session straddles a shard)")
 
     def resolved(self) -> "RenderConfig":
         """A config whose ``camera`` is a concrete :class:`Camera`."""

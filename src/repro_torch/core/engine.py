@@ -32,8 +32,19 @@ overflow fallback is decided where the frames are first read
 (:class:`raybatch.DeferredFrames`). On the card a steady call is one
 CUDA-graph replay and issues no synchronizing call.
 
-Not ported yet: session sharding and the autotune cache
-(``ref_cap_factor`` is the reference's default, 2).
+Session sharding (``RenderConfig.shard``): the engine lays the session
+axis over the ranks of a process group, one per device, for its lifetime
+(:func:`raybatch.make_mesh`), and takes the params, MVoxel table included,
+from the mesh's first rank. A staged :meth:`DeviceSparwEngine.
+render_windows` of S > 1 sessions then renders only the rank's S / D
+sessions through its own tick program (keyed on S / D), resolves their
+dense fallback on that rank, and gathers every field of the result back
+to ``[S, ...]`` on every rank, outside the tick program (a gloo
+collective cannot be captured). The gather reads the frames back, so a
+sharded window synchronizes the host once.
+
+Not ported yet: the autotune cache (``ref_cap_factor`` is the
+reference's default, 2).
 """
 from __future__ import annotations
 
@@ -154,6 +165,11 @@ class DeviceSparwEngine:
         self.ray_chunk = int(config.ray_chunk)
         self.params = model.prepare_streaming(params)
         self.device = params_device(self.params, config.device)
+        # multi-device session sharding: one mesh for the engine's life;
+        # every rank renders from the first rank's params and MVoxel table
+        self.mesh = raybatch.make_mesh(config.shard, self.device.type)
+        if self.mesh is not None:
+            self.params = raybatch.replicated_sharding(self.mesh)(self.params)
         # the segment axis rides into the Gathering Unit only: the dense
         # grid on the streaming backend (the reference's rule)
         self._seg_aware = (model.cfg.backend == "streaming"
@@ -433,14 +449,13 @@ class DeviceSparwEngine:
         """Tick programs captured into a CUDA graph so far."""
         return sum(p.graph is not None for p in self.tick_programs.values())
 
-    def _fallback(self, tgt_poses: torch.Tensor
+    def _fallback(self, params: dict, tgt_poses: torch.Tensor
                   ) -> Callable[[], torch.Tensor]:
         """The dense fill a result runs where its frames are read and a
         session overflowed: :meth:`_dense_fill_flat` on this call's params
         and targets, snapshotted on the device (serving re-stages the
         targets and the scene map in place; it resolves pending results
         before it rewrites a scene page)."""
-        params = self.params
         if "scene_of_seg" in params:
             params = dict(params, scene_of_seg=params["scene_of_seg"].clone())
         tgt = tgt_poses.clone()
@@ -465,8 +480,25 @@ class DeviceSparwEngine:
         pool capacities (the serving engine's per-slot masks); omitted,
         they default to the full window and the engine's capacities.
         ``bucket``/``bucket_coarse`` default to the pool controllers'.
+
+        With ``config.shard`` enabled and S > 1 this rank renders its S / D
+        sessions and every field is gathered back to ``[S, ...]`` on every
+        rank (S must divide evenly: sessions are pinned whole); S == 1
+        renders unsharded, on every rank.
         """
         s, n = tgt_poses.shape[:2]
+        sharded = self.mesh is not None and s > 1
+        if sharded:
+            ndev = self.mesh.size()
+            if s % ndev != 0:
+                raise ValueError(
+                    f"render_windows: {s} sessions cannot shard evenly "
+                    f"over {ndev} devices")
+            (ref_poses, tgt_poses, win_lens, caps, pool_caps,
+             pool_caps_coarse) = raybatch.shard_session_inputs(
+                self.mesh, ref_poses, tgt_poses, win_lens, caps, pool_caps,
+                pool_caps_coarse)
+            s //= ndev
         cur = self._current_buckets()
         bucket = cur[0] if bucket is None else bucket
         bucket_coarse = cur[1] if bucket_coarse is None else bucket_coarse
@@ -480,15 +512,36 @@ class DeviceSparwEngine:
         self.pool_buckets_used.add((bucket, bucket_coarse))
         self.num_window_calls += 1
         prog = self._program(
-            ("staged", s, n, bucket, bucket_coarse),
+            ("staged_sharded" if sharded else "staged", s, n, bucket,
+             bucket_coarse),
             lambda: self._render_windows(
-                self.params, b["ref_poses"], b["tgt_poses"], b["win_lens"],
-                b["caps"], b["pool_caps"], b["pool_caps_coarse"], bucket,
-                bucket_coarse))
+                self._local_params(sharded), b["ref_poses"], b["tgt_poses"],
+                b["win_lens"], b["caps"], b["pool_caps"],
+                b["pool_caps_coarse"], bucket, bucket_coarse))
         with torch.no_grad():
             out = prog(self.cuda_graphs)
-        return BatchedWindowResult(**out,
-                                   dense_fill=self._fallback(b["tgt_poses"]))
+        res = BatchedWindowResult(**out, dense_fill=self._fallback(
+            self._local_params(sharded), b["tgt_poses"]))
+        if not sharded:
+            return res
+        # the owner resolves its sessions' dense fallback, then every rank
+        # gets every session's fields
+        frames = res.frames
+        gather = lambda t: raybatch.gather_sessions(self.mesh, t)
+        return BatchedWindowResult(gather(frames), gather(res.holes),
+                                   gather(res.hole_counts),
+                                   gather(res.overflowed),
+                                   gather(res.fine_counts))
+
+    def _local_params(self, sharded: bool) -> dict:
+        """The params this rank's block renders from: a multi-scene
+        engine's segment->page map narrowed to the rank's sessions (a view,
+        at a fixed address)."""
+        params = self.params
+        if sharded and "scene_of_seg" in params:
+            params = dict(params, scene_of_seg=raybatch.session_sharding(
+                self.mesh)(params["scene_of_seg"]))
+        return params
 
     def render_window(self, ref_pose: torch.Tensor, tgt_poses: torch.Tensor
                       ) -> WindowResult:
@@ -609,7 +662,7 @@ class DeviceSparwEngine:
         with torch.no_grad():
             out = prog(self.cuda_graphs)
         return raybatch.StreamingTickResult(
-            **out, dense_fill=self._fallback(b["tgt_poses"]))
+            **out, dense_fill=self._fallback(self.params, b["tgt_poses"]))
 
     # ------------------------------------------------------------------
     # per-tick bytes-moved accounting (staged vs fused MVoxel traffic)

@@ -1,20 +1,28 @@
-"""Flat ray batches and the unified streaming tick (port of
-``repro.core.raybatch``; session sharding is not ported).
+"""Flat ray batches, the unified streaming tick and session sharding (port
+of ``repro.core.raybatch``).
 
 A tick's work becomes flat, session-major ray batches: every session's
 reference rays ``[S * HW, 3]`` and the compacted hole rays, each row tagged
 with its session (segment) so the streaming gather keeps per-session RIT
-capacity; results segment-scatter back to frames.
+capacity; results segment-scatter back to frames. Session sharding lays
+the session axis over the ranks of a process group (:func:`make_mesh`):
+each rank renders its contiguous block of sessions, and the results are
+gathered back to every rank.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core import sparw
+from repro_torch.core.config import ShardConfig
 from repro_torch.kernels import streaming_pipeline
 from repro_torch.nerf import rays, volrend
+from repro_torch.optim.adamw import tree_flatten
+from repro_torch.parallel import dist as pdist
 
 
 class FlatRays(NamedTuple):
@@ -234,3 +242,72 @@ def substitute_reference_rows(mask: torch.Tensor, rgb_new: torch.Tensor,
     m = mask[:, None, None]
     return (torch.where(m[..., None], rgb_new, rgb_ref),
             torch.where(m, dep_new, dep_ref))
+
+
+# ---------------------------------------------------------------------------
+# session sharding (ShardConfig -> torch.distributed ranks)
+# ---------------------------------------------------------------------------
+
+
+def make_mesh(shard: Optional[ShardConfig], device_type: str = "cuda"
+              ) -> Optional[DeviceMesh]:
+    """The 1-D session mesh for ``shard`` over the process group's first
+    ``shard.num_devices`` ranks, or None when sharding is off.
+
+    Raises ``ValueError`` when no process group is initialized or it has
+    fewer ranks, and on a rank outside the mesh: silently falling back
+    would hide a misconfigured fleet.
+    """
+    if shard is None or not shard.enabled:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world < shard.num_devices:
+        raise ValueError(
+            f"ShardConfig requests {shard.num_devices} devices but the "
+            f"process group has {world} ranks (torch.distributed."
+            f"init_process_group: one rank per device)")
+    mesh = DeviceMesh(device_type, list(range(shard.num_devices)),
+                      mesh_dim_names=(shard.axis_name,))
+    if dist.get_rank() >= shard.num_devices:
+        raise ValueError(f"rank {dist.get_rank()} is outside the session "
+                         f"mesh of the first {shard.num_devices} ranks")
+    return mesh
+
+
+def session_sharding(mesh: DeviceMesh
+                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """This rank's contiguous block of a tensor's leading (session) axis,
+    ``S / D`` sessions (a view); trailing axes are whole."""
+    ax = pdist.axis(mesh, 0)
+
+    def block(t: torch.Tensor) -> torch.Tensor:
+        per = t.shape[0] // ax.size
+        return t[ax.rank * per:(ax.rank + 1) * per]
+    return block
+
+
+def replicated_sharding(mesh: DeviceMesh) -> Callable[[Any], Any]:
+    """One logical copy on every rank: each tensor of a tree (model
+    params, the MVoxel table) broadcast from the mesh's first rank."""
+    group = pdist.axis(mesh, 0).group
+
+    def replicate(tree):
+        leaves, unflatten = tree_flatten(tree)
+        return unflatten([pdist.broadcast(t, group)
+                          if isinstance(t, torch.Tensor) else t
+                          for t in leaves])
+    return replicate
+
+
+def shard_session_inputs(mesh: DeviceMesh, *arrays: Optional[torch.Tensor]
+                         ) -> Tuple[Optional[torch.Tensor], ...]:
+    """Each array's block under :func:`session_sharding` (None stays
+    None)."""
+    block = session_sharding(mesh)
+    return tuple(None if a is None else block(a) for a in arrays)
+
+
+def gather_sessions(mesh: DeviceMesh, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`session_sharding`: every rank's block,
+    concatenated along the session axis, on every rank."""
+    return pdist.all_gather0(t, pdist.axis(mesh, 0).group)

@@ -15,7 +15,7 @@ capacity rule gives the same slots, so both modes give the same output.
 
 The expert products are ``torch.einsum`` over ``[B, E, cap, D]``, as the
 reference computes them outside any kernel. The reference's mesh branch
-(``shard_map`` over the model axis) is ROADMAP.md A3.
+(``shard_map`` over the model axis) is ROADMAP.md A3b.
 """
 from __future__ import annotations
 

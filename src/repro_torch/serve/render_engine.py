@@ -1,5 +1,5 @@
 """Multi-session SpaRW render serving engine: continuous batching of warp
-windows (port of ``repro.serve.render_engine``, one device).
+windows (port of ``repro.serve.render_engine``).
 
 A *session* is one client's camera trajectory. The engine admits sessions
 into a fixed number of **slots**, aligns their warp **windows** into one
@@ -35,6 +35,13 @@ session (chosen by a :mod:`~repro_torch.serve.policies` policy).
   recycled while the previous tick is still in flight (``run`` dispatches
   one tick ahead) is overwritten only after that tick's kernels, in
   stream order, so this engine must not move work to a second stream.
+* **Session sharding** (``RenderConfig.shard``) — the staged tick's
+  session axis is laid over the ranks of a process group, one per device
+  (``num_slots`` divisible by ``num_devices``; sessions pinned whole):
+  every rank runs this engine on the same sessions, renders its block of
+  slots and reads back every slot's gathered results, so the pool
+  controllers, buckets and statistics agree on every rank. Multi-scene
+  serving keeps every page on every rank.
 
 :meth:`RenderServeEngine.step` dispatches; frames and hole statistics are
 read back in :meth:`RenderServeEngine.finalize`, which also runs the dense
@@ -45,8 +52,8 @@ call: every tensor the tick reads lives at a fixed address and is
 rewritten in place, its poses go up in one non-blocking copy from a ring
 of pinned host buffers, and on the card the engine call is one CUDA-graph
 replay. The reference holds its poses on the device and transfers
-nothing; the port makes that one asynchronous upload per tick. Not
-ported: session sharding.
+nothing; the port makes that one asynchronous upload per tick. A sharded
+tick gathers its results, which synchronizes the host once a tick.
 """
 from __future__ import annotations
 
@@ -620,7 +627,7 @@ class RenderServeEngine:
             ) -> Dict[str, object]:
         """Serve ``sessions`` to completion; returns aggregate metrics
         (the reference's keys; ``scene_cache`` is None on a single-scene
-        engine, and ``devices`` 1).
+        engine, ``devices`` the session mesh's size, 1 unsharded).
 
         The loop dispatches tick t+1 before waiting for tick t, and drains
         completed ticks as it goes."""
@@ -750,7 +757,8 @@ class RenderServeEngine:
             "queue": queue_metrics,
             "slots": slot_metrics,
             "scene_cache": scene_metrics,
-            "devices": 1,
+            "devices": (self.engine.mesh.size()
+                        if self.engine.mesh is not None else 1),
         }
 
     def _scene_counters(self) -> Dict[str, float]:

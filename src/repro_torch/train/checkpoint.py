@@ -10,8 +10,7 @@ Layout: ``<dir>/step_<n>/state.npz`` (+ ``meta.json``).
   ``meta.json``'s ``leaf_dtypes``; it is restored bit for bit.
 * :func:`load` restores each leaf in its template leaf's dtype and on its
   device. The reference's ``shardings`` (the elastic re-lay on another
-  mesh) belong to the sharded runs the port does not have yet
-  (``ROADMAP.md`` A3).
+  mesh) come with the spec trees they read (``ROADMAP.md`` A3b).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Trainer: checkpoint/restart, fault tolerance, straggler guard (port of
 ``repro.train.trainer`` on one device; the mesh branch and the elastic
-re-lay are ``ROADMAP.md`` A3).
+re-lay are ``ROADMAP.md`` A3b).
 
 * ``fault_hook`` — tests inject exceptions at chosen steps; the trainer
   restores the latest checkpoint (or starts over at step 0 when there is

@@ -12,12 +12,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch import api, convert
 from repro_torch.configs import registry
-from repro_torch.core.config import RenderConfig
+from repro_torch.core.config import RenderConfig, ShardConfig
 from repro_torch.kernels import flash_attention, fused_nerf_mlp, \
     gather_trilerp, streaming_pipeline
+from repro_torch.launch import mesh
 from repro_torch.models import lm
 from repro_torch.serve import ServeEngine
 
@@ -52,6 +54,30 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     ren = api.make_renderer(cfg, device="cpu")
     assert ren.params["table"].device.type == "cpu"
     assert api.make_renderer(cfg.replace(device="cpu")).device.type == "cpu"
+
+
+def test_mesh_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch,
+                                                         tmp_path):
+    """The launch meshes and a sharded renderer raise without a card unless
+    given the CPU; on the CPU the meshes need a process group of enough
+    ranks and the sharded renderer runs there (its engine needs the
+    process group, see ``tests/test_torch_shard.py``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RenderConfig(res=16, grid_res=16, window=2, num_samples=8,
+                       num_slots=2, shard=ShardConfig(num_devices=2))
+    for make in (mesh.make_smoke_mesh, mesh.make_production_mesh,
+                 lambda **kw: api.make_renderer(cfg, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert api.make_renderer(cfg, device="cpu").device.type == "cpu"
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        assert mesh.make_smoke_mesh(device="cpu").device_type == "cpu"
+        with pytest.raises(RuntimeError, match="needs 256 ranks, have 1"):
+            mesh.make_production_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_lm_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
