@@ -78,7 +78,9 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
 4. run the render arms A-E end to end through ``repro_torch.api`` (arm F,
    LM serving, below) with every launch
    count set to 0 just before and read just after; each arm is held
-   against the same port run on the CPU (which runs the plain versions):
+   against the same port run on the CPU (which runs the plain versions;
+   those of arms A, B, B48, C, D, D adaptive's first window and G run in
+   a worker process started before the arms, beside the card's work):
    every frame >= 40 dB PSNR, equal reference renders and frame counts,
    and every kernel of the arm launched.
    Arm A: ``RenderConfig(backend="streaming")`` at its defaults (res 64,
@@ -205,7 +207,15 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    and bfloat16, on a float32 tree with a [4096, 4096] leaf, bit for bit
    ``dequantize(quantize(g + ef))`` over two error-feedback steps;
    ``pipelined_forward`` over one stage bit-equal to ``reference_forward``
-   (M = 1; M = 4 within 1e-5); the group destroyed. P2, two gloo ranks
+   (M = 1; M = 4 within 1e-5); fault C7's card check
+   (:func:`p1_sharded_serving`): arm A's config served staged on 2
+   slots, 2 sessions x 48 frames, by a serving engine whose session mesh
+   is the one rank (so its windows take the sharded path, NCCL's
+   all-gathers included) and by an unsharded one, each until its keys
+   are captured and then once more with every tick that admits nothing
+   under ``torch.cuda.set_sync_debug_mode("error")``: 0 synchronizing
+   calls, no new key or capture, frames and statistics bit-equal to the
+   unsharded run's; the group destroyed. P2, two gloo ranks
    started with ``spawn`` on this card (CUDA is initialized, so no fork;
    NCCL refuses two ranks on one device), in one start-up: (1) arm A's
    config, 2 sessions x 32 frames through ``render_windows`` with
@@ -217,7 +227,9 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    joining the kernels line; (3) ``sharded_decode_attention`` with the
    cache split 1,042 rows per rank against B6's decode on the whole
    cache; (4) ``pipelined_forward`` over 2 stages, M = 2 and 4, within
-   1e-5 of ``reference_forward``; (5) ``compressed_psum`` bit for bit the
+   1e-5 of ``reference_forward``, each stage holding a copy of its own
+   half of the stacked layers (its bytes printed); (5)
+   ``compressed_psum`` bit for bit the
    mean of the two ranks' dequantized payloads. The warm walls of (1) and
    (2) are recorded beside the unsharded ones, not gated; a rank's
    failure or a rank past its deadline fails the phase.
@@ -336,7 +348,7 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    every row; the same batch with its frames in float32 (cold with its
    launches counted as W1 bf16's, the cross K/V float32, warm, and F2
    with each float32 call within 2e-5 / 1e-4 of the plain version);
-   encoder, prefill and decode times, profiled over the prefill and 8
+   encoder, prefill and decode times, profiled over the prefill and 4
    ticks. V1: internvl2-1b at full widths, 2 of 24 layers,
    float32 (REDUCED's head_dim 14 is not one B6 takes): a prefill of 256
    stub patch embeddings + 64 tokens and 8 greedy tokens, card against
@@ -348,7 +360,7 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    limits, as W, with the planted ``diag_tile_dropped`` as its control;
    then arm F's fleet served text-only through the
    ``ServeEngine`` (cold, F2 with M2's two controls at the serving arms'
-   2x limits, as arm R, warm, profiled on its first wave with 8 new
+   2x limits, as arm R, warm, profiled on its first wave with 4 new
    tokens). B6's three new calls are also checked and
    timed alone (the encoder call, the cross prefill, the cross decode),
    and a GQA group of 7 is checked in both dtypes;
@@ -373,7 +385,27 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    the injected one; the last 5 steps' mean loss below the first 5's; one
    save and load of the final state timed (and exact); then 40 straight
    steps against 20 + a fresh Trainer resuming for 20: no restart, final
-   losses within rtol 1e-3;
+   losses within rtol 1e-3; L3's last checkpoint is kept for phase Q.
+   Phase Q (the spec trees onto DTensor placements; no kernel, every
+   launch count 0). Q1, in a subprocess started after phase L1: under
+   torch's fake process group, the (16, 16) and (2, 16, 16) production
+   meshes of 256 and 512 ranks, each of the ten registry archs at its
+   published widths and depth laid out from meta shapes (no memory)
+   under its ``default_strategy`` and the strict guard: its strategy,
+   params bytes, and one rank's bytes and largest leaf block; then
+   ``Trainer(L2's config, mesh=make_smoke_mesh())`` on a fake world of
+   2, whose ``_pshard`` must name every param leaf and ``_oshard`` each
+   moment as its param. Q2, two gloo ranks on the card started after
+   phase L1: ``checkpoint.load(shardings=...)`` re-lays L3's checkpoint
+   (L1's config, 1.28 GB) on the (2, 1) smoke mesh under minitron's
+   strategy (``fsdp``): every rank's block bit-equal to its slice of the
+   one-device load, the whole (gathered from host copies of the blocks:
+   gloo cannot gather a CUDA DTensor) bit-equal to it, the placements
+   the requested ones; then a mesh Trainer takes 3 steps of L1's config
+   from seed 0 on both ranks: losses bit-equal between the ranks and
+   within rtol 1e-5 of the one-device Trainer's on the card (L3's
+   straight run, the same seed, schedule and batches), the checkpoint
+   written once, by rank 0;
 5. time each kernel and its plain version at the arms' shapes (B2 also
    at the four C5 shapes and arm I's three widths; B1 also on arm A's
    ``bank_interleaved`` table and arm I's ``cicero-dvgo`` block; B3 also
@@ -394,13 +426,16 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -408,6 +443,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SLEEP_CYCLES_PER_S = 2e9  # torch.cuda._sleep's cycles: ~1.98 GHz H100 SXM
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 F32_TOL = dict(atol=2e-5, rtol=1e-5)
 BF16_TOL = dict(atol=3e-2, rtol=3e-2)
@@ -423,18 +459,26 @@ def time_ms(fn, repeats: int = 20, launches: int = 10,
     ``repeats`` of CUDA-event time around ``launches`` back-to-back calls
     divided by ``launches``. A device-side sleep queued first lets the host
     enqueue every call before the first starts, so the host's launch cost
-    is not counted; inputs stay in L2 between calls, as they are when the
-    path hands one stage's output to the next."""
+    is not counted: it lasts twice the host's time to enqueue ``launches``
+    calls, measured once after the warm-up (at least 1 ms); inputs stay in
+    L2 between calls, as they are when the path hands one stage's output to
+    the next."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sleep_cycles = int(max(2 * enqueue_s, 1e-3) * SLEEP_CYCLES_PER_S)
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)  # ~25 ms at H100 clocks
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(launches):
             fn()
@@ -1337,8 +1381,9 @@ def run_arm_i_fitted(fitted: dict, arm_i_models: dict, random_renderers,
 
 
 # Arm F: LM serving at qwen2.5-32b's full width, depth cut to 8 of 64
-# layers (16 until arms W and V joined the script: PERF.md section 4),
-# random weights; 8 requests on 4 slots.
+# layers (16 until arms W and V joined the script: PERF.md section 4; at 4
+# layers F2's bf16 noise reads above its 1.25x RMS limit), random weights;
+# 8 requests on 4 slots.
 LM_ARCH = "qwen2.5-32b"
 LM_LAYERS = 8
 LM_PROMPTS = [2048, 1536, 1024, 512, 1792, 768, 1280, 256]
@@ -2276,7 +2321,7 @@ def run_arms_r(dev, reset, counts, profile, *, r_widths=None,
 # decode ticks) in whisper's 448-token text context
 W_ARCH = "whisper-small"
 W_SHAPE = dict(batch=4, prompt=192, max_new=32, cache_len=448)
-W_PROFILED_TICKS = 8
+W_PROFILED_TICKS = 4  # 8 until phase Q joined the script
 # W1: whisper-reduced (float32, head_dim 64), card against CPU
 W1_SHAPE = dict(batch=2, prompt=24, max_new=8, cache_len=40)
 W1_TRAIN = dict(steps=1, batch=2, seq=24)
@@ -3068,9 +3113,10 @@ def l2_full_width(dev, cfg=None, steps: int = L2_STEPS,
 def l3_trainer(cfg, dev, steps: int = L3_STEPS,
                ckpt_every: int = L3_CKPT_EVERY, fault_at: int = L3_FAULT_AT,
                resume_steps: int = L3_RESUME_STEPS, batch: int = L1_BATCH,
-               seq: int = L1_SEQ) -> dict:
+               seq: int = L1_SEQ, root=None) -> dict:
     """The Trainer on ``dev`` in a temporary checkpoint dir (removed at the
-    end): ``steps`` steps with a checkpoint every ``ckpt_every`` and one
+    end; ``root`` instead, kept: phase Q2 re-lays its ``timed``
+    checkpoint): ``steps`` steps with a checkpoint every ``ckpt_every`` and one
     fault injected at ``fault_at``; exactly that one restart, with the
     injected error, must happen, and the last 5 steps' mean loss must be
     below the first 5's. One save and one load of the final state are
@@ -3099,8 +3145,10 @@ def l3_trainer(cfg, dev, steps: int = L3_STEPS,
         if cuda:
             torch.cuda.synchronize()
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        tmp = Path(tmp)
+    with contextlib.ExitStack() as stack:
+        tmp = Path(root) if root is not None else Path(stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")))
+        tmp.mkdir(parents=True, exist_ok=True)
 
         def trainer(name, **kw):
             tcfg = TrainerConfig(
@@ -3171,6 +3219,7 @@ def l3_trainer(cfg, dev, steps: int = L3_STEPS,
                 "loss_last5_mean": last,
                 "checkpoint": {"bytes": nbytes, "save_s": save_s,
                                "load_s": load_s},
+                "straight_losses": straight["losses"],
                 "resume": {"straight_final_loss": a,
                            "resumed_final_loss": b, "rel_gap": gap,
                            "bit_equal": straight["losses"][resume_steps:]
@@ -3178,11 +3227,12 @@ def l3_trainer(cfg, dev, steps: int = L3_STEPS,
 
 
 def run_phase_l(dev, reset, counts, *, l1_cfg=None, l2_cfg=None,
-                l1_kw=None, l2_kw=None, l3_kw=None) -> dict:
+                l1_kw=None, l2_kw=None, l3_kw=None, after_l1=None) -> dict:
     """Phase L: L1 (:func:`l1_check_steps`), L2 (:func:`l2_full_width`) and
     L3 (:func:`l3_trainer`); the training path runs no hand-written
     kernel (the reference trains through plain einsums), so every launch
-    count must stay 0. Each part prints its seconds."""
+    count must stay 0. Each part prints its seconds. ``after_l1`` runs
+    once L1, whose CPU steps want the host's cores, is done."""
     import torch
 
     cuda = torch.device(dev).type == "cuda"
@@ -3200,6 +3250,8 @@ def run_phase_l(dev, reset, counts, *, l1_cfg=None, l2_cfg=None,
         out[name] = fn()
         out[f"{name}_s"] = time.perf_counter() - t0
         print(f"phase {name}: {out[f'{name}_s']:.1f} s", flush=True)
+        if name == "L1" and after_l1 is not None:
+            after_l1()
     out["launches"] = counts()
     if any(out["launches"].values()):
         fail(f"phase L launched a hand-written kernel: {out['launches']}")
@@ -3413,7 +3465,7 @@ def p2_checks(rank: int, world: int, out: Path, spec: dict) -> dict:
     from repro_torch.parallel import compression
     from repro_torch.parallel import dist as pdist
     from repro_torch.parallel.pipeline import pipelined_forward, \
-        reference_forward
+        reference_forward, stage_block
 
     kernels = port_kernels()
     reset = lambda: [k.reset() for k in kernels]
@@ -3450,13 +3502,18 @@ def p2_checks(rank: int, world: int, out: Path, spec: dict) -> dict:
     res["decode"] = p_decode_check(f"P2 decode rank {rank}", q, k[:, :, rows],
                                    v[:, :, rows], k, v, d["index"], seq_mesh)
     res["check_s"]["3"] = time.perf_counter() - t0
-    # 4: gpipe over the ranks
+    # 4: gpipe over the ranks, each stage holding a copy of its own block
+    # of the stacked layers (the whole stack is the yardstick's)
     pod = DeviceMesh(dev.type, list(range(world)), mesh_dim_names=("pod",))
     params, x = p_pipe_inputs(dev, shapes["pipe"])
     want = reference_forward(_tanh_layer, params, x)
+    stage = {k: v.clone() for k, v in stage_block(params, pod).items()}
+    held = lambda tree: sum(t.untyped_storage().nbytes()
+                            for t in tree.values())
+    res["pipeline_bytes"] = {"stage": held(stage), "stacked": held(params)}
     res["pipeline"] = {}
     for m in (2, 4):
-        got = pipelined_forward(_tanh_layer, params, x, mesh=pod,
+        got = pipelined_forward(_tanh_layer, stage, x, mesh=pod,
                                 num_microbatches=m)
         res["pipeline"][m] = float((got - want).abs().max())
     res["check_s"]["4"] = time.perf_counter() - t0
@@ -3478,12 +3535,109 @@ def p2_checks(rank: int, world: int, out: Path, spec: dict) -> dict:
     return res
 
 
-def run_phase_p1(dev, shapes: dict = P_SHAPES) -> dict:
+# C7's card check in P1: arm A's config served staged on 2 slots, 2
+# sessions of 48 frames (3 windows of 16: each run admits on its first tick,
+# then runs 2 steady ticks)
+P1_C7 = dict(sessions=2, frames=48)
+
+
+def p1_sharded_serving(dev, cfg, reset, counts, c7: dict = P1_C7) -> dict:
+    """Fault C7's card check, inside P1's one-rank group: ``cfg`` served
+    staged on ``c7["sessions"]`` slots by a ``RenderServeEngine`` sharded
+    over the group's one rank, and by an unsharded one. ``ShardConfig``
+    turns sharding off at one device (as the reference's does), so the
+    sharded engine gets the group's 1-D session mesh (``make_mesh``'s)
+    after construction: its windows then take the sharded path, the
+    gathers over NCCL included, at S / D = S. Each engine serves
+    the fleet until every key is captured (at most twice), then once more
+    with every tick that admits nothing under ``sync_error`` (0
+    synchronizing calls), its launch counts set to 0 before and read
+    after. The sharded run's finalized frames and statistics must be
+    bit-equal to the unsharded run's, with at least one steady tick, no
+    new key and no new capture."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import api
+    from repro_torch.core.config import ShardConfig
+    from repro_torch.serve.render_engine import RenderServeEngine, \
+        RenderSession
+
+    guard = sync_error if dev.type == "cuda" else contextlib.nullcontext
+    n = c7["sessions"]
+
+    def fleet():
+        return [RenderSession.from_request(r, i) for i, r in
+                enumerate(p_fleet(n, c7["frames"]))]
+
+    out = {}
+    for label in ("unsharded", "sharded"):
+        ren = api.make_renderer(cfg.replace(num_slots=n, shard=None),
+                                device=dev)
+        serve = RenderServeEngine(ren.model, ren.params, config=ren.config)
+        eng = serve.engine
+        if label == "sharded":
+            eng.mesh = DeviceMesh(dev.type, [0], mesh_dim_names=(
+                ShardConfig().axis_name,))
+        for _ in range(2):  # no capture on the CPU: two runs
+            if eng.tick_programs and eng.cuda_graphs \
+                    and eng.num_captures == len(eng.tick_programs):
+                break
+            serve.run(fleet())
+        keys, caps = sorted(eng.tick_programs), eng.num_captures
+        real, steady = serve.step, [0]
+
+        def guarded(serve=serve, real=real, steady=steady):
+            if serve.queue and any(x is None for x in serve.slots):
+                return real()  # admission: staging
+            with guard():
+                ran = real()
+            steady[0] += ran
+            return ran
+
+        serve.step = guarded
+        sessions = fleet()
+        reset()
+        t0 = time.perf_counter()
+        m = serve.run(sessions)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        del serve.step
+        if sorted(eng.tick_programs) != keys or eng.num_captures != caps \
+                or (eng.cuda_graphs and caps != len(keys)) or steady[0] < 1 \
+                or not m["complete"]:
+            fail(f"P1 C7 {label}: keys {keys} -> {sorted(eng.tick_programs)}"
+                 f", captures {caps} -> {eng.num_captures}, {steady[0]} "
+                 f"steady ticks")
+        out[label] = {
+            "frames": [torch.stack(s.frames).cpu() for s in sessions],
+            "stats": [dataclasses.asdict(s.stats) for s in sessions],
+            "run": p_run_stats(m), "devices": m["devices"],
+            "keys": [list(k) for k in keys], "steady_ticks": steady[0],
+            "ticks": m["ticks"], "launches": launches, "warm_wall_s": wall}
+    base, got = out["unsharded"], out["sharded"]
+    if got["stats"] != base["stats"] or got["run"] != base["run"] \
+            or any(not torch.equal(a, b)
+                   for a, b in zip(got["frames"], base["frames"])):
+        fail("P1 C7: the sharded serving run differs from the unsharded one")
+    if got["keys"][0][0] != "staged_sharded" or got["devices"] != 1 \
+            or got["launches"]["gather_trilerp"] == 0:
+        fail(f"P1 C7: keys {got['keys']}, devices {got['devices']}, "
+             f"launches {got['launches']}")
+    for row in out.values():
+        del row["frames"], row["stats"]
+    out["bit_equal"] = True
+    return out
+
+
+def run_phase_p1(dev, shapes: dict = P_SHAPES, c7_cfg=None, reset=None,
+                 counts=None) -> dict:
     """P1, in this process: a process group of one rank (NCCL on the card,
     gloo on the CPU) through a ``FileStore``: ``make_smoke_mesh``, the sharded
     decode attention at arm F's decode tick against B6, compression with
-    ``compressed_psum`` bit for bit, gpipe over one stage; the group is
-    destroyed at the end."""
+    ``compressed_psum`` bit for bit, gpipe over one stage, and with
+    ``c7_cfg`` the sharded serving engine's steady tick
+    (:func:`p1_sharded_serving`); the group is destroyed at the end."""
     import datetime
     import tempfile
 
@@ -3494,7 +3648,7 @@ def run_phase_p1(dev, shapes: dict = P_SHAPES) -> dict:
     from repro_torch.parallel import compression
     from repro_torch.parallel import dist as pdist
     from repro_torch.parallel.pipeline import pipelined_forward, \
-        reference_forward
+        reference_forward, stage_block
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3533,13 +3687,18 @@ def run_phase_p1(dev, shapes: dict = P_SHAPES) -> dict:
                                                                    mode)
             params, x = p_pipe_inputs(dev, shapes["pipe"])
             want = reference_forward(_tanh_layer, params, x)
-            one = pipelined_forward(_tanh_layer, params, x, mesh=mesh,
+            stage = stage_block(params, mesh, "data")  # one stage: all
+            one = pipelined_forward(_tanh_layer, stage, x, mesh=mesh,
                                     num_microbatches=1, axis="data")
-            four = pipelined_forward(_tanh_layer, params, x, mesh=mesh,
+            four = pipelined_forward(_tanh_layer, stage, x, mesh=mesh,
                                      num_microbatches=4, axis="data")
             out["pipeline_one_stage_bit_equal"] = bool(torch.equal(one, want))
             out["pipeline_one_stage_m4_err"] = float(
                 (four - want).abs().max())
+            if c7_cfg is not None:
+                t0 = time.perf_counter()
+                out["C7"] = p1_sharded_serving(dev, c7_cfg, reset, counts)
+                out["C7_s"] = time.perf_counter() - t0
         finally:
             dist.destroy_process_group()
     if not all(out["psum_bit_equal"].values()):
@@ -3592,7 +3751,8 @@ def run_phase_p(dev, reset, counts, *, cfg_a, cfg_b, model_b_kw: dict,
             p.start()
         try:
             # P1 and the unsharded runs, while the ranks start
-            out["P1"] = run_phase_p1(dev, shapes)
+            out["P1"] = run_phase_p1(dev, shapes, c7_cfg=cfg_a, reset=reset,
+                                     counts=counts)
             out["P1_s"] = time.perf_counter() - t1
             base_a = p_render_windows(
                 api.make_renderer(cfg_a, device=dev),
@@ -3655,11 +3815,18 @@ def run_phase_p(dev, reset, counts, *, cfg_a, cfg_b, model_b_kw: dict,
         rank_launches[f"P2 B rank {r}"] = lb
         if max(res["pipeline"].values()) > 1e-5:
             fail(f"P2 check 4 rank {r}: gpipe {res['pipeline']}")
+        held = res["pipeline_bytes"]
+        if held["stage"] * world != held["stacked"]:
+            fail(f"P2 check 4 rank {r}: the stage holds {held['stage']} "
+                 f"bytes of the {held['stacked']} stacked (want 1 / {world})")
+        print(f"phase P2 gpipe rank {r}: the stage holds {held['stage']:,} "
+              f"of the stack's {held['stacked']:,} param bytes", flush=True)
         if not all(res["psum_bit_equal"].values()):
             fail(f"P2 check 5 rank {r}: compressed_psum "
                  f"{res['psum_bit_equal']}")
         p2[f"rank {r}"] = {
             "decode": res["decode"], "pipeline_max_abs_err": res["pipeline"],
+            "pipeline_param_bytes": res["pipeline_bytes"],
             "seconds_at_end_of_check": res["check_s"],
             "psum_bit_equal": res["psum_bit_equal"],
             **{f"{c}_{k}": res[c][k] for c in ("A", "B")
@@ -3674,8 +3841,470 @@ def run_phase_p(dev, reset, counts, *, cfg_a, cfg_b, model_b_kw: dict,
                                                           ("B", base_b))}
     p2["checks_1_2"] = "bit-equal"  # every field, every rank
     out["P2"] = p2
+    for label in ("unsharded", "sharded"):
+        rank_launches[f"P1 C7 {label}"] = out["P1"]["C7"][label]["launches"]
     out["rank_launches"] = rank_launches
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase Q: the spec trees onto DTensor placements, the elastic re-lay and
+# the Trainer's mesh branch
+# ---------------------------------------------------------------------------
+
+# Q1: the production meshes ((16, 16) over 256 ranks, (2, 16, 16) over 512)
+# under torch's fake process group, every arch at its published widths and
+# depth from meta shapes; then the mesh Trainer at L2's config on the
+# (2, 1) smoke mesh of a fake world of 2
+Q_PROD_MESHES = ((False, 256), (True, 512))
+Q_SMOKE_WORLD = 2
+Q_DEADLINE_S = 300.0  # the parent kills Q's ranks and subprocess past this
+# Q2: the mesh Trainer's steps, against the one-device Trainer's on the card
+Q_TRAIN_STEPS = 3
+Q_TRAIN_RTOL = L_LOSS_RTOL
+
+
+def q_layout(cfg, mesh) -> dict:
+    """``cfg``'s params laid out on ``mesh`` (this rank's view) under its
+    ``default_strategy`` and the strict guard, from meta shapes: the
+    strategy, the whole params' bytes, and this rank's bytes and largest
+    leaf block."""
+    import math
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_specs
+    from repro_torch.parallel import sharding
+
+    shapes = lm.param_shapes(cfg)
+    strategy = sharding.default_strategy(cfg)
+    specs = sharding.apply_strategy(lm.param_specs(cfg), shapes, strategy)
+    rows = []
+
+    def leaf(spec, t):
+        ns = sharding.named_sharding(mesh, spec, tuple(t.shape), strict=True)
+        local, _ = sharding.local_block(ns, tuple(t.shape))
+        size = t.element_size()
+        rows.append((t.numel() * size, math.prod(local) * size,
+                     any(type(p).__name__ == "Shard" for p in ns.placements)))
+
+    map_specs(leaf, specs, shapes)
+    return {"strategy": strategy, "params": cfg.param_count(),
+            "leaves": len(rows), "sharded_leaves": sum(r[2] for r in rows),
+            "param_bytes": sum(r[0] for r in rows),
+            "param_bytes_per_rank": sum(r[1] for r in rows),
+            "largest_leaf_bytes_per_rank": max(r[1] for r in rows)}
+
+
+def q1_layouts(device=None, archs=None, trainer_cfg=None,
+               prod_meshes=Q_PROD_MESHES) -> dict:
+    """Q1's work, in a process of its own (it initializes the fake process
+    group): :func:`q_layout` of every arch on each production mesh, then
+    ``Trainer(trainer_cfg, mesh=make_smoke_mesh())`` (default: L2's
+    config), whose ``_pshard`` must name every param leaf and ``_oshard``
+    each moment as its param. No tensor is allocated anywhere."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_production_mesh, \
+        make_smoke_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import NamedSharding
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    out = {"meshes": {}}
+    for multi_pod, world in prod_meshes:
+        t0 = time.perf_counter()
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+        try:
+            mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+            out["meshes"][str(tuple(mesh.shape))] = {
+                arch: q_layout(registry.get(arch), mesh)
+                for arch in archs or registry.list_archs()}
+        finally:
+            dist.destroy_process_group()
+        out[f"s {tuple(mesh.shape)}"] = time.perf_counter() - t0
+    cfg = trainer_cfg or registry.get(L_ARCH).with_(num_layers=L2_LAYERS)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=Q_SMOKE_WORLD)
+    try:
+        mesh = make_smoke_mesh(device="cpu")
+        t = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                    global_batch=1),
+                    TrainerConfig(ckpt_dir="unused"), mesh=mesh,
+                    device=device)
+        is_ns = lambda x: isinstance(x, NamedSharding)
+        keys = [k for k, _ in ckpt._flatten(t._pshard, is_leaf=is_ns)]
+        want = [k for k, _ in ckpt._flatten(lm.param_shapes(cfg))]
+        out["trainer"] = {
+            "config": cfg.name, "layers": cfg.num_layers,
+            "params": cfg.param_count(), "mesh": list(mesh.shape),
+            "leaves": len(keys), "covers_every_leaf": keys == want,
+            "oshard_is_pshard": t._oshard == {"m": t._pshard,
+                                               "v": t._pshard},
+            "sharded_leaves": sum(
+                any(type(p).__name__ == "Shard" for p in ns.placements)
+                for _, ns in ckpt._flatten(t._pshard, is_leaf=is_ns)),
+            "layout": q_layout(cfg, mesh)}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def q1_start(dev) -> subprocess.Popen:
+    """Q1 in a subprocess of this script (fake process groups cannot share
+    this process with P's real ones)."""
+    import os
+
+    code = ("import json, sys, chip_smoke; print(json.dumps("
+            f"chip_smoke.q1_layouts(device={'None' if dev.type == 'cuda' else repr(str(dev))})))")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=dict(os.environ))
+
+
+def q1_finish(proc: subprocess.Popen) -> dict:
+    try:
+        out, err = proc.communicate(timeout=Q_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("phase Q1: the subprocess passed its deadline")
+    if proc.returncode != 0:
+        fail(f"phase Q1: the subprocess failed: {err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    tr = res["trainer"]
+    if not (tr["covers_every_leaf"] and tr["oshard_is_pshard"]):
+        fail(f"phase Q1: the mesh Trainer's placements miss leaves: {tr}")
+    for mesh, rows in res["meshes"].items():
+        for arch, row in rows.items():
+            if row["param_bytes_per_rank"] > row["param_bytes"]:
+                fail(f"phase Q1 {mesh} {arch}: {row}")
+    return res
+
+
+def q2_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
+    """One rank of phase Q2 (the gloo group of :func:`p2_rank`, its own
+    ``FileStore``): :func:`q2_checks` once ``tmp/go`` exists. A fatal
+    signal's traceback goes to ``tmp/rank<r>.fault``."""
+    import datetime
+    import faulthandler
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    out = Path(tmp)
+    fault_log = open(out / f"rank{rank}.fault", "w")
+    faulthandler.enable(file=fault_log)
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out / "store"), world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=P_COLLECTIVE_TIMEOUT_S))
+    try:
+        torch.save(q2_checks(rank, world, out, spec), out / f"rank{rank}.pt")
+        dist.barrier()
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+    os._exit(0)
+
+
+def q2_checks(rank: int, world: int, out: Path, spec: dict) -> dict:
+    """Q2 on this rank: the re-lay of ``spec["ckpt"]`` (phase L3's timed
+    checkpoint) onto the (world, 1) smoke mesh under the config's strict
+    placements, each rank's blocks and ``full_tensor()`` against the
+    one-device load; then a mesh Trainer's ``Q_TRAIN_STEPS`` steps.
+
+    gloo cannot gather a CUDA DTensor: the ``all_gather_into_tensor`` that
+    ``full_tensor()`` runs ends the process with a segmentation fault in
+    its wait (torch 2.11, two gloo ranks on one H100). So the whole tensor
+    is gathered from a host copy of each rank's block, laid out on a CPU
+    mesh of the same ranks with the same placements."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_flatten
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.dist import rank_device
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    kernels = port_kernels()
+    for k in kernels:
+        k.reset()
+    cfg, device = spec["cfg"], spec["device"]
+    dev = rank_device(device)
+    mesh = make_smoke_mesh(device=device)
+    # the re-lay's layout (the config's strategy, the strict guard, each
+    # moment as its param) and a first DTensor, whose one-time set-up
+    # takes seconds, while phase L runs
+    meta = lm.param_shapes(cfg)
+    strategy = sharding.default_strategy(cfg)
+    pshard = sharding.sharding_tree(sharding.apply_strategy(
+        lm.param_specs(cfg), meta, strategy), meta, mesh, strict=True)
+    leaves, unflatten = tree_flatten(meta)
+    empty = lambda dtype=None: unflatten([
+        torch.empty(0, dtype=dtype or t.dtype, device=dev) for t in leaves])
+    template = {"params": empty(),
+                "opt": {"m": empty(torch.float32),
+                        "v": empty(torch.float32)}}
+    lay = {"params": pshard, "opt": {"m": pshard, "v": pshard}}
+    DTensor.from_local(torch.zeros(2, device=dev), mesh, [Replicate()]
+                       * mesh.ndim, run_check=False).to_local()
+    deadline = time.monotonic() + Q_DEADLINE_S
+    while not (out / "go").exists():  # phase L3's checkpoint first
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase Q2: the parent never started the run")
+        time.sleep(0.05)
+    res, t0 = {}, time.perf_counter()
+    whole, _ = ckpt.load(spec["ckpt"], template)
+    res["load_whole_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    state, _ = ckpt.load(spec["ckpt"], template, shardings=lay)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res["load_relaid_s"] = time.perf_counter() - t1
+    is_ns = lambda x: isinstance(x, sharding.NamedSharding)
+    host_mesh = DeviceMesh("cpu", torch.arange(world).reshape(
+        tuple(mesh.shape)), mesh_dim_names=mesh.mesh_dim_names)
+    rows = {"leaves": 0, "sharded": 0, "local_equal": 0, "full_equal": 0,
+            "placements_requested": 0, "local_bytes": 0, "whole_bytes": 0,
+            "on_device": 0}
+    for (key, dt), (_, want), (_, ns) in zip(
+            ckpt._flatten(state), ckpt._flatten(whole),
+            ckpt._flatten(lay, is_leaf=is_ns)):
+        local = dt.to_local()
+        _, offset = sharding.local_block(ns, tuple(want.shape))
+        block = want[tuple(slice(o, o + n)
+                           for o, n in zip(offset, local.shape))]
+        rows["leaves"] += 1
+        rows["sharded"] += any(type(p).__name__ == "Shard"
+                               for p in ns.placements)
+        rows["local_equal"] += bool(torch.equal(local, block))
+        host = DTensor.from_local(local.cpu(), host_mesh,
+                                  list(dt.placements), run_check=False,
+                                  shape=dt.shape, stride=dt.stride())
+        rows["full_equal"] += bool(torch.equal(host.full_tensor(),
+                                               want.cpu()))
+        rows["placements_requested"] += tuple(dt.placements) == \
+            ns.placements
+        rows["on_device"] += local.device == dev
+        rows["local_bytes"] += local.numel() * local.element_size()
+        rows["whole_bytes"] += want.numel() * want.element_size()
+    res["relay"] = dict(rows, strategy=strategy, mesh=list(mesh.shape))
+    res["relay_s"] = time.perf_counter() - t0
+    del state, whole
+    # the mesh Trainer: every rank trains the same steps; the mesh's first
+    # rank writes each checkpoint
+    saves, real_save = [], ckpt.save
+
+    def counted(ckpt_dir, step, *args, **kw):
+        saves.append(step)
+        return real_save(ckpt_dir, step, *args, **kw)
+
+    ckpt.save = counted
+    t1 = time.perf_counter()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=L1_SEQ,
+                      global_batch=L1_BATCH)
+    tcfg = TrainerConfig(ckpt_dir=str(out / "mesh_ckpt"),
+                         ckpt_every=Q_TRAIN_STEPS + 1, grad_clip=L_GRAD_CLIP,
+                         **L_SCHEDULE)
+    trainer = Trainer(cfg, dcfg, tcfg, mesh=mesh, device=device)
+    run = trainer.run(Q_TRAIN_STEPS, resume=False)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res["train"] = {
+        "losses": run["losses"], "restarts": run["restarts"],
+        "final_step": run["final_step"], "saves": saves,
+        "listing": sorted(p.name for p in (out / "mesh_ckpt").iterdir()),
+        "pshard_is_strict": trainer._pshard == pshard,
+        "wall_s": time.perf_counter() - t1}
+    res["launches"] = launch_counts(kernels)
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def q2_start(spec: dict, tmp: str, world: int = 2) -> list:
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=q2_rank, args=(r, world, tmp, spec),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def q2_finish(procs: list, tmp: str, one_device: list) -> dict:
+    """Join Q2's ranks and hold their results: every block and
+    ``full_tensor()`` equal to the one-device load, the placements the
+    requested ones, some leaves sharded; the two ranks' losses bit-equal
+    and within ``Q_TRAIN_RTOL`` of ``one_device`` (the one-device
+    Trainer's on the card); one save per save step, by rank 0 only; no
+    kernel launched."""
+    import torch
+
+    end = time.monotonic() + Q_DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(end - time.monotonic(), 0.0))
+        stalled = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = {r: Path(tmp, f"rank{r}{ext}").read_text()
+              for r in range(len(procs)) for ext in (".err", ".fault")
+              if Path(tmp, f"rank{r}{ext}").exists()
+              and Path(tmp, f"rank{r}{ext}").stat().st_size}
+    if stalled or errors or any(p.exitcode for p in procs):
+        fail(f"phase Q2: ranks stalled {stalled}, exit codes "
+             f"{[p.exitcode for p in procs]}, errors {errors}")
+    ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(len(procs))]
+    for r, res in enumerate(ranks):
+        rl = res["relay"]
+        n = rl["leaves"]
+        if not (rl["local_equal"] == rl["full_equal"] == n
+                == rl["placements_requested"] == rl["on_device"]) \
+                or rl["sharded"] == 0:
+            fail(f"phase Q2 rank {r}: the re-lay {rl}")
+        tr = res["train"]
+        if tr["losses"] != ranks[0]["train"]["losses"]:
+            fail(f"phase Q2: rank {r}'s losses {tr['losses']} differ from "
+                 f"rank 0's {ranks[0]['train']['losses']}")
+        gaps = [abs(a - b) / abs(b) for a, b in zip(tr["losses"],
+                                                     one_device)]
+        if len(gaps) != Q_TRAIN_STEPS or max(gaps) > Q_TRAIN_RTOL:
+            fail(f"phase Q2 rank {r}: losses {tr['losses']} against the "
+                 f"one-device Trainer's {one_device}")
+        tr["max_rel_gap_vs_one_device"] = max(gaps)
+        # the run's end saves once, on the mesh's first rank only
+        want_saves = [Q_TRAIN_STEPS] if r == 0 else []
+        if tr["saves"] != want_saves or tr["restarts"] \
+                or not tr["pshard_is_strict"] \
+                or tr["listing"] != [f"step_{Q_TRAIN_STEPS:08d}"]:
+            fail(f"phase Q2 rank {r}: the mesh Trainer {tr}")
+        if any(res["launches"].values()):
+            fail(f"phase Q2 rank {r} launched a hand-written kernel: "
+                 f"{res['launches']}")
+    return {f"rank {r}": res for r, res in enumerate(ranks)}
+
+
+def print_phase_q(q: dict, smi: str) -> None:
+    for mesh, rows in q["Q1"]["meshes"].items():
+        for arch, row in rows.items():
+            print(f"phase Q1 {mesh} {arch}: {row['strategy']}, "
+                  f"{row['sharded_leaves']} of {row['leaves']} leaves "
+                  f"sharded, params {row['param_bytes'] / 1e9:.2f} GB, per "
+                  f"rank {row['param_bytes_per_rank'] / 1e9:.3f} GB, its "
+                  f"largest leaf block "
+                  f"{row['largest_leaf_bytes_per_rank'] / 1e6:.1f} MB")
+    tr = q["Q1"]["trainer"]
+    print(f"phase Q1 Trainer({tr['config']} {tr['layers']} layers, "
+          f"mesh={tr['mesh']}): _pshard covers every one of {tr['leaves']} "
+          f"leaves, {tr['sharded_leaves']} sharded, "
+          f"{json.dumps(tr['layout'])}")
+    for r, res in q["Q2"].items():
+        print(f"phase Q2 {r} ({smi}): re-lay {json.dumps(res['relay'])} in "
+              f"{res['relay_s']:.1f} s (whole load {res['load_whole_s']:.1f}"
+              f" s, re-laid {res['load_relaid_s']:.1f} s); mesh Trainer "
+              f"{json.dumps(res['train'])}")
+    print(f"phase Q: the one-device Trainer's losses (L3's straight run) "
+          f"{q['one_device_losses']}, launches {q['launches']}")
+
+
+def window_spy(renderer) -> list:
+    """Record each window the renderer's device engine renders: its pool
+    buckets, hole counts and fine counts (device tensors, read after the
+    run by :func:`read_windows`)."""
+    eng = renderer.pipeline.device_engine
+    log = []
+    inner = eng.render_window
+
+    def spy(ref_pose, tgt):
+        buckets = eng._current_buckets()
+        res = inner(ref_pose, tgt)
+        log.append((buckets, res.hole_counts, res.fine_counts))
+        return res
+
+    eng.render_window = spy
+    return log
+
+
+def read_windows(log: list) -> list:
+    return [(b, h.tolist(), f.tolist()) for b, h, f in log]
+
+
+# the render arms' CPU reference runs (the port's plain path on the same
+# poses) run in a worker process of their own, submitted at the start, so
+# that they overlap the card's arms instead of following each of them
+CPU_WORKER_SPARE_CORES = 2  # left to this process's host-bound launches
+
+
+def cpu_worker_init() -> None:
+    import os
+
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              - CPU_WORKER_SPARE_CORES))
+
+
+def cpu_reference(job: dict) -> dict:
+    """One CPU reference run, in the worker: ``job["cfg"]``'s renderer on
+    the CPU (``job["model"]``: ``make_model``'s keywords, with
+    ``job["np_params"]``; else the config's baked model) renders
+    ``job["poses"]`` or serves ``job["fleet"]``; ``job["spy"]`` records its
+    windows (:func:`window_spy`). Returns the render's result (or the
+    served results and metrics), the windows and the wall seconds."""
+    from repro_torch import api
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.config import RenderRequest
+    from repro_torch.nerf import models
+
+    extra = {}
+    if "model" in job:
+        model, _ = models.make_model(**job["model"])
+        extra = dict(model=model,
+                     params=params_from_numpy(job["np_params"], "cpu"))
+    ren = api.make_renderer(job["cfg"], device="cpu", **extra)
+    spy = window_spy(ren) if job.get("spy") else None
+    t0 = time.perf_counter()
+    if "fleet" in job:
+        results, metrics = ren.serve(job["fleet"])
+        out = {"results": results, "metrics": metrics}
+    else:
+        out = {"result": ren.render(RenderRequest(poses=tuple(job["poses"])))}
+    out["wall_s"] = time.perf_counter() - t0
+    if spy is not None:
+        out["windows"] = read_windows(spy)
+    return out
+
+
+def start_cpu_references(jobs: dict):
+    """A one-worker ``spawn`` pool running :func:`cpu_reference` on each of
+    ``jobs`` in order: (the pool, name -> its ``AsyncResult``). The pool
+    is terminated at exit."""
+    import multiprocessing as mp
+
+    pool = mp.get_context("spawn").Pool(1, initializer=cpu_worker_init)
+    atexit.register(pool.terminate)
+    return pool, {name: pool.apply_async(cpu_reference, (job,))
+                  for name, job in jobs.items()}
 
 
 def main() -> int:
@@ -3772,6 +4401,28 @@ def main() -> int:
                          channels=8, num_samples=64)
     cfg_d = cfg_b.replace(fused_tick=True, num_slots=4)
     cfg_e = cfg_c.replace(num_slots=4)
+    # the CPU reference runs of arms A, B, B48, C, D, D adaptive (its first
+    # session's first window) and G, in the arms' order, beside the card
+    model_b_kw = dict(kind="dvgo", backend="streaming", decoder="mlp")
+    d_fleet = [RenderRequest(poses=tuple(orbit_trajectory(
+        32, phase_deg=25.0 * i))) for i in range(6)]
+    cfg_d_adaptive = cfg_d.replace(fused_tick=False, adaptive_sampling=True)
+    cfg_g = cfg_a.replace(adaptive_sampling=True, coarse_factor=4)
+    _cpu_pool, cpu_refs = start_cpu_references({
+        "A": dict(cfg=cfg_a, poses=orbit_trajectory(32)),
+        "B": dict(cfg=cfg_b, poses=orbit_trajectory(16), model=model_b_kw,
+                  np_params=np_params_b),
+        "B48": dict(cfg=cfg_b, poses=orbit_trajectory(8),
+                    model=dict(model_b_kw, mlp_hidden=48),
+                    np_params=arm_b_params(0, hidden=48)),
+        "C": dict(cfg=cfg_c, poses=orbit_trajectory(32)),
+        "D": dict(cfg=cfg_d, fleet=d_fleet, model=model_b_kw,
+                  np_params=np_params_b),
+        "D adaptive": dict(cfg=cfg_d_adaptive,
+                           poses=d_fleet[0].poses[:cfg_d.window],
+                           model=model_b_kw, np_params=np_params_b,
+                           spy=True),
+        "G": dict(cfg=cfg_g, poses=orbit_trajectory(32), spy=True)})
     arm_i_models = {n: arm_i_model(n, dev) for n in ARM_I_CONFIGS}
 
     def scene_loader(device):
@@ -4409,10 +5060,7 @@ def main() -> int:
         gpu.render(req)  # captures the tick programs the cold run met once
         warm = gpu.render(req)
         warm_render[name] = gpu
-        extra_cpu = ({} if model is None else
-                     dict(model=model,
-                          params=params_from_numpy(np_params, "cpu")))
-        cpu = api.make_renderer(cfg, device="cpu", **extra_cpu).render(req)
+        cpu = cpu_refs.pop(name).get()["result"]  # the worker's CPU run
         frames = [f.cpu() for f in cold.frames]
         for f in frames:
             if f.shape != (cfg.res, cfg.res, 3) or not torch.isfinite(f).all():
@@ -4455,19 +5103,15 @@ def main() -> int:
         results, m = renderer.serve(fleet)
         return results, m, counts()
 
-    def run_serving_arm(name, cfg, n_sessions, n_frames):
-        fleet = [RenderRequest(poses=tuple(orbit_trajectory(
-            n_frames, phase_deg=25.0 * i))) for i in range(n_sessions)]
+    def run_serving_arm(name, cfg, fleet):
+        n_sessions, n_frames = len(fleet), len(fleet[0].poses)
         gpu = api.make_renderer(cfg, model=model_b,
                                 params=params_from_numpy(np_params_b, dev))
         cold, m_cold, launches = serve_fleet(gpu, fleet)
         _, m_warm, _ = serve_fleet(gpu, fleet)
         warm_serve[name] = serve_engine_of(gpu)
-        t_cpu = time.perf_counter()
-        cpu, m_cpu = api.make_renderer(
-            cfg, model=model_b, params=params_from_numpy(np_params_b, "cpu"),
-            device="cpu").serve(fleet)
-        cpu_s = time.perf_counter() - t_cpu
+        ref = cpu_refs.pop(name).get()  # the worker's CPU run of the fleet
+        cpu, m_cpu, cpu_s = ref["results"], ref["metrics"], ref["wall_s"]
         if not (m_cold["complete"] and m_cpu["complete"]):
             fail(f"arm {name}: a session did not complete")
         if m_cold["ticks"] != m_cpu["ticks"]:
@@ -4899,26 +5543,6 @@ def main() -> int:
             "F1": f1, "F2": f2, "part_s": part_s}
 
     # the adaptive-sampling and baseline arms (G, D adaptive, H)
-    def window_spy(renderer):
-        """Record each window the renderer's device engine renders: its
-        pool buckets, hole counts and fine counts (device tensors, read
-        after the run)."""
-        eng = renderer.pipeline.device_engine
-        log = []
-        inner = eng.render_window
-
-        def spy(ref_pose, tgt):
-            buckets = eng._current_buckets()
-            res = inner(ref_pose, tgt)
-            log.append((buckets, res.hole_counts, res.fine_counts))
-            return res
-
-        eng.render_window = spy
-        return log
-
-    def read_windows(log):
-        return [(b, h.tolist(), f.tolist()) for b, h, f in log]
-
     def psnr_delta(frames_a, frames_b, gt):
         """The reference's adaptive gate: each frame's PSNR against the
         full render of its pose, one run against the other, worst frame."""
@@ -4937,12 +5561,8 @@ def main() -> int:
         launches = counts()
         wins = read_windows(spy)
         warm = gpu.render(req)
-        cpu_ren = api.make_renderer(cfg, device="cpu")
-        spy_cpu = window_spy(cpu_ren)
-        t_cpu = time.perf_counter()
-        cpu = cpu_ren.render(req)
-        cpu_s = time.perf_counter() - t_cpu
-        wins_cpu = read_windows(spy_cpu)
+        ref = cpu_refs.pop("G").get()  # the worker's CPU run, spied
+        cpu, wins_cpu, cpu_s = ref["result"], ref["windows"], ref["wall_s"]
         frames = [f.cpu() for f in cold.frames]
         for f in frames:
             if f.shape != (cfg.res, cfg.res, 3) or not torch.isfinite(f).all():
@@ -5052,21 +5672,16 @@ def main() -> int:
         first = RenderRequest(poses=fleet[0].poses[:cfg.window])
         spy_gpu = window_spy(gpu)
         one = gpu.render(first)
-        cpu_ren = api.make_renderer(
-            cfg, model=model_b, params=params_from_numpy(np_params_b, "cpu"),
-            device="cpu")
-        spy_cpu = window_spy(cpu_ren)
-        t_cpu = time.perf_counter()
-        one_cpu = cpu_ren.render(first)
-        cpu_s = time.perf_counter() - t_cpu
+        ref = cpu_refs.pop("D adaptive").get()  # the worker's, spied
+        one_cpu, wins_cpu, cpu_s = (ref["result"], ref["windows"],
+                                    ref["wall_s"])
         worst = min(float(psnr(f.cpu(), c)) for f, c in zip(one.frames,
                                                             one_cpu.frames))
-        if worst < 40.0 or read_windows(spy_gpu) != read_windows(spy_cpu) \
+        if worst < 40.0 or read_windows(spy_gpu) != wins_cpu \
                 or all_stats(one.stats) != all_stats(one_cpu.stats):
             fail(f"arm D adaptive: session 0's first window {worst:.2f} dB "
                  f"from the CPU run, windows {read_windows(spy_gpu)} vs "
-                 f"{read_windows(spy_cpu)}, stats {one.stats} vs "
-                 f"{one_cpu.stats}")
+                 f"{wins_cpu}, stats {one.stats} vs {one_cpu.stats}")
         # against the non-adaptive staged fleet, each frame's PSNR to the
         # full render of its pose (recorded: the reference gates it on
         # baked scenes, arm G; these weights are random)
@@ -5184,7 +5799,7 @@ def main() -> int:
     phase_done("C5")
     arms["C"] = run_arm("C", cfg_c, 32)
     phase_done("arm C")
-    fused_frames, arms["D"], fleet = run_serving_arm("D", cfg_d, 6, 32)
+    fused_frames, arms["D"], fleet = run_serving_arm("D", cfg_d, d_fleet)
     if arms["A"]["launches"]["gather_trilerp"] == 0:
         fail("arm A never launched the Gathering Unit kernel")
     if min(arms["B"]["launches"][k.name]
@@ -5218,14 +5833,12 @@ def main() -> int:
         "warm_wall_s": m_staged_warm["wall_s"],
         "warm_fps": m_staged_warm["aggregate_fps"]}
     phase_done("arm D")
-    arms["D_adaptive"] = run_adaptive_serving(
-        cfg_d.replace(fused_tick=False, adaptive_sampling=True), fleet,
-        staged, m_staged_warm)
+    arms["D_adaptive"] = run_adaptive_serving(cfg_d_adaptive, fleet, staged,
+                                              m_staged_warm)
     phase_done("arm D adaptive")
     arms["E"] = run_scenes_arm(cfg_e, 12, 32)
     phase_done("arm E")
-    arms["G"] = run_adaptive_arm(
-        cfg_a.replace(adaptive_sampling=True, coarse_factor=4), 32)
+    arms["G"] = run_adaptive_arm(cfg_g, 32)
     phase_done("arm G")
     arms["H"] = run_baselines_arm(cfg_a, 32)
     phase_done("arm H")
@@ -5389,8 +6002,35 @@ def main() -> int:
     phase_done("arms R")
     arms.update(run_arms_wv(dev, reset, counts, profile_run))
     phase_done("arms W V")
-    training_l = run_phase_l(dev, reset, counts)
+    # phase Q's fake-group subprocess and ranks start once L1's CPU steps
+    # are done and run beside L2 and L3; the ranks wait for phase L3's
+    # checkpoint, which they re-lay
+    q_tmp = tempfile.mkdtemp(prefix="chip_smoke_q_")
+    atexit.register(shutil.rmtree, q_tmp, True)
+    q_procs = {}
+
+    def start_q():
+        q_procs["q1"] = q1 = q1_start(dev)
+        atexit.register(lambda: q1.poll() is None and q1.kill())
+        q_procs["q2"] = q2_start({"cfg": l_config(), "device": None,
+                                  "ckpt": str(Path(q_tmp, "l3", "timed"))},
+                                 q_tmp)
+
+    training_l = run_phase_l(dev, reset, counts,
+                             l3_kw=dict(root=Path(q_tmp, "l3")),
+                             after_l1=start_q)
     phase_done("L")
+    reset()
+    Path(q_tmp, "go").touch()
+    # the one-device Trainer from the same seed: L3's straight run
+    q_one = training_l["L3"]["straight_losses"][:Q_TRAIN_STEPS]
+    phase_q = {"one_device_losses": q_one}
+    phase_q["Q1"] = q1_finish(q_procs["q1"])
+    phase_q["Q2"] = q2_finish(q_procs["q2"], q_tmp, q_one)
+    phase_q["launches"] = counts()
+    shutil.rmtree(q_tmp, ignore_errors=True)
+    phase_done("Q")
+    print_phase_q(phase_q, smi)
     for name, arm in arms.items():
         print(f"arm {name}: {json.dumps(arm)}")
     print(f"B1 launches: arm A {arms['A']['launches']['gather_trilerp']} "
@@ -5474,6 +6114,14 @@ def main() -> int:
           f"scene cache {arms['E']['scene_cache']}; launches "
           f"{arms['E']['launches']}")
     p = arms["P"]
+    c7 = p["P1"]["C7"]
+    print(f"phase P1 C7 ({smi}): the sharded engine's "
+          f"{c7['sharded']['steady_ticks']} steady ticks of "
+          f"{c7['sharded']['ticks']} under sync_error (0 synchronizing "
+          f"calls), frames and stats bit-equal to the unsharded run; warm "
+          f"walls {c7['sharded']['warm_wall_s']:.3f} / "
+          f"{c7['unsharded']['warm_wall_s']:.3f} s sharded / unsharded; "
+          f"{p['P1']['C7_s']:.1f} s")
     print(f"phase P: {p['P_s']:.1f} s, P1 {p['P1_s']:.1f} s "
           f"({p['P1']['backend']}, mesh {p['P1']['mesh']}), P2's ranks "
           f"started at {p['P2_go_s']:.1f} s; sharded walls "
@@ -5786,6 +6434,7 @@ def main() -> int:
     path_launches["W float32 frames"] = \
         arms["W"]["float32_frames"]["launches"]
     path_launches["L"] = training_l["launches"]
+    path_launches["Q"] = phase_q["launches"]
     path_launches.update(arms["P"]["rank_launches"])
     for name, want in EAGER_LAUNCHES.items():
         got = {k: path_launches[name][k] for k in want}
@@ -5895,6 +6544,7 @@ def main() -> int:
         "steady_tick_S": steady,
         "training_T": training,
         "training_L": training_l,
+        "phase_Q": phase_q,
         "phase_s": phase_s, "total_s": sum(phase_s.values()),
         "card": card}))
     print(json.dumps({"ok": True, "device": {
@@ -5929,7 +6579,7 @@ EAGER_LAUNCHES = {
         "W": (0, 0, 0, 0, 0), "W float32 frames": (0, 0, 0, 0, 0),
         "V1": (0, 0, 0, 0, 0), "V1 serve": (0, 0, 0, 0, 0),
         "V": (0, 0, 0, 0, 0), "V serve": (0, 0, 0, 0, 0),
-        "L": (0, 0, 0, 0, 0),
+        "L": (0, 0, 0, 0, 0), "Q": (0, 0, 0, 0, 0),
         "I cicero-dvgo": (258, 258, 0, 0, 0),
         "I cicero-ngp": (0, 258, 0, 0, 0),
         "I cicero-tensorf": (0, 258, 0, 0, 0),

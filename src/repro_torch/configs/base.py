@@ -13,11 +13,11 @@ fields that such a model reads, under their names: the model's widths, the
 MoE, attention, Mamba, xLSTM, encoder and image fields, numerics, and the
 training knobs ``q_block`` (the blocked attention's query tile),
 ``loss_chunk`` (the cross-entropy's sequence chunk) and ``remat``
-(recompute each period in the backward pass). It also records the two
-fields the configs set that only a sharded run reads
-(``sharding_strategy``, ``skip_shapes``; ROADMAP.md A3b), so that the
-configs copy over value for value; the port runs on one device and reads
-them nowhere. :data:`SHAPES` is the reference's LM shape suite, which
+(recompute each period in the backward pass). It also has the two
+fields that lay out and select a sharded run's cells:
+``sharding_strategy``, which ``parallel.sharding.default_strategy``
+reads, and ``skip_shapes``, which the registry's cell accounting reads.
+:data:`SHAPES` is the reference's LM shape suite, which
 the registry's cell accounting reads (its ``tokens_per_step`` and the
 NeRF shape suite come with the launcher that reads them, ROADMAP.md A3c).
 

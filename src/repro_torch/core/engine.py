@@ -37,11 +37,16 @@ axis over the ranks of a process group, one per device, for its lifetime
 (:func:`raybatch.make_mesh`), and takes the params, MVoxel table included,
 from the mesh's first rank. A staged :meth:`DeviceSparwEngine.
 render_windows` of S > 1 sessions then renders only the rank's S / D
-sessions through its own tick program (keyed on S / D), resolves their
-dense fallback on that rank, and gathers every field of the result back
-to ``[S, ...]`` on every rank, outside the tick program (a gloo
-collective cannot be captured). The gather reads the frames back, so a
-sharded window synchronizes the host once.
+sessions through its own tick program (keyed on S / D) and gathers the
+deferred fields of the result (sparse frames, holes, hole counts,
+overflow flags, fine counts) back to ``[S, ...]`` on every rank, outside
+the tick program (a gloo collective cannot be captured). The dense
+fallback stays deferred, as the reference decides it inside its tick
+program: where the frames are first read, a rank that sees an overflow
+re-renders the gathered targets of all S sessions with the full params,
+which gives the owner's bits because no dense-fill chunk straddles a
+session. Nothing in the window reads the device: over NCCL the gathers
+stay in stream order; over gloo each gather passes through host memory.
 
 Not ported yet: the autotune cache (``ref_cap_factor`` is the
 reference's default, 2).
@@ -483,8 +488,9 @@ class DeviceSparwEngine:
 
         With ``config.shard`` enabled and S > 1 this rank renders its S / D
         sessions and every field is gathered back to ``[S, ...]`` on every
-        rank (S must divide evenly: sessions are pinned whole); S == 1
-        renders unsharded, on every rank.
+        rank, the dense fallback still deferred (S must divide evenly:
+        sessions are pinned whole); S == 1 renders unsharded, on every
+        rank.
         """
         s, n = tgt_poses.shape[:2]
         sharded = self.mesh is not None and s > 1
@@ -494,6 +500,7 @@ class DeviceSparwEngine:
                 raise ValueError(
                     f"render_windows: {s} sessions cannot shard evenly "
                     f"over {ndev} devices")
+            full_tgt = self.upload(tgt_poses.float())  # the fallback's
             (ref_poses, tgt_poses, win_lens, caps, pool_caps,
              pool_caps_coarse) = raybatch.shard_session_inputs(
                 self.mesh, ref_poses, tgt_poses, win_lens, caps, pool_caps,
@@ -520,18 +527,15 @@ class DeviceSparwEngine:
                 b["pool_caps_coarse"], bucket, bucket_coarse))
         with torch.no_grad():
             out = prog(self.cuda_graphs)
-        res = BatchedWindowResult(**out, dense_fill=self._fallback(
-            self._local_params(sharded), b["tgt_poses"]))
         if not sharded:
-            return res
-        # the owner resolves its sessions' dense fallback, then every rank
-        # gets every session's fields
-        frames = res.frames
-        gather = lambda t: raybatch.gather_sessions(self.mesh, t)
-        return BatchedWindowResult(gather(frames), gather(res.holes),
-                                   gather(res.hole_counts),
-                                   gather(res.overflowed),
-                                   gather(res.fine_counts))
+            return BatchedWindowResult(**out, dense_fill=self._fallback(
+                self.params, b["tgt_poses"]))
+        # every rank gets every session's deferred fields; the fallback
+        # re-renders all S targets with the full params where it is read
+        out = {k: raybatch.gather_sessions(self.mesh, t)
+               for k, t in out.items()}
+        return BatchedWindowResult(**out, dense_fill=self._fallback(
+            self.params, full_tgt))
 
     def _local_params(self, sharded: bool) -> dict:
         """The params this rank's block renders from: a multi-scene

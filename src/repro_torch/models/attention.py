@@ -48,7 +48,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.common import ninit
+from repro_torch.models.common import DP, TP, P, ninit
 
 NEG_INF = -1e30
 
@@ -75,6 +75,16 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig,
         p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((kvh * hd,), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((kvh * hd,), dtype=dtype, device=dev)
+    return p
+
+
+def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """The head (output-feature) axis over TP: Megatron's column-parallel
+    QKV and row-parallel output projection."""
+    p = {"wq": P(None, TP), "wk": P(None, TP), "wv": P(None, TP),
+         "wo": P(TP, None)}
+    if cfg.qkv_bias and not cross:
+        p.update({"bq": P(TP), "bk": P(TP), "bv": P(TP)})
     return p
 
 
@@ -321,3 +331,10 @@ def kv_cache_init(cfg: ModelConfig, batch: int, s_max: int,
     shape = (batch, cfg.num_kv_heads, width, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+def kv_cache_specs() -> KVCache:
+    """The batch over DP and the *sequence* over the model axis (the
+    flash-decode layout): KV-head counts rarely divide a 16-way model axis,
+    the cache's sequence always does."""
+    return KVCache(P(DP, None, TP, None), P(DP, None, TP, None))

@@ -38,7 +38,8 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.common import rmsnorm, rmsnorm_init
+from repro_torch.models.common import DP, TP, P, rmsnorm, rmsnorm_init, \
+    rmsnorm_specs
 
 # each part's leaves that its init makes in float32 whatever the model's
 # dtype, by mixer or FFN kind
@@ -88,6 +89,31 @@ def layer_init(generator: torch.Generator, cfg: ModelConfig,
                     ffn_mod.ffn_init(generator, cfg.d_model, cfg.d_ff,
                                      dtype))
     return p
+
+
+def layer_specs(cfg: ModelConfig, spec: LayerSpec, cross: bool = False
+                ) -> dict:
+    """A layer's spec tree, the structure of :func:`layer_init`'s."""
+    specs = {"attn": attn.attn_specs, "mamba": mamba_mod.mamba_specs,
+             "mlstm": xlstm_mod.mlstm_specs,
+             "slstm": xlstm_mod.slstm_specs}[spec.mixer]
+    p = {"norm1": rmsnorm_specs(), "mixer": specs(cfg)}
+    if cross:
+        p["norm_x"] = rmsnorm_specs()
+        p["cross"] = attn.attn_specs(cfg, cross=True)
+    if spec.ffn != "none":
+        p["norm2"] = rmsnorm_specs()
+        p["ffn"] = (moe_mod.moe_specs(cfg) if spec.ffn == "moe"
+                    else ffn_mod.ffn_specs())
+    return p
+
+
+def stack_specs(cfg: ModelConfig, cross: bool = False) -> List[dict]:
+    """One spec tree per layer. The reference stacks a period's layers on
+    a leading ``num_periods`` axis and puts ``None`` first in each spec;
+    the port holds one dict per layer, so its specs have no stack entry."""
+    return [layer_specs(cfg, layer_spec(cfg, i), cross=cross)
+            for i in range(cfg.num_layers)]
 
 
 def _ffn_apply(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec
@@ -280,4 +306,36 @@ def stack_cache_init(cfg: ModelConfig, batch: int, s_max: int,
                      cross: bool = False) -> List[Cache]:
     return [layer_cache_init(cfg, layer_spec(cfg, i), batch, s_max, dtype,
                              device, cross=cross)
+            for i in range(cfg.num_layers)]
+
+
+
+def layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, cross: bool = False,
+                      shard_seq: bool = False):
+    """A layer's cache spec, the structure of :func:`layer_cache_init`'s;
+    ``shard_seq`` (long-context decode at batch 1) lays an attention
+    cache's sequence over every axis."""
+    if spec.mixer == "attn":
+        if shard_seq:
+            every = ("pod", "data", "model")
+            c = attn.KVCache(P(None, None, every, None),
+                             P(None, None, every, None))
+        else:
+            c = attn.kv_cache_specs()
+    elif spec.mixer == "mamba":
+        c = mamba_mod.mamba_state_specs()
+    elif spec.mixer == "mlstm":
+        c = xlstm_mod.mlstm_state_specs()
+    else:
+        c = xlstm_mod.slstm_state_specs()
+    if cross:
+        c = (c, attn.KVCache(P(DP, TP, None, None), P(DP, TP, None, None)))
+    return c
+
+
+def stack_cache_specs(cfg: ModelConfig, cross: bool = False,
+                      shard_seq: bool = False) -> list:
+    """One cache spec per layer (no stack entry, as :func:`stack_specs`)."""
+    return [layer_cache_specs(cfg, layer_spec(cfg, i), cross=cross,
+                              shard_seq=shard_seq)
             for i in range(cfg.num_layers)]

@@ -43,7 +43,8 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import blocks
-from repro_torch.models.common import dtype_of, ninit, rmsnorm, rmsnorm_init
+from repro_torch.models.common import META, TP, P, dtype_of, ninit, \
+    rmsnorm, rmsnorm_init, rmsnorm_specs
 from repro_torch.optim import AdamWConfig, adamw_update_, cosine_warmup
 from repro_torch.optim.adamw import tree_flatten
 from repro_torch.utils import DeviceLike, resolve_device
@@ -62,6 +63,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
+    return _init(cfg, generator)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """:func:`init_params`'s tree on the meta device: every leaf's shape
+    and dtype and no memory (the twin of ``jax.eval_shape`` of the
+    reference's init), so a 400B config costs nothing to lay out."""
+    return _init(cfg, META)
+
+
+def _init(cfg: ModelConfig, generator) -> dict:
     dtype = dtype_of(cfg.dtype)
     cross = cfg.encoder_layers > 0
     p = {"embed": ninit(generator, (cfg.vocab_size, cfg.d_model), 0.02,
@@ -90,6 +102,27 @@ def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
     return cfg.with_(num_layers=cfg.encoder_layers,
                      layer_pattern=(LayerSpec(mixer="attn", ffn="dense"),),
                      encoder_layers=0)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The spec tree of :func:`init_params`'s tree: the vocabulary over the
+    model axis, one spec tree per layer (:func:`blocks.stack_specs`)."""
+    cross = cfg.encoder_layers > 0
+    p = {"embed": P(TP, None),
+         "layers": blocks.stack_specs(cfg, cross=cross),
+         "final_norm": rmsnorm_specs()}
+    if not cfg.tie_embeddings:
+        p["head"] = P(None, TP)
+    if cross:
+        p["encoder"] = {"layers": blocks.stack_specs(_encoder_cfg(cfg)),
+                        "final_norm": rmsnorm_specs()}
+    return p
+
+
+def opt_specs(cfg: ModelConfig) -> dict:
+    """The AdamW moments' specs: each moment laid out as its param."""
+    specs = param_specs(cfg)
+    return {"m": specs, "v": specs}
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -301,3 +334,9 @@ def cache_init(cfg: ModelConfig, batch: int, s_max: int,
     dev = resolve_device(device)
     return blocks.stack_cache_init(cfg, batch, s_max, dtype_of(cfg.dtype),
                                    dev, cross=cfg.encoder_layers > 0)
+
+
+def cache_specs(cfg: ModelConfig, shard_seq: bool = False) -> list:
+    """The spec tree of :func:`cache_init`'s caches, one per layer."""
+    return blocks.stack_cache_specs(cfg, cross=cfg.encoder_layers > 0,
+                                    shard_seq=shard_seq)

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ninit
+from repro_torch.models.common import DP, TP, P, ninit
 
 # the leaves ``mamba_init`` makes in float32 whatever the model's dtype
 FLOAT32_LEAVES = ("dt_bias", "a_log", "d_skip")
@@ -65,6 +65,12 @@ def mamba_init(generator: torch.Generator, cfg: ModelConfig,
         "d_skip": torch.ones((h,), dtype=torch.float32, device=dev),
         "out_proj": ninit(generator, (d_inner, d), d_inner**-0.5, dtype),
     }
+
+
+def mamba_specs(cfg: ModelConfig) -> dict:
+    return {"in_proj": P(None, TP), "conv_w": P(None, TP),
+            "x_proj": P(TP, None), "dt_bias": P(None), "a_log": P(None),
+            "d_skip": P(None), "out_proj": P(TP, None)}
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, prev: Optional[torch.Tensor]
@@ -195,3 +201,7 @@ def mamba_state_init(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                         device=device),
         conv=torch.zeros((batch, cfg.mamba_d_conv - 1, d_inner), dtype=dtype,
                          device=device))
+
+
+def mamba_state_specs() -> MambaState:
+    return MambaState(ssm=P(DP, TP, None, None), conv=P(DP, None, TP))

@@ -15,7 +15,7 @@ capacity rule gives the same slots, so both modes give the same output.
 
 The expert products are ``torch.einsum`` over ``[B, E, cap, D]``, as the
 reference computes them outside any kernel. The reference's mesh branch
-(``shard_map`` over the model axis) is ROADMAP.md A3b.
+(``shard_map`` over the model axis) is ROADMAP.md A3b-2.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import ninit
+from repro_torch.models.common import TP, P, ninit
 
 # the leaves ``moe_init`` makes in float32 whatever the model's dtype
 FLOAT32_LEAVES = ("router",)
@@ -43,6 +43,15 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig,
          "wd": ninit(generator, (e, f, d), f**-0.5, dtype)}
     if cfg.moe_shared_expert:
         p["shared"] = ffn_mod.ffn_init(generator, d, f, dtype)
+    return p
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """The experts over the model axis (expert parallelism)."""
+    p = {"router": P(None, None), "wg": P(TP, None, None),
+         "wu": P(TP, None, None), "wd": P(TP, None, None)}
+    if cfg.moe_shared_expert:
+        p["shared"] = ffn_mod.ffn_specs()
     return p
 
 

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ninit
+from repro_torch.models.common import DP, TP, P, ninit
 
 NEG_INF = -1e30
 # the leaves each init makes in float32 whatever the model's dtype
@@ -78,6 +78,12 @@ def mlstm_init(generator: torch.Generator, cfg: ModelConfig,
         "wo_gate": ninit(generator, (d, d), s, dtype),
         "w_out": ninit(generator, (d, d), s, dtype),
     }
+
+
+def mlstm_specs(cfg: ModelConfig) -> dict:
+    return {"wq": P(None, TP), "wk": P(None, TP), "wv": P(None, TP),
+            "wi": P(None, None), "wf": P(None, None), "bf": P(None),
+            "bi": P(None), "wo_gate": P(None, TP), "w_out": P(TP, None)}
 
 
 def _mlstm_proj(params, x: torch.Tensor, cfg: ModelConfig):
@@ -213,6 +219,11 @@ def mlstm_state_init(cfg: ModelConfig, batch: int, device) -> MlstmState:
                      device=device))
 
 
+def mlstm_state_specs() -> MlstmState:
+    return MlstmState(c=P(DP, None, None, None), n=P(DP, None, None),
+                      m=P(DP, None))
+
+
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
@@ -233,6 +244,14 @@ def slstm_init(generator: torch.Generator, cfg: ModelConfig,
         "bf": torch.full((d,), 3.0, dtype=f32, device=dev),
         "bo": torch.zeros((d,), dtype=f32, device=dev),
         "w_out": ninit(generator, (d, d), d**-0.5, dtype)})
+    return p
+
+
+def slstm_specs(cfg: ModelConfig) -> dict:
+    p = {k: P(None, None) for k in
+         ("wz", "wi", "wf", "wo", "rz", "ri", "rf", "ro")}
+    p.update({k: P(None) for k in ("bz", "bi", "bf", "bo")})
+    p["w_out"] = P(None, TP)
     return p
 
 
@@ -276,3 +295,8 @@ def slstm_state_init(cfg: ModelConfig, batch: int, device) -> SlstmState:
     z = lambda: torch.zeros((batch, d), dtype=torch.float32, device=device)
     return SlstmState(c=z(), n=z(), m=torch.full(
         (batch, d), NEG_INF, dtype=torch.float32, device=device), h=z())
+
+
+def slstm_state_specs() -> SlstmState:
+    return SlstmState(c=P(DP, None), n=P(DP, None), m=P(DP, None),
+                      h=P(DP, None))

@@ -2,8 +2,9 @@
 ``repro.parallel.pipeline``): gpipe.
 
 Each of the dimension's P ranks (stages) holds ``L / P`` of the ``L``
-stacked layers and runs them over microbatches; activations pass from
-stage to stage around a ring. Schedule (P stages, M microbatches,
+stacked layers, and only those (the reference shards the stacked params
+over the axis, ``P(axis)``), and runs them over microbatches; activations
+pass from stage to stage around a ring. Schedule (P stages, M microbatches,
 T = M + P - 1 ticks): at tick t, stage p runs microbatch ``t - p`` if
 ``0 <= t - p < M``.
 """
@@ -32,28 +33,46 @@ def _run_layers(layer_fn: Callable, params_stacked: Tree, x: torch.Tensor,
     return x
 
 
-def pipelined_forward(layer_fn: Callable, params_stacked: Tree,
+def stage_block(params_stacked: Tree, mesh, axis: str = "pod") -> Tree:
+    """This rank's stage block of a tree of stacked ``[L, ...]`` leaves:
+    layers ``[p * L / P, (p + 1) * L / P)`` of each leaf (views), for a
+    caller that holds every layer and hands :func:`pipelined_forward` only
+    its stage's."""
+    ax = pdist.axis(mesh, axis)
+    leaves, unflatten = tree_flatten(params_stacked)
+    num_layers = leaves[0].shape[0]
+    if num_layers % ax.size:
+        raise ValueError(f"stage_block: {num_layers} layers over "
+                         f"{ax.size} stages must divide evenly")
+    per = num_layers // ax.size
+    return unflatten([p[ax.rank * per:(ax.rank + 1) * per] for p in leaves])
+
+
+def pipelined_forward(layer_fn: Callable, params_stage: Tree,
                       x: torch.Tensor, *, mesh, num_microbatches: int,
                       axis: str = "pod") -> torch.Tensor:
-    """``layer_fn(params_slice, x) -> x`` over every stacked layer, the
-    layers split evenly over the stages of ``mesh``'s dimension
-    ``axis``.
+    """``layer_fn(params_slice, x) -> x`` over ``L`` stacked layers split
+    evenly over the P stages of ``mesh``'s dimension ``axis``.
 
-    Every rank passes the whole stacked ``params_stacked`` (leaves
-    ``[L, ...]``) and the whole batch ``x`` ``[B, ...]``, microbatched
-    along dim 0; stage p runs layers ``[p * L / P, (p + 1) * L / P)``. Each
-    tick is one paired send and receive around the ring; the last stage's
-    outputs are all-reduced, so every rank of the dimension returns them.
+    Stage p passes only its own block of the stacked params,
+    ``params_stage``: each leaf ``[L / P, ...]``, layers ``[p * L / P,
+    (p + 1) * L / P)`` of the whole stack (:func:`stage_block` cuts it
+    from a whole stack); every stage's blocks hold the same number of
+    layers. Every rank passes the whole batch ``x`` ``[B, ...]``,
+    microbatched along dim 0. Each tick is one paired send and receive
+    around the ring; the last stage's outputs are all-reduced, so every
+    rank of the dimension returns them.
     """
     ax = pdist.axis(mesh, axis)
     n_stages, stage = ax.size, ax.rank
-    num_layers = tree_flatten(params_stacked)[0][0].shape[0]
-    if num_layers % n_stages or x.shape[0] % num_microbatches:
+    leaves = tree_flatten(params_stage)[0]
+    per = leaves[0].shape[0]
+    if any(p.shape[0] != per for p in leaves) \
+            or x.shape[0] % num_microbatches:
         raise ValueError(
-            f"pipelined_forward: {num_layers} layers over {n_stages} "
-            f"stages, batch {x.shape[0]} in {num_microbatches} microbatches "
-            f"must both divide evenly")
-    per = num_layers // n_stages
+            f"pipelined_forward: a stage's leaves must all hold its "
+            f"{per} layers (got {[p.shape[0] for p in leaves]}), and batch "
+            f"{x.shape[0]} must split into {num_microbatches} microbatches")
     mbs = x.reshape(num_microbatches, -1, *x.shape[1:])
     cur = torch.zeros_like(mbs[0])
     outs = torch.zeros_like(mbs)
@@ -61,8 +80,7 @@ def pipelined_forward(layer_fn: Callable, params_stacked: Tree,
         if stage == 0 and t < num_microbatches:
             cur = mbs[t]
         if 0 <= t - stage < num_microbatches:
-            cur = _run_layers(layer_fn, params_stacked, cur, stage * per,
-                              (stage + 1) * per)
+            cur = _run_layers(layer_fn, params_stage, cur, 0, per)
             if stage == n_stages - 1:
                 outs[t - stage] = cur
         cur = pdist.ring_exchange(cur, ax.group)

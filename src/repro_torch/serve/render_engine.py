@@ -39,9 +39,10 @@ session (chosen by a :mod:`~repro_torch.serve.policies` policy).
   session axis is laid over the ranks of a process group, one per device
   (``num_slots`` divisible by ``num_devices``; sessions pinned whole):
   every rank runs this engine on the same sessions, renders its block of
-  slots and reads back every slot's gathered results, so the pool
-  controllers, buckets and statistics agree on every rank. Multi-scene
-  serving keeps every page on every rank.
+  slots and receives every slot's results, gathered; :meth:`finalize`
+  reads them back on every rank, so the pool controllers, buckets and
+  statistics agree on every rank. Multi-scene serving keeps every page on
+  every rank.
 
 :meth:`RenderServeEngine.step` dispatches; frames and hole statistics are
 read back in :meth:`RenderServeEngine.finalize`, which also runs the dense
@@ -53,7 +54,9 @@ rewritten in place, its poses go up in one non-blocking copy from a ring
 of pinned host buffers, and on the card the engine call is one CUDA-graph
 replay. The reference holds its poses on the device and transfers
 nothing; the port makes that one asynchronous upload per tick. A sharded
-tick gathers its results, which synchronizes the host once a tick.
+steady tick is dispatch-only too: its gathers stay in stream order over
+NCCL (over gloo they pass through host memory), and its dense fallback
+is decided in :meth:`finalize`, as the unsharded tick's.
 """
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ Layout: ``<dir>/step_<n>/state.npz`` (+ ``meta.json``).
   bfloat16 leaf is stored as its 16-bit patterns and named in
   ``meta.json``'s ``leaf_dtypes``; it is restored bit for bit.
 * :func:`load` restores each leaf in its template leaf's dtype and on its
-  device. The reference's ``shardings`` (the elastic re-lay on another
-  mesh) come with the spec trees they read (``ROADMAP.md`` A3b).
+  device; given ``shardings`` (the elastic re-lay), each leaf becomes a
+  DTensor laid out on the current mesh, whatever mesh saved it.
 """
 from __future__ import annotations
 
@@ -27,14 +27,17 @@ Tree = Any
 _SEP = "/"
 
 
-def _flatten(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+def _flatten(tree: Tree, prefix: str = "", is_leaf=lambda x: False
+             ) -> Iterator[Tuple[str, Any]]:
     """(path, leaf) of a nested dict / list / tuple, dict keys sorted."""
-    if isinstance(tree, dict):
+    if is_leaf(tree):
+        yield prefix[:-len(_SEP)], tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _flatten(tree[k], f"{prefix}{k}{_SEP}")
+            yield from _flatten(tree[k], f"{prefix}{k}{_SEP}", is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{i}{_SEP}")
+            yield from _flatten(v, f"{prefix}{i}{_SEP}", is_leaf)
     else:
         yield prefix[:-len(_SEP)], tree
 
@@ -92,11 +95,17 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def load(ckpt_dir: str | Path, template: Tree, step: Optional[int] = None
-         ) -> Tuple[Tree, dict]:
+def load(ckpt_dir: str | Path, template: Tree, step: Optional[int] = None,
+         shardings: Optional[Tree] = None) -> Tuple[Tree, dict]:
     """The checkpoint at ``step`` (default: the latest) in ``template``'s
     structure, each leaf a new tensor in its template leaf's dtype and on
-    its device (only those are read). Returns (state, meta)."""
+    its device (only those are read). Returns (state, meta).
+
+    ``shardings``, a tree of the template's structure whose leaves are
+    :class:`~repro_torch.parallel.sharding.NamedSharding`, re-lays the
+    checkpoint on the current mesh: each leaf comes back as a DTensor with
+    that sharding's placements, on this rank's device of the mesh's type.
+    Each rank reads its own block from the file; no collective runs."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -105,11 +114,42 @@ def load(ckpt_dir: str | Path, template: Tree, step: Optional[int] = None
     path = ckpt_dir / f"step_{step:08d}"
     meta = json.loads((path / "meta.json").read_text())
     leaf_dtypes = meta.get("leaf_dtypes", {})
+    lay = None
+    if shardings is not None:
+        from repro_torch.parallel.sharding import NamedSharding
+
+        lay = dict(_flatten(shardings,
+                            is_leaf=lambda x: isinstance(x, NamedSharding)))
     with np.load(path / "state.npz") as z:
         def restore(key, leaf):
-            t = torch.from_numpy(z[key])
-            if leaf_dtypes.get(key) == "bfloat16":
-                t = t.view(torch.bfloat16)
-            return t.to(device=leaf.device, dtype=leaf.dtype)
+            bf16 = leaf_dtypes.get(key) == "bfloat16"
+            if lay is None:
+                return _from_numpy(z[key], bf16).to(device=leaf.device,
+                                                    dtype=leaf.dtype)
+            return _relay(z[key], bf16, leaf.dtype, lay[key])
 
         return _rebuild(template, restore), meta
+
+
+def _from_numpy(a: np.ndarray, bf16: bool) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def _relay(a: np.ndarray, bf16: bool, dtype: torch.dtype, sharding):
+    """This rank's block of the whole leaf ``a`` under ``sharding``, as a
+    DTensor of ``a``'s shape on this rank's device of the mesh's type."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.dist import rank_device
+    from repro_torch.parallel.sharding import local_block
+
+    shape, offset = local_block(sharding, a.shape)
+    block = a[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    kind = sharding.mesh.device_type
+    dev = rank_device() if kind == "cuda" else torch.device(kind)
+    local = _from_numpy(block, bf16).to(device=dev, dtype=dtype)
+    whole = torch.empty(a.shape, device="meta")
+    return DTensor.from_local(local, sharding.mesh, list(sharding.placements),
+                              run_check=False, shape=whole.shape,
+                              stride=whole.stride())

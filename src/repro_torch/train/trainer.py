@@ -1,6 +1,5 @@
 """Trainer: checkpoint/restart, fault tolerance, straggler guard (port of
-``repro.train.trainer`` on one device; the mesh branch and the elastic
-re-lay are ``ROADMAP.md`` A3b).
+``repro.train.trainer``).
 
 * ``fault_hook`` — tests inject exceptions at chosen steps; the trainer
   restores the latest checkpoint (or starts over at step 0 when there is
@@ -9,6 +8,16 @@ re-lay are ``ROADMAP.md`` A3b).
   step may have left them half-written: the fault path always reloads.
 * straggler guard — steps slower than ``straggler_factor x`` the running
   median are counted and logged.
+* mesh — given a ``DeviceMesh``, the Trainer computes the params' and the
+  moments' placements (``_pshard``, ``_oshard``: the config's
+  ``default_strategy`` applied to ``lm.param_specs`` on the meta shapes,
+  under the strict guard) and trains exactly as without a mesh, as the
+  reference's mesh branch does (it computes its shardings and never
+  applies them). ``checkpoint.load(shardings=...)`` is where such a tree
+  re-lays a checkpoint. Every rank of the process group runs the Trainer
+  on the same steps; the first rank of the mesh writes each checkpoint
+  and every rank waits for it at a barrier before it goes on, so no rank
+  reads a checkpoint, or sees one pruned, while it is being written.
 """
 from __future__ import annotations
 
@@ -19,11 +28,15 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, DataIterator
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.parallel.dist import rank_device
+from repro_torch.parallel.sharding import apply_strategy, default_strategy, \
+    sharding_tree
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.utils import DeviceLike, resolve_device
 
@@ -54,15 +67,17 @@ def _skeleton(tree):
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, data_cfg: DataConfig,
-                 tcfg: TrainerConfig,
+                 tcfg: TrainerConfig, mesh=None,
                  fault_hook: Optional[Callable[[int], None]] = None,
                  device: DeviceLike = None):
-        """Trains on ``device`` (default: the CUDA card; raises without
-        one)."""
-        self.device = resolve_device(device)
+        """Trains on ``device`` (default: the CUDA card, with a mesh this
+        rank's card; raises without one)."""
+        self.device = (resolve_device(device) if mesh is None
+                       else rank_device(device))
         self.cfg = cfg
         self.data_cfg = data_cfg
         self.tcfg = tcfg
+        self.mesh = mesh
         self.fault_hook = fault_hook
         self.metrics: list[dict] = []
         self.straggler_events = 0
@@ -71,6 +86,18 @@ class Trainer:
             cfg, AdamWConfig(grad_clip_norm=tcfg.grad_clip),
             base_lr=tcfg.base_lr, warmup=tcfg.warmup,
             total_steps=tcfg.total_steps)
+        self._pshard = self._oshard = None
+        self._ranks = 1
+        self._writer = True
+        if mesh is not None:
+            shapes = lm.param_shapes(cfg)
+            specs = apply_strategy(lm.param_specs(cfg), shapes,
+                                   default_strategy(cfg))
+            self._pshard = sharding_tree(specs, shapes, mesh, strict=True)
+            self._oshard = {"m": self._pshard, "v": self._pshard}
+            if dist.is_initialized():
+                self._ranks = dist.get_world_size()
+                self._writer = dist.get_rank() == int(mesh.mesh.flatten()[0])
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0):
@@ -152,9 +179,13 @@ class Trainer:
                 "straggler_events": self.straggler_events}
 
     def _save(self, step: int, params, opt, data: DataIterator) -> None:
-        ckpt.save(self.tcfg.ckpt_dir, step, {"params": params, "opt": opt},
-                  meta={"data_step": data.state(), "arch": self.cfg.name},
-                  keep=self.tcfg.keep_ckpts)
+        if self._writer:
+            ckpt.save(self.tcfg.ckpt_dir, step,
+                      {"params": params, "opt": opt},
+                      meta={"data_step": data.state(), "arch": self.cfg.name},
+                      keep=self.tcfg.keep_ckpts)
+        if self._ranks > 1:
+            dist.barrier()
 
     def _log(self, rec: dict) -> None:
         self.metrics.append(rec)

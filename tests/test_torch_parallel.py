@@ -140,7 +140,8 @@ def test_sharded_decode_attention_two_ranks(tmp_path, index):
 def test_pipelined_forward_four_ranks(tmp_path, microbatches):
     """gpipe over 4 stages of 2 layers each against JAX's
     ``reference_forward`` (the reference's ``tests/test_pipeline_parallel
-    .py``: L 8, D 16, B 8), atol 1e-5, on every rank."""
+    .py``: L 8, D 16, B 8), atol 1e-5, on every rank; each stage holds
+    its 2 layers of every stacked leaf and no more."""
     num_layers, width, batch = 8, 16, 8
     rng = np.random.default_rng(microbatches)
     params = {"w": (0.3 * rng.normal(size=(num_layers, width, width))
@@ -154,7 +155,10 @@ def test_pipelined_forward_four_ranks(tmp_path, microbatches):
         lambda p, h: jnp.tanh(h @ p["w"] + p["b"]),
         {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x)))
     for got in outs:
-        assert np.abs(got - want).max() < 1e-5
+        assert np.abs(got["out"] - want).max() < 1e-5
+        assert got["held"] == {
+            k: ((num_layers // 4,) + v.shape[1:], v.nbytes // 4)
+            for k, v in params.items()}
 
 
 _FAKE_MESH = """

@@ -153,6 +153,30 @@ def test_lm_training_entry_points_need_a_card_or_an_explicit_cpu(
     assert metrics["loss"].device.type == "cpu"
 
 
+def test_mesh_trainer_needs_a_card_or_an_explicit_cpu(monkeypatch,
+                                                      tmp_path):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = registry.get_reduced("minitron-4b")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=1)
+    tcfg = TrainerConfig(ckpt_dir=str(tmp_path / "ck"))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store1"), 1), rank=0, world_size=1)
+    try:
+        m = DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
+                       mesh_dim_names=("data", "model"))
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(cfg, dcfg, tcfg, mesh=m)
+        t = Trainer(cfg, dcfg, tcfg, mesh=m, device="cpu")
+        assert t.device.type == "cpu" and t._pshard is not None
+    finally:
+        dist.destroy_process_group()
+
+
 def test_kernels_are_not_built_at_import():
     for kernel in (gather_trilerp.KERNEL, gather_trilerp.KERNEL_PER_SEG,
                    fused_nerf_mlp.KERNEL, streaming_pipeline.KERNEL,

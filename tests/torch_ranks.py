@@ -141,6 +141,103 @@ def render_windows_rank(rank: int, world: int, cfg_kw: dict, calls: list,
             "keys": sorted(eng.tick_programs)}
 
 
+# ops that read a tensor back to the host or size their output from its
+# data (``tests/test_torch_graphs.py``'s guard; this module imports no test
+# module, so the ranks keep their own copy)
+SYNC_OPS = {"_local_scalar_dense", "item", "is_nonzero", "equal",
+            "allclose", "nonzero", "nonzero_static", "argwhere", "bincount",
+            "masked_select", "histc"}
+
+
+def sync_guard():
+    """A ``TorchDispatchMode`` that raises on any op of ``SYNC_OPS``,
+    ``unique*`` or ``repeat_interleave.Tensor`` inside its block."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class SyncDetector(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in SYNC_OPS or name.lstrip("_").startswith("unique") or (
+                    name == "repeat_interleave"
+                    and func._overloadname == "Tensor"):
+                raise AssertionError(f"device read {func} inside a call "
+                                     f"that must only dispatch")
+            return func(*args, **(kwargs or {}))
+
+    return SyncDetector()
+
+
+def deferred_windows_rank(rank: int, world: int, jobs: list) -> list:
+    """For each ``(cfg_kw, calls)`` of ``jobs``: a sharded engine's
+    ``render_windows`` of each numpy ``(ref, tgt)`` pair under
+    :func:`sync_guard`, whether the result came back unresolved (frames
+    and dense fallback still deferred), its fields once read, this rank's
+    dense fallback renders, and the fields as the owner-resolves-first
+    rule gives them: an unsharded engine renders this rank's block of
+    sessions, resolves it and the blocks are gathered."""
+    from repro_torch.core import raybatch
+
+    out = []
+    for cfg_kw, calls in jobs:
+        eng = renderer(dict(cfg_kw, shard=world)).pipeline.device_engine
+        owner = renderer(cfg_kw).pipeline.device_engine
+        dense = [0]
+        fill = eng._dense_fill_flat
+
+        def counted(params, tgt, fill=fill):
+            dense[0] += 1
+            return fill(params, tgt)
+
+        eng._dense_fill_flat = counted
+        block = raybatch.session_sharding(eng.mesh)
+        rows = []
+        for ref, tgt in calls:
+            ref, tgt = torch.as_tensor(ref), torch.as_tensor(tgt)
+            with sync_guard():
+                res = eng.render_windows(ref, tgt)
+            deferred = res._frames is None and res._dense_fill is not None
+            got = window_fields(res)
+            mine = owner.render_windows(block(ref), block(tgt))
+            today = {k: raybatch.gather_sessions(
+                eng.mesh, getattr(mine, k)).numpy() for k in got}
+            rows.append({"deferred": deferred, "fields": got,
+                         "owner_rule": today})
+        out.append({"calls": rows, "dense_fills": dense[0]})
+    return out
+
+
+def guarded_serve_rank(rank: int, world: int, cfg_kw: dict, fleet: list,
+                       scenes_of: dict, hole_caps: dict) -> dict:
+    """:func:`serve_rank` with every tick that admits no session run under
+    :func:`sync_guard`; ``hole_caps`` (sid -> cap) overrides sessions'
+    hole capacities. Also the number of guarded ticks."""
+    from repro_torch.core import pipeline
+    from repro_torch.serve.render_engine import RenderServeEngine, \
+        RenderSession
+
+    ren = renderer(dict(cfg_kw, shard=world))
+    eng = RenderServeEngine(
+        ren.model, ren.params, config=ren.config,
+        scene_loader=lambda name: torch.as_tensor(scenes_of[name]))
+    sess = [RenderSession(sid=sid, poses=list(pipeline.orbit_trajectory(
+        n, step_deg=4.0, phase_deg=ph)), scene=sc,
+        hole_cap=hole_caps.get(sid)) for sid, n, ph, sc in fleet]
+    real, guarded = eng.step, [0]
+
+    def step():
+        if eng.queue and any(s is None for s in eng.slots):
+            return real()  # admission: paging, staging
+        with sync_guard():
+            ran = real()
+        guarded[0] += ran
+        return ran
+
+    eng.step = step
+    metrics = eng.run(sess)
+    return {"sessions": [session_result(s) for s in sess],
+            "metrics": metrics, "guarded_ticks": guarded[0]}
+
+
 def session_result(sess) -> dict:
     return {"frames": torch.stack(sess.frames).numpy(),
             "stats": {k: getattr(sess.stats, k) for k in (
@@ -201,18 +298,30 @@ def _tanh_layer(p, h):
 
 
 def pipeline_rank(rank: int, world: int, params: dict, x,
-                  num_microbatches: int) -> np.ndarray:
+                  num_microbatches) -> dict:
     """``pipelined_forward`` of ``tanh(h @ w + b)`` layers over the
-    ``pod`` axis of a 1-D mesh of every rank."""
+    ``pod`` axis of a 1-D mesh of every rank, at each microbatch count of
+    ``num_microbatches`` (an int or a list). This stage holds only its
+    block of the stacked numpy ``params`` (its layers copied out):
+    the outputs, and each leaf's shape and storage bytes as it holds
+    them."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.parallel.pipeline import pipelined_forward
 
     mesh = DeviceMesh("cpu", list(range(world)), mesh_dim_names=("pod",))
-    tree = {k: torch.as_tensor(v) for k, v in params.items()}
-    return pipelined_forward(_tanh_layer, tree, torch.as_tensor(x),
-                             mesh=mesh, num_microbatches=num_microbatches
-                             ).numpy()
+    per = next(iter(params.values())).shape[0] // world
+    stage = {k: torch.tensor(v[rank * per:(rank + 1) * per])
+             for k, v in params.items()}
+    counts = ([num_microbatches] if isinstance(num_microbatches, int)
+              else num_microbatches)
+    outs = {m: pipelined_forward(_tanh_layer, stage, torch.as_tensor(x),
+                                 mesh=mesh, num_microbatches=m).numpy()
+            for m in counts}
+    return {"out": outs[counts[0]] if isinstance(num_microbatches, int)
+            else outs,
+            "held": {k: (tuple(t.shape), t.untyped_storage().nbytes())
+                     for k, t in stage.items()}}
 
 
 def compressed_psum_rank(rank: int, world: int, grads: list, mode: str,
@@ -234,3 +343,127 @@ def compressed_psum_rank(rank: int, world: int, grads: list, mode: str,
                     "deq": {k: compression.dequantize(qs[k], ss[k]).numpy()
                             for k in qs}})
     return {"steps": out}
+
+
+# ---------------------------------------------------------------------------
+# the elastic re-lay and the mesh Trainer
+# ---------------------------------------------------------------------------
+
+
+def _empty_like_tree(tree, dtype=None):
+    """Each meta leaf of ``tree`` as an empty CPU tensor of its dtype (or
+    ``dtype``): a template for ``checkpoint.load``."""
+    from repro_torch.optim.adamw import tree_flatten
+
+    leaves, unflatten = tree_flatten(tree)
+    return unflatten([torch.empty(0, dtype=dtype or t.dtype)
+                      for t in leaves])
+
+
+def relay_rank(rank: int, world: int, cfg, src: str, layouts: list) -> dict:
+    """``checkpoint.load(shardings=...)`` of the Trainer checkpoint in
+    ``src`` on each ``(label, mesh shape, strategy)`` of ``layouts`` (a
+    (data, model) mesh of every rank; the config's params laid out by
+    ``strategy``'s strict placements, each moment as its param): per leaf
+    this rank's block's shape and offset, the placements asked for and
+    got, and whether the block and ``full_tensor()`` equal the one-device
+    load's."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.sharding import NamedSharding
+    from repro_torch.train import checkpoint as ckpt
+
+    meta = lm.param_shapes(cfg)
+    template = {"params": _empty_like_tree(meta),
+                "opt": {k: _empty_like_tree(meta, torch.float32)
+                        for k in ("m", "v")}}
+    whole, _ = ckpt.load(src, template)
+    out = {}
+    for label, shape, strategy in layouts:
+        mesh = DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                          mesh_dim_names=("data", "model"))
+        specs = sharding.apply_strategy(lm.param_specs(cfg), meta, strategy)
+        pshard = sharding.sharding_tree(specs, meta, mesh)
+        lay = {"params": pshard, "opt": {"m": pshard, "v": pshard}}
+        state, _ = ckpt.load(src, template, shardings=lay)
+        rows = {}
+        for (key, dt), (_, want), (_, ns) in zip(
+                ckpt._flatten(state), ckpt._flatten(whole), ckpt._flatten(
+                    lay, is_leaf=lambda x: isinstance(x, NamedSharding))):
+            local = dt.to_local()
+            _, offset = sharding.local_block(ns, want.shape)
+            block = want[tuple(slice(o, o + n)
+                               for o, n in zip(offset, local.shape))]
+            rows[key] = {
+                "local_shape": tuple(local.shape), "offset": offset,
+                "requested": [repr(p) for p in ns.placements],
+                "placements": [repr(p) for p in dt.placements],
+                "local_equal": torch.equal(local, block),
+                "full_equal": torch.equal(dt.full_tensor(), want)}
+        out[label] = rows
+    return out
+
+
+def mesh_trainer_rank(rank: int, world: int, cfg, dcfg, tcfg_kw: dict,
+                      out_dir: str, steps: int, fault_at: int,
+                      resume_steps: int) -> dict:
+    """A ``Trainer(mesh=...)`` on a (world, 1) (data, model) mesh: its
+    placement trees against the strict placements of the config's
+    strategy, ``steps`` steps with one fault injected at ``fault_at``,
+    every ``checkpoint.save`` it makes, the checkpoint directory after it,
+    then a fresh mesh Trainer resuming for ``resume_steps``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(world, 1),
+                      mesh_dim_names=("data", "model"))
+    saves, real_save = [], ckpt.save
+
+    def counted(ckpt_dir, step, *args, **kw):
+        saves.append(step)
+        return real_save(ckpt_dir, step, *args, **kw)
+
+    ckpt.save = counted
+    armed = [True]
+
+    def fault(step):
+        if step == fault_at and armed[0]:
+            armed[0] = False
+            raise RuntimeError(f"injected fault at step {fault_at}")
+
+    tcfg = TrainerConfig(ckpt_dir=f"{out_dir}/mesh", **tcfg_kw)
+    t = Trainer(cfg, dcfg, tcfg, mesh=mesh, fault_hook=fault, device="cpu")
+    meta = lm.param_shapes(cfg)
+    want = sharding.sharding_tree(sharding.apply_strategy(
+        lm.param_specs(cfg), meta, sharding.default_strategy(cfg)), meta,
+        mesh, strict=True)
+    run = t.run(steps, resume=False)
+    listing = sorted(os.listdir(f"{out_dir}/mesh"))
+    resumed = Trainer(cfg, dcfg, tcfg, mesh=mesh, device="cpu").run(
+        resume_steps, resume=True)
+    return {"pshard_is_strict": t._pshard == want,
+            "oshard_is_strict": t._oshard == {"m": want, "v": want},
+            "sharded_leaves": sum(
+                any(repr(p).startswith("Shard") for p in ns.placements)
+                for _, ns in ckpt._flatten(
+                    t._pshard,
+                    is_leaf=lambda x: isinstance(x, sharding.NamedSharding))),
+            "losses": run["losses"], "restarts": run["restarts"],
+            "final_step": run["final_step"],
+            "events": [m for m in t.metrics if m.get("event") == "restart"],
+            "saves": saves, "listing": listing,
+            "resumed_losses": resumed["losses"],
+            "resumed_final_step": resumed["final_step"]}
+
+
+def relay_and_train_rank(rank: int, world: int, relay: tuple,
+                         train: tuple) -> dict:
+    """:func:`relay_rank` then :func:`mesh_trainer_rank`, in one launch."""
+    return {"relay": relay_rank(rank, world, *relay),
+            "train": mesh_trainer_rank(rank, world, *train)}
