@@ -79,8 +79,8 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    LM serving, below) with every launch
    count set to 0 just before and read just after; each arm is held
    against the same port run on the CPU (which runs the plain versions;
-   those of arms A, B, B48, C, D, D adaptive's first window and G run in
-   a worker process started before the arms, beside the card's work):
+   those of arms A, B, B48, C, D, D adaptive's first window, E and G run
+   in a worker process started before the arms, beside the card's work):
    every frame >= 40 dB PSNR, equal reference renders and frame counts,
    and every kernel of the arm launched.
    Arm A: ``RenderConfig(backend="streaming")`` at its defaults (res 64,
@@ -405,7 +405,33 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    from seed 0 on both ranks: losses bit-equal between the ranks and
    within rtol 1e-5 of the one-device Trainer's on the card (L3's
    straight run, the same seed, schedule and batches), the checkpoint
-   written once, by rank 0;
+   written once, by rank 0.
+   Phase X (MoE's expert-parallel branch, the dry-run, the cost counter),
+   after phase Q. X1, two gloo ranks on the card started after phase L
+   on a (1, 2) (data, model) mesh under the mesh context, moonshot-v1-
+   16b-a3b at its published widths, 2 layers drawn from a seed, each rank
+   holding its 32 experts (a DTensor block, half of the expert bytes):
+   (a) one MoE layer in float32, B 2 x S 256, both dispatch modes, the
+   branch's body run once a mode, within ``F32_TOL`` of this process's
+   one-device dispatch; (b) the bf16 prefill of 2 x 512 tokens, the
+   branch taken on both layers and B6's prefill launched on each rank,
+   its logits no further from the float64-attention prefill (every
+   router call pinned to rank 0's expert ids) than F2's 1.5x max and
+   1.25x RMS of the one-device prefill's; (c) one decode tick, through
+   the fallback (each rank runs its experts, ``model`` gathers them),
+   within 3e-2 of the one-device tick from rank 0's caches. X2, in a
+   subprocess started with Q1: the dry-run (``launch.dryrun.run_cell``,
+   a fake process group of 256 ranks, meta tensors) of moonshot x
+   train_4k (the branch at tp 16), qwen2.5-32b x decode_32k (B6's decode
+   through its operator's fake implementation) and cicero-dvgo x
+   render_800 at full width and depth on the (16, 16) mesh of the card's
+   device type: FLOPs counted, an LM cell's useful fraction in (0, 1],
+   the train cell's params a rank equal to Q1's row for moonshot, and no
+   device memory allocated. X3: the cost counter on arm A's first staged
+   window of a fresh engine, its frames and holes bit-equal to another
+   fresh engine's uncounted window; its FLOPs, bytes and bytes per frame
+   printed (the counter sees the dispatcher's ops, not the ``ctypes``
+   kernel launches, whose counts are recorded);
 5. time each kernel and its plain version at the arms' shapes (B2 also
    at the four C5 shapes and arm I's three widths; B1 also on arm A's
    ``bank_interleaved`` table and arm I's ``cicero-dvgo`` block; B3 also
@@ -4227,6 +4253,432 @@ def print_phase_q(q: dict, smi: str) -> None:
           f"{q['one_device_losses']}, launches {q['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# phase X: MoE's expert-parallel branch on two gloo ranks of the card (X1),
+# the dry-run's cells under a fake process group (X2), the cost counter on
+# arm A's first staged window (X3)
+# ---------------------------------------------------------------------------
+
+# X1: moonshot-v1-16b-a3b at its published widths (d 2048, 64 experts,
+# top-6, moe_d_ff 1408, the shared expert), 2 layers drawn from the seed,
+# on a (1, 2) (data, model) mesh: each rank holds its 32 experts (a DTensor
+# block) and everything else whole; x and the tokens are plain tensors,
+# every rank's same (the branch computes the rank's rows, sums the experts
+# over ``model`` and returns the whole)
+X_ARCH = "moonshot-v1-16b-a3b"
+X_LAYERS = 2
+X_SEED = 0
+X_MOE = dict(batch=2, seq=256)  # (a): one MoE layer, float32
+X_PREFILL = dict(batch=2, prompt=512)  # (b): the bf16 prefill through B6
+X_DEADLINE_S = 300.0  # the parent kills X1's ranks past this
+X_DECODE_TOL = dict(atol=3e-2, rtol=3e-2)  # the reference's bf16 tolerance
+# X2: the cells at their published widths and depth on the (16, 16) mesh
+X2_CELLS = (("moonshot-v1-16b-a3b", "train_4k"), ("qwen2.5-32b", "decode_32k"),
+            ("cicero-dvgo", "render_800"))
+
+
+def x_config(dtype: str = "bfloat16", dispatch: str = "einsum",
+             widths: dict = None):
+    """X1's config (``widths`` overrides the published widths: a rehearsal
+    on the CPU)."""
+    from repro_torch.configs import registry
+
+    return registry.get(X_ARCH).with_(num_layers=X_LAYERS, dtype=dtype,
+                                      moe_dispatch=dispatch,
+                                      **(widths or {}))
+
+
+def x_draws(dev, widths: dict = None) -> dict:
+    """X1's inputs, drawn from ``X_SEED`` on ``dev`` (every process draws
+    the same): one float32 MoE layer and its x, the bfloat16 model's params
+    and the prefill's tokens."""
+    import torch
+    from repro_torch.models import lm, moe
+
+    gen = lambda k: torch.Generator(device=dev).manual_seed(X_SEED + k)
+    cfg32 = x_config("float32", widths=widths)
+    b, s = X_MOE["batch"], X_MOE["seq"]
+    return {"moe": moe.moe_init(gen(0), cfg32, torch.float32),
+            "x": torch.randn((b, s, cfg32.d_model), generator=gen(1),
+                             device=dev),
+            "params": lm.init_params(x_config(widths=widths), gen(2),
+                                     device=dev),
+            "tokens": torch.randint(0, cfg32.vocab_size,
+                                    (X_PREFILL["batch"], X_PREFILL["prompt"]),
+                                    generator=gen(3), device=dev)}
+
+
+def x_expert_blocks(layer: dict, mesh) -> dict:
+    """A MoE layer's params with ``wg`` / ``wu`` / ``wd`` replaced by this
+    rank's block over ``model`` (a DTensor; the whole tensors are
+    dropped)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    out = dict(layer)
+    m, tp = mesh.get_local_rank("model"), mesh.size(1)
+    for w in ("wg", "wu", "wd"):
+        t = layer[w]
+        n = t.shape[0] // tp
+        out[w] = DTensor.from_local(t[m * n:(m + 1) * n].clone(), mesh,
+                                    [Replicate(), Shard(0)], run_check=False,
+                                    shape=t.shape, stride=t.stride())
+    return out
+
+
+def x1_rank(rank: int, world: int, tmp: str, spec: dict) -> None:
+    """One rank of X1 (a gloo group through a ``FileStore`` in ``tmp``):
+    :func:`x1_checks`, its result (or traceback) saved to ``tmp``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    out = Path(tmp)
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out / "store"), world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=P_COLLECTIVE_TIMEOUT_S))
+    try:
+        torch.save(x1_checks(world, **spec), out / f"rank{rank}.pt")
+        dist.barrier()
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+    os._exit(0)
+
+
+def x1_checks(world: int, device=None, widths: dict = None) -> dict:
+    """X1 on this rank, under the (1, ``world``) mesh on ``device`` (default:
+    the card): (a) one float32 MoE layer in both dispatch modes; (b) the
+    bf16 prefill (routing recorded, B6's launches and the expert-parallel
+    bodies counted); (c) one decode tick after it, through the fallback.
+    Outputs go back to the host."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common, lm, moe
+
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    mesh = DeviceMesh(dev.type, torch.arange(world).reshape(1, world),
+                      mesh_dim_names=("data", "model"))
+    kernels = port_kernels()
+    bodies, real = [0], moe._expert_parallel
+
+    def counted(*a, **kw):
+        bodies[0] += 1
+        return real(*a, **kw)
+
+    moe._expert_parallel = counted
+    draws = x_draws(dev, widths)
+    layer = x_expert_blocks(draws.pop("moe"), mesh)
+    out = {"moe": {}}
+    with torch.no_grad(), common.use_mesh(mesh):
+        for mode in ("einsum", "streaming"):
+            bodies[0] = 0
+            y, aux = moe.moe(layer, draws["x"],
+                             x_config("float32", mode, widths))
+            out["moe"][mode] = {"out": y.cpu(), "aux": float(aux),
+                                "bodies": bodies[0]}
+    del layer
+    params = draws["params"]
+    params["layers"] = [dict(p, ffn=x_expert_blocks(p["ffn"], mesh))
+                        for p in params["layers"]]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["expert_bytes"] = sum(
+        p["ffn"][w].to_local().numel() * p["ffn"][w].to_local().element_size()
+        for p in params["layers"] for w in ("wg", "wu", "wd"))
+    cfg = x_config(widths=widths)
+    tokens = draws["tokens"]
+    log = []
+    for k in kernels:
+        k.reset()
+    with torch.no_grad(), common.use_mesh(mesh), routing(log, replay=False):
+        bodies[0] = 0
+        logits, caches = lm.make_prefill_step(
+            cfg, X_PREFILL["prompt"] + 8)(params, {"tokens": tokens})
+        out["prefill"] = {"logits": logits.float().cpu(),
+                          "bodies": bodies[0],
+                          "caches": [(c.k.cpu(), c.v.cpu()) for c in caches],
+                          "b6": fa.launches_by_kernel()}
+        token = logits.argmax(-1)[:, None]
+        bodies[0] = 0
+        logits_d, _ = lm.make_decode_step(cfg)(params, caches, token,
+                                               X_PREFILL["prompt"])
+        out["decode"] = {"logits": logits_d.float().cpu(), "token":
+                         token.cpu(), "bodies": bodies[0]}
+    out["launches"] = launch_counts(kernels)
+    out["routing"] = [idx.cpu() for idx in log]
+    out["max_memory_allocated"] = (torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else 0)
+    moe._expert_parallel = real
+    return out
+
+
+def x1_start(tmp: str, world: int = 2, spec: dict = None) -> list:
+    """X1's ranks, started with ``spawn`` (``spec``: :func:`x1_checks`'s
+    keywords; default: the card at the published widths)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=x1_rank, args=(r, world, tmp, spec or {}),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def x1_finish(procs: list, tmp: str, dev, reset, counts,
+              widths: dict = None) -> dict:
+    """X1's checks: each rank's outputs against this process's one-device
+    runs on the same draws. (a) within ``F32_TOL`` of the one-device
+    dispatch, the branch's body run once a mode; (b) the rank's bf16
+    prefill logits no further from the float64-attention prefill (every
+    router call pinned to rank 0's expert ids, F2's rule) than 1.25x the
+    one-device prefill's RMS distance (1.5x its max), the branch taken on
+    every layer and B6 launched on each rank; (c) the decode tick (the
+    fallback: no branch body) within ``X_DECODE_TOL`` of the one-device
+    tick from rank 0's caches."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm, moe
+    from repro_torch.models.attention import KVCache
+
+    end = time.monotonic() + X_DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(end - time.monotonic(), 0.0))
+        stalled = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    world = len(procs)
+    errors = {r: Path(tmp, f"rank{r}.err").read_text()
+              for r in range(world) if Path(tmp, f"rank{r}.err").exists()}
+    if stalled or errors or any(p.exitcode for p in procs):
+        fail(f"phase X1: ranks stalled {stalled}, exit codes "
+             f"{[p.exitcode for p in procs]}, errors {errors}")
+    ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    draws = x_draws(dev, widths)
+    out = {"moe": {}, "ranks": {}}
+    with torch.no_grad():
+        for mode in ("einsum", "streaming"):
+            y, aux = moe.moe(draws["moe"], draws["x"],
+                             x_config("float32", mode, widths))
+            y = y.cpu()
+            for r, res in enumerate(ranks):
+                got = res["moe"][mode]
+                err = float((got["out"] - y).abs().max())
+                if got["bodies"] != 1 or not torch.allclose(
+                        got["out"], y, **F32_TOL) \
+                        or abs(got["aux"] - float(aux)) > 1e-5:
+                    fail(f"phase X1 (a) {mode} rank {r}: max abs err {err}, "
+                         f"aux {got['aux']} vs {float(aux)}, branch bodies "
+                         f"{got['bodies']}")
+                out["moe"][f"{mode} rank {r}"] = {
+                    "max_abs_err": err, "aux_err": abs(got["aux"]
+                                                      - float(aux))}
+        del draws["moe"], draws["x"]
+        cfg, params, tokens = (x_config(widths=widths), draws["params"],
+                               draws["tokens"])
+        max_len = X_PREFILL["prompt"] + 8
+        pinned = [t.to(dev) for t in ranks[0]["routing"]]
+        n_moe = sum(1 for i in range(cfg.num_layers)
+                    if cfg.layer_pattern[i % cfg.period].ffn == "moe")
+        prefill_log, decode_log = pinned[:n_moe], pinned[n_moe:]
+
+        def prefill(attend):
+            real = fa.flash_attention
+            fa.flash_attention = attend
+            try:
+                with routing(list(prefill_log), replay=True):
+                    return lm.make_prefill_step(cfg, max_len)(
+                        params, {"tokens": tokens})
+            finally:
+                fa.flash_attention = real
+
+        reset()
+        one, _ = prefill(fa.flash_attention)
+        one_launches = counts()
+        f64, _ = prefill(attention_reference)
+        one, f64 = one.float().cpu(), f64.float().cpu()
+        caches = [KVCache(k.to(dev), v.to(dev))
+                  for k, v in ranks[0]["prefill"]["caches"]]
+        token = ranks[0]["decode"]["token"].to(dev)
+        with routing(list(decode_log), replay=True):
+            one_d, _ = lm.make_decode_step(cfg)(params, caches, token,
+                                                X_PREFILL["prompt"])
+        one_d = one_d.float().cpu()
+    for r, res in enumerate(ranks):
+        pre, dec = res["prefill"], res["decode"]
+        within = _logits_within(pre["logits"], one, f64, F_F2_LIMITS)
+        d_err = float((dec["logits"] - one_d).abs().max())
+        b6 = pre["b6"]
+        if pre["bodies"] != n_moe or not within["logits_ok"] \
+                or b6["prefill_mma"] != cfg.num_layers:
+            fail(f"phase X1 (b) rank {r}: branch bodies {pre['bodies']} of "
+                 f"{n_moe} layers, B6 {b6}, logits {within}")
+        if dec["bodies"] != 0 or not torch.allclose(dec["logits"], one_d,
+                                                    **X_DECODE_TOL):
+            fail(f"phase X1 (c) rank {r}: branch bodies {dec['bodies']} "
+                 f"(want 0: the fallback), decode logits max abs err "
+                 f"{d_err}")
+        out["ranks"][f"rank {r}"] = {
+            "prefill_vs_f64": within, "decode_max_abs_err_vs_one_device":
+            d_err, "branch_bodies_prefill": pre["bodies"],
+            "b6_prefill_launches": b6, "expert_bytes_held":
+            res["expert_bytes"], "max_memory_allocated":
+            res["max_memory_allocated"], "launches": res["launches"]}
+    whole = sum(p["ffn"][w].numel() * p["ffn"][w].element_size()
+                for p in params["layers"] for w in ("wg", "wu", "wd"))
+    out["expert_bytes_whole"] = whole
+    if any(r["expert_bytes"] * world != whole for r in ranks):
+        fail(f"phase X1: a rank holds {[r['expert_bytes'] for r in ranks]} "
+             f"of the experts' {whole} bytes (want 1 / {world})")
+    out["one_device_launches"] = one_launches
+    return out
+
+
+def x2_cells(device=None) -> dict:
+    """X2's work, in a process of its own (it initializes the fake process
+    group): the dry-run of each ``X2_CELLS`` cell on the (16, 16) mesh of
+    the card's device type; their reports and the device memory the
+    process allocated."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, shape in X2_CELLS:
+        out[f"{arch} {shape}"] = dryrun.run_cell(arch, shape, "single",
+                                                 device=device)
+    dev = device or "cuda"
+    out["device_memory_allocated"] = (
+        torch.cuda.max_memory_allocated() if torch.device(dev).type == "cuda"
+        else 0)
+    return out
+
+
+def x2_start(dev) -> subprocess.Popen:
+    import os
+
+    code = ("import json, chip_smoke; print(json.dumps(chip_smoke.x2_cells("
+            f"{'None' if dev.type == 'cuda' else repr(str(dev))})))")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=dict(os.environ))
+
+
+def x2_finish(proc: subprocess.Popen, q1: dict) -> dict:
+    """X2's checks: every cell counted FLOPs; an LM cell's useful fraction
+    in (0, 1]; the train cell's params a rank the bytes Q1 laid out for
+    moonshot on (16, 16); no device memory allocated."""
+    try:
+        out, err = proc.communicate(timeout=X_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("phase X2: the subprocess passed its deadline")
+    if proc.returncode != 0:
+        fail(f"phase X2: the subprocess failed: {err[-3000:]}")
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"phase X2 {line}")
+    res = json.loads(lines[-1])
+    for (arch, shape) in X2_CELLS:
+        d = res[f"{arch} {shape}"]
+        lm_cell = not arch.startswith("cicero-")
+        if d["flops"] <= 0 or (lm_cell and not
+                               0 < d["useful_flops_fraction"] <= 1):
+            fail(f"phase X2 {arch} x {shape}: flops {d['flops']}, useful "
+                 f"fraction {d['useful_flops_fraction']}")
+    train = res["moonshot-v1-16b-a3b train_4k"]["param_bytes"]
+    q1_row = q1["meshes"]["(16, 16)"]["moonshot-v1-16b-a3b"]
+    if train != q1_row["param_bytes_per_rank"]:
+        fail(f"phase X2: the train cell holds {train} param bytes a rank, "
+             f"Q1 laid out {q1_row['param_bytes_per_rank']}")
+    if res["device_memory_allocated"]:
+        fail(f"phase X2: the dry-run allocated "
+             f"{res['device_memory_allocated']} bytes of device memory")
+    return res
+
+
+def x3_window(dev, cfg, reset, counts) -> dict:
+    """X3: the cost counter on arm A's first staged window (one session:
+    the reference pose and the window's targets) on a fresh engine, and
+    the same window on another fresh engine without it: the frames and
+    holes bit-equal. The counter counts the ops that pass the dispatcher;
+    the hand-written kernels launch through ``ctypes`` and are not among
+    them (their launches are recorded)."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.engine import DeviceSparwEngine
+    from repro_torch.core.pipeline import orbit_trajectory
+    from repro_torch.roofline import cost
+
+    ren = api.make_renderer(cfg, device=dev)
+    poses = [p.to(dev) for p in orbit_trajectory(32)[:cfg.window]]
+    ref, tgt = poses[0][None], torch.stack(poses[1:])[None]
+    engine = lambda: DeviceSparwEngine(ren.model, ren.params, config=cfg)
+    engine().render_windows(ref, tgt).frames  # the cached constants
+    reset()
+    res, counted = cost.measure(engine().render_windows, ref, tgt)
+    frames = res.frames
+    launches = counts()
+    plain = engine().render_windows(ref, tgt)
+    equal = bool(torch.equal(frames, plain.frames)
+                 and torch.equal(res.holes, plain.holes))
+    n = tgt.shape[1]
+    out = {"flops": counted["flops"], "bytes": counted["bytes"],
+           "frames": n, "bytes_per_frame": cost.bytes_moved_per_frame(
+               counted, n), "collectives": counted["coll_counts"],
+           "kernel_launches": {k: v for k, v in launches.items() if v},
+           "frames_bit_equal": equal}
+    if not equal or counted["flops"] <= 0 or counted["bytes"] <= 0:
+        fail(f"phase X3: {out}")
+    return out
+
+
+def print_phase_x(x: dict, smi: str) -> None:
+    """Phase X's lines, each with the card's name and power limit."""
+    x1 = x["X1"]
+    for label, row in x1["moe"].items():
+        print(f"phase X1 (a) MoE layer float32 {label}: {json.dumps(row)} "
+              f"({smi})")
+    for label, row in x1["ranks"].items():
+        print(f"phase X1 {label}: {json.dumps(row)} ({smi})")
+    print(f"phase X1 experts: {x1['expert_bytes_whole']:,} bytes whole, "
+          f"one device's B6 launches {x1['one_device_launches']}")
+    for cell, d in x["X2"].items():
+        if isinstance(d, dict):
+            print(f"phase X2 {cell}: flops/rank {d['flops']:.4e}, bytes/rank "
+                  f"{d['bytes_accessed']:.4e}, collective bytes/rank "
+                  f"{d['coll_weighted_bytes']:.4e} {d['coll_counts']}, args "
+                  f"{d['arg_bytes']:,} B, params {d['param_bytes']:,} B, "
+                  f"useful {d['useful_flops_fraction']:.4f}, dominant "
+                  f"{d['dominant']}, roofline step "
+                  f"{d['step_time_s'] * 1e3:.2f} ms, traced in "
+                  f"{d['trace_s']} s")
+    print(f"phase X2 device memory allocated: "
+          f"{x['X2']['device_memory_allocated']}")
+    print(f"phase X3 arm A's first staged window: {json.dumps(x['X3'])} "
+          f"({smi})")
+
+
 def window_spy(renderer) -> list:
     """Record each window the renderer's device engine renders: its pool
     buckets, hole counts and fine counts (device tensors, read after the
@@ -4276,6 +4728,8 @@ def cpu_reference(job: dict) -> dict:
     from repro_torch.core.config import RenderRequest
     from repro_torch.nerf import models
 
+    if "scenes" in job:
+        return arm_e_cpu(job)
     extra = {}
     if "model" in job:
         model, _ = models.make_model(**job["model"])
@@ -4293,6 +4747,37 @@ def cpu_reference(job: dict) -> dict:
     if spy is not None:
         out["windows"] = read_windows(spy)
     return out
+
+
+def arm_e_cpu(job: dict) -> dict:
+    """Arm E's CPU run, in the worker: ``job["scenes"]`` = (sessions,
+    frames) of :func:`arm_e_sessions` served by ``job["cfg"]``'s CPU
+    renderer with a scene loader baking on the CPU, every tick's warp
+    recorded (:func:`c2_warps`). Returns the sessions (their stats and
+    frames), the warps, the run's metrics and the wall seconds."""
+    from types import SimpleNamespace
+
+    from repro_torch import api
+    from repro_torch.nerf import scenes
+    from repro_torch.serve.render_engine import RenderServeEngine
+
+    cfg = job["cfg"]
+    t0 = time.perf_counter()
+    ren = api.make_renderer(cfg, device="cpu")
+    eng = RenderServeEngine(
+        ren.model, ren.params, config=ren.config,
+        scene_loader=lambda name: scenes.bake_dense_table(
+            scenes.make_scene(name), cfg.grid_res, cfg.channels,
+            device="cpu"))
+    sessions = arm_e_sessions(*job["scenes"])
+    warps, metrics = c2_warps(eng, sessions)
+    keep = ("frames", "reference_renders", "warped_pixels", "sparse_pixels",
+            "fallback_pixels", "total_pixels")
+    return {"sessions": [SimpleNamespace(
+        sid=g.sid, scene=g.scene, frames=list(g.frames),
+        stats=SimpleNamespace(**{k: getattr(g.stats, k) for k in keep}))
+        for g in sessions], "warps": warps, "metrics": metrics,
+        "wall_s": time.perf_counter() - t0}
 
 
 def start_cpu_references(jobs: dict):
@@ -4402,7 +4887,7 @@ def main() -> int:
     cfg_d = cfg_b.replace(fused_tick=True, num_slots=4)
     cfg_e = cfg_c.replace(num_slots=4)
     # the CPU reference runs of arms A, B, B48, C, D, D adaptive (its first
-    # session's first window) and G, in the arms' order, beside the card
+    # session's first window), E and G, in the arms' order, beside the card
     model_b_kw = dict(kind="dvgo", backend="streaming", decoder="mlp")
     d_fleet = [RenderRequest(poses=tuple(orbit_trajectory(
         32, phase_deg=25.0 * i))) for i in range(6)]
@@ -4422,6 +4907,7 @@ def main() -> int:
                            poses=d_fleet[0].poses[:cfg_d.window],
                            model=model_b_kw, np_params=np_params_b,
                            spy=True),
+        "E": dict(cfg=cfg_e, scenes=(12, 32)),
         "G": dict(cfg=cfg_g, poses=orbit_trajectory(32), spy=True)})
     arm_i_models = {n: arm_i_model(n, dev) for n in ARM_I_CONFIGS}
 
@@ -5175,12 +5661,14 @@ def main() -> int:
         launches = counts()
         del eng._stage_scene_map
         m_warm = eng.run(arm_e_sessions(n_sessions, n_frames))
-        # the CPU run, each tick's warp recorded for C2 below
-        t_cpu = time.perf_counter()
-        cpu = arm_e_sessions(n_sessions, n_frames)
-        warps_cpu, m_cpu = c2_warps(
-            scene_engine(api.make_renderer(cfg, device="cpu")), cpu)
-        cpu_s = time.perf_counter() - t_cpu
+        # the worker's CPU run, each tick's warp recorded for C2 below
+        e_cpu = cpu_refs.pop("E").get()
+        if e_cpu["metrics"]["ticks"] != len(e_cpu["warps"]) \
+                or len(e_cpu["sessions"]) != n_sessions:
+            fail("arm E: the worker's CPU run is not the fleet's")
+        cpu, warps_cpu, m_cpu = (e_cpu[k] for k in ("sessions", "warps",
+                                                     "metrics"))
+        cpu_s = e_cpu["wall_s"]
         sc = m_cold["scene_cache"]
         if not (m_cold["complete"] and m_cpu["complete"]):
             fail("arm E: a session did not complete")
@@ -6012,6 +6500,8 @@ def main() -> int:
     def start_q():
         q_procs["q1"] = q1 = q1_start(dev)
         atexit.register(lambda: q1.poll() is None and q1.kill())
+        q_procs["x2"] = x2 = x2_start(dev)
+        atexit.register(lambda: x2.poll() is None and x2.kill())
         q_procs["q2"] = q2_start({"cfg": l_config(), "device": None,
                                   "ckpt": str(Path(q_tmp, "l3", "timed"))},
                                  q_tmp)
@@ -6020,6 +6510,11 @@ def main() -> int:
                              l3_kw=dict(root=Path(q_tmp, "l3")),
                              after_l1=start_q)
     phase_done("L")
+    # X1's ranks start now and run beside phase Q
+    torch.cuda.empty_cache()  # L2's blocks, for the ranks' 8.6 GB each
+    x_tmp = tempfile.mkdtemp(prefix="chip_smoke_x_")
+    atexit.register(shutil.rmtree, x_tmp, True)
+    x1_procs = x1_start(x_tmp)
     reset()
     Path(q_tmp, "go").touch()
     # the one-device Trainer from the same seed: L3's straight run
@@ -6031,6 +6526,13 @@ def main() -> int:
     shutil.rmtree(q_tmp, ignore_errors=True)
     phase_done("Q")
     print_phase_q(phase_q, smi)
+    # X. MoE's expert-parallel branch, the dry-run, the cost counter
+    phase_x = {"X1": x1_finish(x1_procs, x_tmp, dev, reset, counts)}
+    shutil.rmtree(x_tmp, ignore_errors=True)
+    phase_x["X2"] = x2_finish(q_procs["x2"], phase_q["Q1"])
+    phase_x["X3"] = x3_window(dev, cfg_a, reset, counts)
+    phase_done("X")
+    print_phase_x(phase_x, smi)
     for name, arm in arms.items():
         print(f"arm {name}: {json.dumps(arm)}")
     print(f"B1 launches: arm A {arms['A']['launches']['gather_trilerp']} "
@@ -6436,6 +6938,10 @@ def main() -> int:
     path_launches["L"] = training_l["launches"]
     path_launches["Q"] = phase_q["launches"]
     path_launches.update(arms["P"]["rank_launches"])
+    path_launches.update({f"X1 {r}": row["launches"] for r, row in
+                          phase_x["X1"]["ranks"].items()})
+    path_launches["X3"] = dict.fromkeys(path_launches["A"], 0)
+    path_launches["X3"].update(phase_x["X3"]["kernel_launches"])
     for name, want in EAGER_LAUNCHES.items():
         got = {k: path_launches[name][k] for k in want}
         if got != want:
@@ -6545,6 +7051,7 @@ def main() -> int:
         "training_T": training,
         "training_L": training_l,
         "phase_Q": phase_q,
+        "phase_X": {k: phase_x[k] for k in ("X2", "X3")},
         "phase_s": phase_s, "total_s": sum(phase_s.values()),
         "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,11 @@ training knobs ``q_block`` (the blocked attention's query tile),
 fields that lay out and select a sharded run's cells:
 ``sharding_strategy``, which ``parallel.sharding.default_strategy``
 reads, and ``skip_shapes``, which the registry's cell accounting reads.
-:data:`SHAPES` is the reference's LM shape suite, which
-the registry's cell accounting reads (its ``tokens_per_step`` and the
-NeRF shape suite come with the launcher that reads them, ROADMAP.md A3c).
+:data:`SHAPES` is the reference's LM shape suite (with
+``tokens_per_step``), :data:`NERF_SHAPES` its NeRF render shape, and
+:data:`SINGLE_POD` / :data:`MULTI_POD` its production meshes, which the
+dry-run launcher (:mod:`repro_torch.launch.dryrun`) and the roofline
+report read.
 
 The parameter accounting is the reference's, value for value, where it
 differs from what ``init_params`` builds (ROADMAP.md, reference caveats 5
@@ -223,6 +225,12 @@ class ShapeConfig:
     global_batch: int
     kind: str  # train | prefill | decode
 
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
 
 # the reference's four LM shape suites
 SHAPES: Dict[str, ShapeConfig] = {
@@ -235,3 +243,26 @@ SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", seq_len=524288, global_batch=1,
                              kind="decode"),
 }
+
+# the rendering shape of the paper's NeRF configs: the rays of one frame
+NERF_SHAPES: Dict[str, ShapeConfig] = {
+    "render_800": ShapeConfig("render_800", seq_len=800 * 800,
+                              global_batch=1, kind="prefill"),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig(shape=(16, 16), axes=("data", "model"))
+MULTI_POD = MeshConfig(shape=(2, 16, 16), axes=("pod", "data", "model"))

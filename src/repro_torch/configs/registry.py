@@ -3,8 +3,9 @@
 All ten of the reference's architectures; their ``CONFIG`` and
 ``REDUCED`` are the reference's, value for value. ``list_archs``,
 ``runnable_cells`` and ``skipped_cells`` are the reference's accounting of
-the (arch, shape) cells its dry-run launcher visits, pure functions of the
-configs and of ``base.SHAPES``; the launcher itself is ROADMAP.md A3c.
+the (arch, shape) cells the dry-run launcher visits
+(:mod:`repro_torch.launch.dryrun`), pure functions of the configs and of
+``base.SHAPES``.
 """
 from __future__ import annotations
 

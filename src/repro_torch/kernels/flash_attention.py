@@ -37,6 +37,7 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.utils import cdiv
@@ -222,15 +223,85 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """CPU tensors take the plain version; CUDA tensors launch the kernels
     (anything else raises). ``sm_scale`` defaults to ``D ** -0.5``,
     ``kv_len`` to ``Sk``; ``window`` 0 is no window, ``softcap`` 0 no
-    cap."""
+    cap. A DTensor or a fake tensor goes through the operator :data:`OP`
+    instead, whose DTensor rule and fake implementation serve the dry-run
+    (:mod:`repro_torch.launch.dryrun`: a DTensor of meta blocks, whose
+    blocks the operator's fake implementation serves)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from repro_torch.models.common import is_dtensor
+
+    if not (is_dtensor(q) or isinstance(q, FakeTensor)):
+        return _route(q, k, v, causal=causal, sm_scale=sm_scale,
+                      kv_len=kv_len, window=window, softcap=softcap)
+    d, sk = q.shape[-1], k.shape[2]
+    return OP(q, k, v, causal, float(d**-0.5 if sm_scale is None
+                                     else sm_scale),
+              int(sk if kv_len is None else kv_len), int(window),
+              float(softcap))
+
+
+def _route(q, k, v, **kw) -> torch.Tensor:
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale, kv_len=kv_len,
-                                     window=window, softcap=softcap)
+        return flash_attention_plain(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _launch_kernel(q, k, v, causal=causal, sm_scale=sm_scale,
-                          kv_len=kv_len, window=window, softcap=softcap)
+    return _launch_kernel(q, k, v, **kw)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def OP(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+       sm_scale: float, kv_len: int, window: int,
+       softcap: float) -> torch.Tensor:
+    """B6 as an operator: :func:`flash_attention` with every argument
+    given, routed as it routes a plain tensor."""
+    return _route(q, k, v, causal=causal, sm_scale=sm_scale, kv_len=kv_len,
+                  window=window, softcap=softcap)
+
+
+@OP.register_fake
+def _(q, k, v, causal, sm_scale, kv_len, window, softcap):
+    """The output's shape and dtype, contiguous as both routes return it,
+    the arguments checked as a launch checks them; no memory is
+    touched."""
+    _, _, _, sq, _, _, kv_len = _shapes(q, k, v, kv_len)
+    _check_window(sq, kv_len, window, softcap)
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """The two products of attention: ``2 B H Sq Sk D`` each (q.k over D,
+    then p.v over Sk), the masked scores included, as ``sdpa``'s formula
+    counts them."""
+    b, h, sq, d = q_shape
+    return 4 * b * h * sq * k_shape[2] * d
+
+
+def _register_sharding() -> None:
+    """B6's DTensor rule, one mesh dim at a time: all replicated; the
+    batch split (q, k, v and the output on dim 0); or the heads split (dim
+    1), where every mesh dim of more than one rank divides both the query
+    and the KV heads, so that each rank's query heads read its own KV
+    heads. Keys split over the sequence (the long-context caches) match
+    neither and are gathered whole before the call."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _rule(q, k, v, causal, sm_scale, kv_len, window, softcap):
+        rest = [None] * 5
+        out = [([Replicate()], [Replicate()] * 3 + rest),
+               ([Shard(0)], [Shard(0)] * 3 + rest)]
+        h, kvh = q.shape[1], k.shape[1]
+        if all(h % n == 0 and kvh % n == 0 for n in q.mesh.shape if n > 1):
+            out.append(([Shard(1)], [Shard(1)] * 3 + rest))
+        return out
+
+
+_register_sharding()
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -48,7 +48,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.common import DP, TP, P, ninit
+from repro_torch.models.common import DP, TP, P, is_dtensor, ninit, shard, \
+    whole_heads
 
 NEG_INF = -1e30
 
@@ -127,24 +128,42 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    q = whole_heads(q, h).reshape(b, s, h, hd)
+    k = whole_heads(k, kvh).reshape(b, s, kvh, hd)
+    v = whole_heads(v, kvh).reshape(b, s, kvh, hd)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
+
+
+def _heads_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """[B, S, H, D] -> [B, H, S, D] each, q and k constrained to the batch
+    over DP and the heads over TP (the reference's two constraints; the
+    identity without a mesh)."""
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    return (shard(q, P(DP, TP, None, None)), shard(k, P(DP, TP, None, None)),
+            v)
+
+
+def _repeat_heads(t: torch.Tensor, g: int) -> torch.Tensor:
+    """[B, KVH, L, D] -> [B, KVH * g, L, D], each KV head copied to its
+    ``g`` query heads in order (an expand and a view, which a DTensor
+    split over the heads keeps split)."""
+    b, kvh, n, d = t.shape
+    return t[:, :, None].expand(b, kvh, g, n, d).reshape(b, kvh * g, n, d)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
           sm_scale: float, softcap: float = 0.0) -> torch.Tensor:
     """q [B, H, Lq, D], k/v [B, KVH, Lk, D], mask [1, 1, Lq, Lk] bool or
-    None. GQA by the static head gather ``h -> h // (H // KVH)``; scores
+    None. GQA by the static head copy ``h -> h // (H // KVH)``; scores
     (soft-capped when ``softcap > 0``), softmax and the weighted sum in
-    float32, the output cast back to q's dtype."""
+    float32, the output cast back to q's dtype. DTensors run
+    :func:`_sdpa_by_block`."""
+    if is_dtensor(q):
+        return _sdpa_by_block(q, k, v, mask, sm_scale, softcap)
     h, kvh = q.shape[1], k.shape[1]
-    if kvh != h:
-        idx = torch.arange(h, device=q.device) // (h // kvh)
-        k = k.index_select(1, idx)
-        v = v.index_select(1, idx)
+    if kvh != h:  # query head i reads KV head i // (H // KVH)
+        k, v = (_repeat_heads(t, h // kvh) for t in (k, v))
     s = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
@@ -152,6 +171,75 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask,
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return (p @ v.float()).to(q.dtype)
+
+
+def _merged_heads(o: torch.Tensor, b: int, s: int, width: int
+                  ) -> torch.Tensor:
+    """o [B, H, S, D] -> [B, S, H * D], the output projection's input. A
+    DTensor whose heads are whole keeps its gradient whole along the
+    features too (an identity redistribute, whose backward lays the
+    gradient out as ``o``): the row-split projection would hand back a
+    gradient split in blocks that need not hold whole heads, which the
+    view's backward cannot split per head (torch 2.11 refuses)."""
+    o = o.transpose(1, 2).reshape(b, s, width)
+    if is_dtensor(o) and not any(p.is_shard(2) for p in o.placements):
+        o = o.redistribute(o.device_mesh, o.placements)
+    return o
+
+
+def _pad_rows(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """t [B, KVH, S, D] zero-padded to ``S + pad`` rows. A DTensor that is
+    not split over its rows pads each rank's block (DTensor's own ``pad``
+    plan fails on torch 2.11)."""
+    if not (is_dtensor(t) and not any(p.is_shard(2) for p in t.placements)):
+        return torch.nn.functional.pad(t, (0, 0, 0, pad))
+    from torch.distributed.tensor import DTensor
+
+    shape = (*t.shape[:2], t.shape[2] + pad, t.shape[3])
+    return DTensor.from_local(
+        torch.nn.functional.pad(t.to_local(), (0, 0, 0, pad)),
+        t.device_mesh, t.placements, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _sdpa_by_block(q, k, v, mask, sm_scale: float, softcap: float):
+    """:func:`_sdpa` of DTensors, each rank on its own block: q keeps its
+    batch and head splits and is gathered along its other dims; k and v
+    take q's batch split, and its head split where that split divides both
+    head counts (each rank's query heads then read only its own KV heads),
+    else are whole over that mesh dim. Each rank runs the plain
+    :func:`_sdpa` on its query heads and their KV heads; the output is
+    split as q. (A matmul of DTensors split over both the batch and the
+    heads flattens the two, which DTensor refuses.) The KV gradient of a
+    rank that reads only some of the whole KV heads is partial."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = q.device_mesh
+    h, kvh = q.shape[1], k.shape[1]
+    qp = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in q.placements]
+    kp, kgrad = [], []
+    for m, p in enumerate(qp):
+        n = mesh.size(m)
+        aligned = p != Shard(1) or (h % n == 0 and kvh % n == 0)
+        kp.append(p if aligned else Replicate())
+        kgrad.append(kp[-1] if aligned else Partial())
+    q_l = q.redistribute(mesh, qp).to_local()
+    k_l, v_l = (t.redistribute(mesh, kp).to_local(grad_placements=kgrad)
+                for t in (k, v))
+    _, q_off = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+    _, k_off = compute_local_shape_and_global_offset(k.shape, mesh, kp)
+    heads = q_off[1] + torch.arange(q_l.shape[1], device=q_l.device)
+    idx = heads // (h // kvh) - k_off[1]
+    if not (k_l.shape[1] == q_l.shape[1] and q_off[1] == k_off[1]):
+        k_l, v_l = k_l.index_select(1, idx), v_l.index_select(1, idx)
+    out = _sdpa(q_l, k_l, v_l, mask, sm_scale, softcap).contiguous()
+    return DTensor.from_local(out, mesh, qp, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
 
 
 def _blocked_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,11 +288,10 @@ def attn_train(params, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    o = _blocked_attn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      cfg, local=local, q_block=q_block or cfg.q_block,
-                      causal=causal)
-    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    q, k, v = _heads_major(*_project_qkv(params, x, cfg, positions))
+    o = _blocked_attn(q, k, v, cfg, local=local,
+                      q_block=q_block or cfg.q_block, causal=causal)
+    o = _merged_heads(o, b, s, cfg.num_heads * cfg.head_dim)
     return o @ params["wo"]
 
 
@@ -217,14 +304,11 @@ def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
     every key, zero-padded to ``cache_len``."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    q = q.transpose(1, 2)  # [B, H, S, D]
-    k = k.transpose(1, 2)  # [B, KVH, S, D]
-    v = v.transpose(1, 2)
+    q, k, v = _heads_major(*_project_qkv(params, x, cfg, positions))
     o = fa.flash_attention(q, k, v, causal=True, sm_scale=cfg.head_dim**-0.5,
                            window=cfg.local_window if local else 0,
                            softcap=cfg.logit_softcap)
-    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    o = _merged_heads(o, b, s, cfg.num_heads * cfg.head_dim)
     out = o @ params["wo"]
     if local and cfg.local_window < cache_len:
         width = cfg.local_window
@@ -232,8 +316,7 @@ def attn_prefill(params, x: torch.Tensor, cfg: ModelConfig, cache_len: int,
     else:
         width = cache_len
     pad = max(width - k.shape[2], 0)
-    kc = torch.nn.functional.pad(k, (0, 0, 0, pad))
-    vc = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    kc, vc = _pad_rows(k, pad), _pad_rows(v, pad)
     return out, KVCache(kc, vc)
 
 
@@ -243,13 +326,37 @@ def attn_encode(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     computes with ``causal=False``, without a cache."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal=False,
+    q, k, v = _heads_major(*_project_qkv(params, x, cfg, positions))
+    o = fa.flash_attention(q, k, v, causal=False,
                            sm_scale=cfg.head_dim**-0.5,
                            softcap=cfg.logit_softcap)
-    o = o.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
+    o = _merged_heads(o, b, s, cfg.num_heads * cfg.head_dim)
     return o @ params["wo"]
+
+
+def _write_row(cache: torch.Tensor, row: int, val: torch.Tensor) -> None:
+    """``cache[:, :, row] = val`` in place (cache [B, KVH, S, D], val [B,
+    KVH, D]). A DTensor cache writes its own block: the rank holding
+    ``row`` of a sequence-split cache writes it (DTensor would write a
+    redistributed copy of such a row and leave the cache as it was)."""
+    if not is_dtensor(cache):
+        cache[:, :, row] = val
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = cache.device_mesh
+    # val's dims are the cache's 0, 1 and 3; the cache's sequence split
+    # is replicated for it
+    lay = [Shard({0: 0, 1: 1, 3: 2}[p.dim]) if p.is_shard() and p.dim != 2
+           else Replicate() for p in cache.placements]
+    block = val.redistribute(mesh, lay).to_local()  # on every rank
+    local = cache.to_local()
+    _, off = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                   cache.placements)
+    if off[2] <= row < off[2] + local.shape[2]:
+        local[:, :, row - off[2]] = block
 
 
 def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
@@ -276,8 +383,8 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
     positions = torch.full((b, 1), index, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
     row = min(index, s_max - 1)
-    cache.k[:, :, row] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, :, row] = v[:, 0].to(cache.v.dtype)
+    _write_row(cache.k, row, k[:, 0].to(cache.k.dtype))
+    _write_row(cache.v, row, v[:, 0].to(cache.v.dtype))
     o = fa.flash_attention(q.transpose(1, 2), cache.k, cache.v,
                            causal=False, sm_scale=cfg.head_dim**-0.5,
                            kv_len=min(index + 1, s_max),
@@ -300,14 +407,15 @@ def cross_attn(params, x: torch.Tensor, enc_kv: KVCache, cfg: ModelConfig,
     (training, under autograd)."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd).transpose(1, 2)
+    q = whole_heads(x @ params["wq"], h).reshape(b, s, h, hd).transpose(1,
+                                                                      2)
     if flash:
         dt = torch.promote_types(q.dtype, enc_kv.k.dtype)
         o = fa.flash_attention(q.to(dt), enc_kv.k.to(dt), enc_kv.v.to(dt),
                                causal=False, sm_scale=hd**-0.5).to(q.dtype)
     else:
         o = _sdpa(q, enc_kv.k, enc_kv.v, None, hd**-0.5)
-    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    o = _merged_heads(o, b, s, h * hd)
     return o @ params["wo"]
 
 
@@ -318,8 +426,10 @@ def encode_cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig
     in the wider of their dtype and the weights'."""
     b, s, _ = enc_out.shape
     kvh, hd = cfg.num_kv_heads, cfg.head_dim
-    k = _promoted_matmul(enc_out, params["wk"]).reshape(b, s, kvh, hd)
-    v = _promoted_matmul(enc_out, params["wv"]).reshape(b, s, kvh, hd)
+    k = whole_heads(_promoted_matmul(enc_out, params["wk"]), kvh) \
+        .reshape(b, s, kvh, hd)
+    v = whole_heads(_promoted_matmul(enc_out, params["wv"]), kvh) \
+        .reshape(b, s, kvh, hd)
     return KVCache(k.transpose(1, 2), v.transpose(1, 2))
 
 

@@ -39,7 +39,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import DP, TP, P, rmsnorm, rmsnorm_init, \
-    rmsnorm_specs
+    rmsnorm_specs, shard
 
 # each part's leaves that its init makes in float32 whatever the model's
 # dtype, by mixer or FFN kind
@@ -116,13 +116,22 @@ def stack_specs(cfg: ModelConfig, cross: bool = False) -> List[dict]:
             for i in range(cfg.num_layers)]
 
 
+def _normed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The pre-norm of a sublayer's input, whole along the sequence (the
+    batch over DP): where the Megatron-SP carry is split over the
+    sequence, the all-gather before the sublayer's matmuls that GSPMD
+    places there (the identity without a mesh; DTensor would otherwise
+    have to flatten a batch and a sequence both split)."""
+    return shard(rmsnorm(p, x, cfg.norm_eps), P(DP, None, None))
+
+
 def _ffn_apply(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec
                ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """(x + FFN(norm(x)), aux): a dense FFN's auxiliary loss is 0; no FFN
     leaves x as it is."""
     if spec.ffn == "none":
         return x, 0.0
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    h = _normed(p["norm2"], x, cfg)
     if spec.ffn == "moe":
         y, aux = moe_mod.moe(p["ffn"], h, cfg)
         return x + y, aux
@@ -147,7 +156,7 @@ def _recurrent(p, h: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
 def _cross(p, x: torch.Tensor, cfg: ModelConfig, kv: attn.KVCache, *,
            flash: bool) -> torch.Tensor:
     """x + cross-attention of norm_x(x) over the encoder K/V ``kv``."""
-    hx = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    hx = _normed(p["norm_x"], x, cfg)
     return x + attn.cross_attn(p["cross"], hx, kv, cfg, flash=flash)
 
 
@@ -156,7 +165,7 @@ def layer_train(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, *,
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """(x, aux): the layer (with its cross-attention over ``enc_out``
     where it has one) and its FFN's auxiliary loss."""
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = _normed(p["norm1"], x, cfg)
     if spec.mixer == "attn":
         y = attn.attn_train(p["mixer"], h, cfg, local=_local(spec),
                             causal=causal)
@@ -176,12 +185,18 @@ def stack_train(layers: List[dict], x: torch.Tensor, cfg: ModelConfig, *,
     auxiliary losses)."""
 
     def period_fwd(x, enc_out, period_layers):
+        x = shard(x, P(DP, None, None))  # the carry gathered: see below
         aux_total = 0.0
         for p, spec in zip(period_layers, cfg.layer_pattern):
             x, aux = layer_train(p, x, cfg, spec, enc_out=enc_out,
                                  causal=causal)
             aux_total = aux_total + aux
-        return x, aux_total
+        # Megatron-SP: the carry between periods (the one activation a
+        # period keeps under remat) sequence-sharded over the model axis,
+        # and whole along the sequence inside the period, where GSPMD
+        # gathers it (DTensor cannot flatten a batch and a sequence both
+        # split into a matmul's rows, forward or backward)
+        return shard(x, P(DP, TP, None)), aux_total
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for start in range(0, cfg.num_layers, cfg.period):
@@ -200,7 +215,7 @@ def stack_encode(layers: List[dict], x: torch.Tensor, cfg: ModelConfig
     """An encoder's layers (bidirectional attention through kernel B6,
     dense FFN) over x [B, T, D], as a prefill runs them."""
     for p in layers:
-        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        h = _normed(p["norm1"], x, cfg)
         x, _ = _ffn_apply(p, x + attn.attn_encode(p["mixer"], h, cfg), cfg,
                           layer_spec(cfg, 0))
     return x
@@ -213,7 +228,7 @@ def layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     ``cache_len`` rows (its window's for a local layer), or a recurrent
     mixer's state after the sequence; a cross layer's paired with its
     encoder K/V, projected here from ``enc_out`` once."""
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = _normed(p["norm1"], x, cfg)
     if spec.mixer == "attn":
         y, cache = attn.attn_prefill(p["mixer"], h, cfg, cache_len,
                                      local=_local(spec))
@@ -238,7 +253,7 @@ def layer_decode(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     cross_kv = None
     if "cross" in p:
         cache, cross_kv = cache
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = _normed(p["norm1"], x, cfg)
     if spec.mixer == "attn":
         y, cache = attn.attn_decode(p["mixer"], h, cfg, cache, index,
                                     local=_local(spec))
@@ -257,9 +272,13 @@ def stack_prefill(layers: List[dict], x: torch.Tensor, cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, List[Cache]]:
     caches = []
     for i, p in enumerate(layers):
+        if i % cfg.period == 0:  # the carry whole inside a period
+            x = shard(x, P(DP, None, None))
         x, c = layer_prefill(p, x, cfg, layer_spec(cfg, i), cache_len,
                              enc_out=enc_out)
         caches.append(c)
+        if (i + 1) % cfg.period == 0:  # Megatron-SP carry, as in training
+            x = shard(x, P(DP, TP, None))
     return x, caches
 
 

@@ -13,7 +13,8 @@ parallelism), ``model`` carries heads, FFN hidden, vocabulary and experts
 """
 from __future__ import annotations
 
-from typing import Any, Sequence
+import contextlib
+from typing import Any, Iterator, Sequence
 
 import torch
 
@@ -121,7 +122,7 @@ def resolve_tree(tree: Tree, axis_names) -> Tree:
     return map_specs(lambda s: resolve_spec(s, axis_names), tree)
 
 
-def _axis_sizes(mesh) -> dict:
+def mesh_axis_sizes(mesh) -> dict:
     """Axis name -> size of a ``DeviceMesh`` (``mesh_dim_names`` and
     ``shape``) or of anything with ``axis_names`` and ``axis_sizes``."""
     names = getattr(mesh, "axis_names", None)
@@ -136,7 +137,7 @@ def guard_spec(spec: P, shape, mesh, strict: bool = False) -> P:
     cell). A dim its axes do not divide is kept (an uneven split is cheaper
     than replication) but dropped under ``strict`` (a parameter's layout
     must divide)."""
-    sizes = _axis_sizes(mesh)
+    sizes = mesh_axis_sizes(mesh)
     spec = resolve_spec(spec, tuple(sizes))
     out = []
     for i, entry in enumerate(spec):
@@ -154,21 +155,95 @@ def guard_spec(spec: P, shape, mesh, strict: bool = False) -> P:
     return P(*out)
 
 
+_MESH = None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh) -> Iterator:
+    """Make ``mesh`` (a ``DeviceMesh``) the mesh in context for the body of
+    the ``with``: the twin of the reference's ``jax.set_mesh(mesh)`` /
+    ``with mesh:``. The previous mesh (default: none) comes back after.
+    Inside, a plain tensor that meets a DTensor in an op (a position
+    ``arange``, a mask, a zero accumulator) counts as replicated
+    (``implicit_replication``), as a constant does under GSPMD."""
+    global _MESH
+    previous, _MESH = _MESH, mesh
+    try:
+        if mesh is None:
+            yield mesh
+        else:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+
+            with implicit_replication():
+                yield mesh
+    finally:
+        _MESH = previous
+
+
 def current_mesh():
-    """The mesh in context: the twin of the reference's
-    ``current_abstract_mesh``. The port sets no mesh context yet (the
-    dry-run, ROADMAP.md A3c, is its first user), so it returns None."""
-    return None
+    """The mesh in context (:func:`use_mesh`), or None: the twin of the
+    reference's ``current_abstract_mesh`` (None for its ``.empty``)."""
+    return _MESH
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
 
 
 def shard(x: torch.Tensor, spec: P) -> torch.Tensor:
-    """The reference's ``with_sharding_constraint`` guard: the identity
-    when no mesh is in context."""
-    if current_mesh() is None:
+    """The reference's ``with_sharding_constraint`` guard. Without a mesh
+    in context: ``x``. Under a mesh, a DTensor ``x`` is redistributed to
+    ``spec`` guarded on the mesh (its strategy remap, missing axes dropped,
+    size-1 dims replicated, and, unlike the reference's GSPMD, which pads
+    an uneven split, a dim its axes do not divide replicated too: DTensor
+    cannot flatten or view an uneven split), as DTensor placements; a
+    plain tensor (a rank's
+    block inside an explicit local region, such as MoE's expert-parallel
+    branch) passes through unchanged. Redistribution is differentiable:
+    the gradient comes back in ``x``'s placements."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
         return x
-    raise NotImplementedError(
-        "activation sharding constraints under a mesh context come with "
-        "the dry-run (ROADMAP.md A3c)")
+    from repro_torch.parallel.sharding import placements
+
+    return x.redistribute(mesh, placements(
+        guard_spec(spec, x.shape, mesh, strict=True), mesh))
+
+
+def whole_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """A DTensor projection ``[B, S, heads * D]`` whose feature dim is split
+    in blocks that do not hold whole heads (``heads`` not a multiple of the
+    split) gathered along that dim, so that it can be viewed per head;
+    anything else as it is. GSPMD pads such a split instead; DTensor
+    cannot view one."""
+    if not is_dtensor(t):
+        return t
+    n = 1
+    for m, p in enumerate(t.placements):
+        if p.is_shard(t.dim() - 1):
+            n *= t.device_mesh.size(m)
+    if heads % n == 0:
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(placements=[Replicate() if p.is_shard(t.dim() - 1)
+                                      else p for p in t.placements])
+
+
+def blockwise(fn, t: torch.Tensor) -> torch.Tensor:
+    """``fn(t)`` for an elementwise ``fn``; a DTensor ``t`` on each rank's
+    block, laid out as ``t`` (for an op DTensor has no rule for, such as
+    ``logsigmoid``'s backward)."""
+    if not is_dtensor(t):
+        return fn(t)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(fn(t.to_local()), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def ninit(generator: torch.Generator, shape: Sequence[int], scale: float,

@@ -43,8 +43,8 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import blocks
-from repro_torch.models.common import META, TP, P, dtype_of, ninit, \
-    rmsnorm, rmsnorm_init, rmsnorm_specs
+from repro_torch.models.common import DP, META, TP, P, dtype_of, ninit, \
+    is_dtensor, rmsnorm, rmsnorm_init, rmsnorm_specs, shard
 from repro_torch.optim import AdamWConfig, adamw_update_, cosine_warmup
 from repro_torch.optim.adamw import tree_flatten
 from repro_torch.utils import DeviceLike, resolve_device
@@ -126,7 +126,15 @@ def opt_specs(cfg: ModelConfig) -> dict:
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    """The token embeddings (the batch constrained over DP). A DTensor
+    table is read through ``embedding``, the same rows, whose DTensor rule
+    and backward serve a vocabulary split (an index's backward,
+    ``index_put``, has none that torch 2.11 can run)."""
+    table, ids = params["embed"], tokens.long()
+    if is_dtensor(table):
+        return shard(torch.nn.functional.embedding(ids, table),
+                     P(DP, None, None))
+    return shard(table[ids], P(DP, None, None))
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
@@ -208,24 +216,79 @@ def chunked_ce(h: torch.Tensor, targets: torch.Tensor, head: torch.Tensor,
     """Mean token cross-entropy, float32, the head matmul and
     ``logsumexp`` one chunk of ``min(chunk, S)`` positions at a time (S
     when that does not divide S). With ``mask`` [B, S] the mean is over
-    its weights, the denominator at least 1."""
+    its weights, the denominator at least 1. DTensor logits split over the
+    vocabulary take :func:`_vocab_parallel_nll`."""
     b, s, _ = h.shape
     c = min(chunk, s)
     if s % c != 0:
         c = s
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for start in range(0, s, c):
-        logits = (h[:, start:start + c] @ head).float()
-        lse = torch.logsumexp(logits, dim=-1)
+        # the chunk whole over ``model`` before the vocabulary-split head,
+        # where the reference's GSPMD gathers the sequence-split carry
+        hc = shard(h[:, start:start + c], P(DP, None, None))
+        logits = shard((hc @ head).float(), P(DP, None, TP))
         tx = targets[:, start:start + c].long()
-        true = torch.gather(logits, -1, tx[..., None])[..., 0]
-        nll = lse - true
+        if _vocab_split(logits):
+            nll = _vocab_parallel_nll(logits, tx)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            true = torch.gather(logits, -1, tx[..., None])[..., 0]
+            nll = lse - true
         if mask is not None:
             nll = nll * mask[:, start:start + c]
         total = total + nll.sum()
     denom = (mask.sum().float() if mask is not None
              else torch.tensor(float(b * s), dtype=torch.float32))
     return total / torch.clamp(denom, min=1.0)
+
+
+def _vocab_split(logits: torch.Tensor) -> bool:
+    return is_dtensor(logits) and any(p.is_shard(logits.dim() - 1)
+                                      for p in logits.placements)
+
+
+def _vocab_parallel_nll(logits, targets: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits) - logits[target]`` per position for DTensor
+    logits [B, C, V] split over the vocabulary, each rank on its block:
+    the row max, the sum of the exponentials and the target's logit (on
+    the rank whose block holds it) reduced over the split, the partitioned
+    reduction the reference's GSPMD runs. DTensor's own ``logsumexp`` and
+    ``gather`` would gather the whole vocabulary on every rank, forward
+    and backward. The same arithmetic as ``torch.logsumexp``, its float32
+    sums in another order. Returns a DTensor [B, C] whole over the
+    vocabulary's axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, pl = logits.device_mesh, list(logits.placements)
+    vocab = logits.dim() - 1
+    rows = [Replicate() if p.is_shard(vocab) else p for p in pl]
+
+    def reduced(t, op):  # the local [B_l, C] partials summed (or maxed)
+        part = [Partial(op) if p.is_shard(vocab) else r
+                for p, r in zip(pl, rows)]
+        return DTensor.from_local(t, mesh, part, run_check=False).redistribute(
+            mesh, rows).to_local()
+
+    if not is_dtensor(targets):  # a plain tensor is every rank's whole
+        targets = DTensor.from_local(targets, mesh,
+                                     [Replicate()] * mesh.ndim,
+                                     run_check=False)
+    local = logits.to_local()
+    _, off = compute_local_shape_and_global_offset(logits.shape, mesh, pl)
+    tx = targets.redistribute(mesh, rows).to_local() - off[vocab]
+    mine = (tx >= 0) & (tx < local.shape[-1])
+    m = reduced(local.amax(-1).detach(), "max")
+    lse = m + torch.log(reduced(torch.exp(local - m[..., None]).sum(-1),
+                                "sum"))
+    true = torch.gather(local, -1, torch.clamp(tx, 0, local.shape[-1] - 1)
+                        [..., None])[..., 0]
+    true = reduced(torch.where(mine, true, 0.0), "sum")
+    return DTensor.from_local(lse - true, mesh, rows, run_check=False,
+                              shape=logits.shape[:-1],
+                              stride=(logits.shape[1], 1))
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

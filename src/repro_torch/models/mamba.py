@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import DP, TP, P, ninit
+from repro_torch.models.common import DP, TP, P, is_dtensor, ninit
 
 # the leaves ``mamba_init`` makes in float32 whatever the model's dtype
 FLOAT32_LEAVES = ("dt_bias", "a_log", "d_skip")
@@ -140,6 +140,44 @@ def _chunk_step(st: torch.Tensor, xc: torch.Tensor, bc: torch.Tensor,
     return st_new, y
 
 
+def _chunk_step_by_block(st, xc, bc, cc, dtc, dc):
+    """:func:`_chunk_step` of DTensors, each rank on its own block: xc's
+    batch and head splits, every input laid out to match (B and C, which
+    every head reads, whole over the head split, their gradient partial
+    there), the state and y split as xc. Batches and heads are
+    independent, so this is the step the reference's GSPMD partitions;
+    DTensor's own plan flattens a batch and a head split, which torch 2.11
+    refuses."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = xc.device_mesh
+    rows = [p if p in (Shard(0), Shard(2)) else Replicate()
+            for p in xc.placements]
+
+    def lay(head_dim, shared=Replicate()):
+        return [Shard(0) if p == Shard(0) else
+                (Shard(head_dim) if head_dim is not None else shared)
+                if p == Shard(2) else Replicate() for p in rows]
+
+    def local(t, placements, grad=None):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, placements).to_local(
+            grad_placements=grad or placements)
+
+    st_new, y = _chunk_step(
+        local(st, lay(1)), local(xc, rows),
+        *(local(t, lay(None), lay(None, Partial())) for t in (bc, cc)),
+        *(local(t, lay(2)) for t in (dtc, dc)))
+    meta = lambda shape: torch.empty(shape, device="meta").stride()
+    return (DTensor.from_local(st_new.contiguous(), mesh, lay(1),
+                               run_check=False, shape=st.shape,
+                               stride=meta(st.shape)),
+            DTensor.from_local(y.contiguous(), mesh, rows, run_check=False,
+                               shape=xc.shape, stride=meta(xc.shape)))
+
+
 def mamba_chunked(params, x: torch.Tensor, cfg: ModelConfig, *,
                   chunk: int = 256, state: Optional[MambaState] = None
                   ) -> Tuple[torch.Tensor, MambaState]:
@@ -164,10 +202,11 @@ def mamba_chunked(params, x: torch.Tensor, cfg: ModelConfig, *,
         sl = slice(start, start + l)
         inp = (xf[:, sl], b_ssm[:, sl], c_ssm[:, sl], dt[:, sl],
                decay[:, sl])
+        step = _chunk_step_by_block if is_dtensor(xf) else _chunk_step
         if remat:
-            st, y = checkpoint(_chunk_step, st, *inp, use_reentrant=False)
+            st, y = checkpoint(step, st, *inp, use_reentrant=False)
         else:
-            st, y = _chunk_step(st, *inp)
+            st, y = step(st, *inp)
         ys.append(y)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]  # [B, S, H, dh]
     y = y + params["d_skip"][None, None, :, None] * xf

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import DP, TP, P, ninit
+from repro_torch.models.common import DP, TP, P, blockwise, ninit, \
+    whole_heads
 
 NEG_INF = -1e30
 # the leaves each init makes in float32 whatever the model's dtype
@@ -92,14 +93,14 @@ def _mlstm_proj(params, x: torch.Tensor, cfg: ModelConfig):
     b, s, d = x.shape
     h = cfg.xlstm_heads
     dh = d // h
-    to_heads = lambda t: t.reshape(b, s, h, dh).float()
+    to_heads = lambda t: whole_heads(t, h).reshape(b, s, h, dh).float()
     q = to_heads(x @ params["wq"]) / math.sqrt(dh)
     k = to_heads(x @ params["wk"]) / math.sqrt(dh)
     v = to_heads(x @ params["wv"])
     x32 = x.float()
     i_pre = x32 @ params["wi"] + params["bi"]  # [B, S, H]
     f_pre = x32 @ params["wf"] + params["bf"]
-    logf = F.logsigmoid(f_pre)
+    logf = blockwise(F.logsigmoid, f_pre)
     ogate = torch.sigmoid(x @ params["wo_gate"])
     return q, k, v, i_pre, logf, ogate
 
@@ -277,7 +278,7 @@ def slstm_scan(params, x: torch.Tensor, cfg: ModelConfig,
             d, dim=-1)
         z = torch.tanh(z_pre)
         o = torch.sigmoid(o_pre)
-        logf_m = F.logsigmoid(f_pre) + st.m
+        logf_m = blockwise(F.logsigmoid, f_pre) + st.m
         m_new = torch.maximum(logf_m, i_pre)
         fg = torch.exp(logf_m - m_new)
         ig = torch.exp(i_pre - m_new)

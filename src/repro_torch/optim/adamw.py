@@ -74,6 +74,19 @@ def adamw_init(params: Tree) -> dict:
     return {"m": zeros(), "v": zeros()}
 
 
+def _in_param_layouts(grads: List[torch.Tensor],
+                      params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each DTensor grad redistributed to its DTensor param's placements:
+    a grad left partial (a replicated param used on each rank's rows) is
+    summed there, the data-parallel all-reduce or reduce-scatter. Other
+    grads as they are."""
+    from repro_torch.models.common import is_dtensor
+
+    return [g.redistribute(p.device_mesh, p.placements)
+            if is_dtensor(g) and is_dtensor(p) and g.placements
+            != p.placements else g for g, p in zip(grads, params)]
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares,
     summed leaf by leaf in the reference's order."""
@@ -97,8 +110,9 @@ def adamw_update(grads: Tree, params: Tree, state: dict, step,
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("grads, params and the AdamW state differ in "
                          "structure")
+    flat_g = _in_param_layouts(flat_g, flat_p)
     if cfg.grad_clip_norm > 0:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(flat_g)
         scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
         # the reference's promotion: a low-precision grad scales in float32
         flat_g = [g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
@@ -130,7 +144,8 @@ def adamw_update_(grads: Tree, params: Tree, state: dict, step,
     ``state["m"]`` and ``state["v"]`` is overwritten with its new value,
     leaf by leaf, with the clip's scale applied per leaf. The same float32
     operations in the same order, so the results are bit-equal to
-    :func:`adamw_update`'s. ``grads`` are read, never written."""
+    :func:`adamw_update`'s. ``grads`` are read, never written. DTensor
+    grads are first summed into their params' placements."""
     flat_p, _ = tree_flatten(params)
     flat_g, _ = tree_flatten(grads)
     flat_m, _ = tree_flatten(state["m"])
@@ -138,9 +153,10 @@ def adamw_update_(grads: Tree, params: Tree, state: dict, step,
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("grads, params and the AdamW state differ in "
                          "structure")
+    flat_g = _in_param_layouts(flat_g, flat_p)
     scale = None
     if cfg.grad_clip_norm > 0:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(flat_g)
         scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
     t = torch.as_tensor(step).to(torch.float32) + 1.0
     b1 = torch.tensor(cfg.b1, dtype=torch.float32)

@@ -66,3 +66,13 @@ def params_device(params: dict, device: DeviceLike = None) -> torch.device:
         if found is None:
             found = d
     return found if found is not None else resolve_device(want)
+
+
+def human_bytes(n: float) -> str:
+    """``n`` bytes in binary units, two decimals (the reference's
+    ``repro.utils.human_bytes``)."""
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} PiB"

@@ -177,6 +177,24 @@ def test_mesh_trainer_needs_a_card_or_an_explicit_cpu(monkeypatch,
         dist.destroy_process_group()
 
 
+def test_dryrun_needs_a_card_or_an_explicit_cpu(monkeypatch, tmp_path):
+    """The dry-run lays its cells onto a mesh of the card's device type: its
+    CLI and ``run_cell`` raise without a card unless given ``--device cpu``
+    / ``device="cpu"``, and run there."""
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "cell.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "cicero-dvgo", "--out", str(out)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_cell("qwen2.5-32b", "train_4k", "single")
+    assert not out.exists()
+    dryrun.main(["--arch", "cicero-dvgo", "--out", str(out), "--device",
+                 "cpu"])
+    assert "device=cpu" in out.read_text()
+
+
 def test_kernels_are_not_built_at_import():
     for kernel in (gather_trilerp.KERNEL, gather_trilerp.KERNEL_PER_SEG,
                    fused_nerf_mlp.KERNEL, streaming_pipeline.KERNEL,

@@ -467,3 +467,232 @@ def relay_and_train_rank(rank: int, world: int, relay: tuple,
     """:func:`relay_rank` then :func:`mesh_trainer_rank`, in one launch."""
     return {"relay": relay_rank(rank, world, *relay),
             "train": mesh_trainer_rank(rank, world, *train)}
+
+
+# ---------------------------------------------------------------------------
+# MoE's expert-parallel branch
+# ---------------------------------------------------------------------------
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+def moe_mesh_rank(rank: int, world: int, cfg, cases: dict) -> dict:
+    """``moe`` under a (2, 2) (data, model) mesh for each case ``name ->
+    (params, x, r, dispatch)`` (numpy; the params of ``cfg`` with the
+    case's expert count): params and ``x`` laid out as DTensors by the
+    spec trees (x's batch over ``data`` where it divides), the output, ``aux`` and the
+    grads of ``sum(out * r) + aux`` gathered whole, with the number of
+    expert-parallel bodies the call ran; then a plain ``x`` (every rank's
+    same tensor) against DTensor experts, forward only. Also the
+    placements ``shard`` gives a DTensor and that a plain tensor passes
+    through."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import common, moe
+    from repro_torch.models.common import DP, TP, P
+    from repro_torch.parallel.sharding import named_sharding
+
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(2, world // 2),
+                      mesh_dim_names=("data", "model"))
+    bodies, real = [0], moe._expert_parallel
+
+    def counted(*a, **kw):
+        bodies[0] += 1
+        return real(*a, **kw)
+
+    moe._expert_parallel = counted
+    placed, real_dt = [], moe._moe_dtensor
+
+    def recorded(*a, **kw):  # the layout of the routed experts' sum
+        y, aux = real_dt(*a, **kw)
+        placed.append(tuple(repr(q) for q in y.placements))
+        return y, aux
+
+    moe._moe_dtensor = recorded
+
+    def lay(spec, a):
+        return distribute_tensor(torch.from_numpy(a), mesh, named_sharding(
+            mesh, spec, a.shape).placements)
+
+    out = {}
+    for name, (params, x, r, dispatch) in cases.items():
+        c = cfg.with_(moe_dispatch=dispatch,
+                      moe_num_experts=params["wg"].shape[0])
+        specs = moe.moe_specs(c)
+        p = common.map_specs(lay, specs, params)
+        leaves = [p["router"], p["wg"], p["wu"], p["wd"],
+                  *(p["shared"][k] for k in sorted(p["shared"]))]
+        for t in leaves:
+            t.requires_grad_(True)
+        # x laid out as the embedding's constraint lays it (a batch the
+        # data axis does not divide stays whole)
+        rows = named_sharding(mesh, P(DP, None, None), x.shape).placements
+        xd = distribute_tensor(torch.from_numpy(x), mesh, rows)
+        xd.requires_grad_(True)
+        rd = distribute_tensor(torch.from_numpy(r), mesh, rows)
+        bodies[0] = 0
+        with common.use_mesh(mesh):
+            y, aux = moe.moe(p, xd, c)
+            grads = torch.autograd.grad((y * rd).sum() + aux, [xd, *leaves])
+            taken = bodies[0]
+            with torch.no_grad():
+                y_plain, aux_plain = moe.moe(
+                    dict(p, router=p["router"].full_tensor(),
+                         shared={k: v.full_tensor()
+                                 for k, v in p["shared"].items()}),
+                    torch.from_numpy(x), c)
+        out[name] = {"out": y.full_tensor().detach().numpy(),
+                     "aux": float(aux.full_tensor()),
+                     "grads": [g.full_tensor().numpy() for g in grads],
+                     "bodies": taken, "out_placements": placed[-1],
+                     "plain_out": y_plain.numpy(),
+                     "plain_aux": float(aux_plain)}
+    with common.use_mesh(mesh):
+        xd = distribute_tensor(torch.ones(4, 6, 8), mesh,
+                               [Replicate(), Replicate()])
+        plain = torch.ones(4, 6, 8)
+        out["shard"] = {
+            "dtensor": tuple(repr(q) for q in common.shard(
+                xd, P(DP, TP, None)).placements),
+            "plain_passes": common.shard(plain, P(DP, TP, None)) is plain}
+    out["shard"]["no_mesh"] = common.shard(xd, P(DP, TP, None)) is xd
+    moe._expert_parallel, moe._moe_dtensor = real, real_dt
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's cells run for real
+# ---------------------------------------------------------------------------
+
+
+def dryrun_train_rank(rank: int, world: int, cases: dict) -> dict:
+    """For each case ``name -> (cfg, shape, params, batch)`` (numpy params
+    and batch): the train step :func:`dryrun.build_lm_cell` lays out on a
+    (2, 2) (data, model) mesh, its params, moments and batch DTensors of
+    those values, run for real under the mesh context: the loss and every
+    grad (``lm.loss_and_grads``), gathered whole; then one whole train step
+    (AdamW in place, its metrics laid out as the cell's outputs) under the
+    cost counter, its params after the step gathered whole and this rank's
+    counts."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common, lm
+    from repro_torch.optim.adamw import tree_flatten
+    from repro_torch.roofline import cost
+
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(2, world // 2),
+                      mesh_dim_names=("data", "model"))
+
+    def lay(values, shardings):
+        if isinstance(values, dict):
+            return {k: lay(v, shardings[k]) for k, v in values.items()}
+        if isinstance(values, list):
+            return [lay(v, s) for v, s in zip(values, shardings)]
+        return distribute_tensor(torch.tensor(np.asarray(values)), mesh,
+                                 list(shardings.placements))
+
+    def whole(tree):
+        leaves, _ = tree_flatten(tree)
+        return [t.full_tensor().detach().numpy() for t in leaves]
+
+    out = {}
+    for name, (cfg, shape, params, batch) in cases.items():
+        cell = dryrun.build_lm_cell(cfg, shape, mesh)
+        p = lay(params, cell.in_sh[0])
+        zeros = lambda: lay(_zeros_like_tree(params), cell.in_sh[0])
+        opt = {"m": zeros(), "v": zeros()}
+        b = lay(batch, cell.in_sh[2])
+        previous = common.get_strategy()
+        common.set_strategy(cell.strategy)
+        try:
+            with common.use_mesh(mesh):
+                loss, _, grads = lm.loss_and_grads(p, b, cell.cfg)
+                res = {"loss": float(loss.full_tensor()),
+                       "grads": whole(grads), "strategy": cell.strategy}
+                with cost.CostCounter() as counter:
+                    dryrun._relay(cell.fn(p, opt, b, 0), cell.out_sh)
+        finally:
+            common.set_strategy(previous)
+        res.update(params_after=whole(p), counts=counter.result())
+        res["serve"] = _laid_out_serve(mesh, cfg, shape, params,
+                                       batch["tokens"])
+        out[name] = res
+    return out
+
+
+def _laid_out_serve(mesh, cfg, shape, params, tokens) -> dict:
+    """A prefill of ``tokens`` and one decode step, the params, tokens and
+    caches laid out as the dry-run's prefill and decode cells lay them,
+    run for real under the mesh context: the prefill and decode logits and
+    the caches after the decode, gathered whole."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common, lm
+
+    b, s = tokens.shape
+    cache_len = s + 8
+    pre = dryrun.build_lm_cell(cfg, ShapeConfig("p", cache_len, b,
+                                                "prefill"), mesh)
+    dec = dryrun.build_lm_cell(cfg, ShapeConfig("d", cache_len, b,
+                                                "decode"), mesh)
+
+    def lay(values, shardings):
+        if isinstance(values, dict):
+            return {k: lay(v, shardings[k]) for k, v in values.items()}
+        if isinstance(values, list):
+            return [lay(v, s) for v, s in zip(values, shardings)]
+        return distribute_tensor(torch.tensor(np.asarray(values)), mesh,
+                                 list(shardings.placements))
+
+    previous = common.get_strategy()
+    common.set_strategy(pre.strategy)
+    try:
+        with torch.no_grad(), common.use_mesh(mesh):
+            p = lay(params, pre.in_sh[0])
+            logits, caches = lm.make_prefill_step(cfg, cache_len)(
+                p, lay({"tokens": tokens}, pre.in_sh[1]))
+            token = logits.full_tensor().argmax(-1)[:, None]
+
+            def relay(c, shardings):  # a prefill cache in decode's layout
+                if isinstance(c, tuple):
+                    out = [relay(t, ns) for t, ns in zip(c, shardings)]
+                    return type(c)(*out) if hasattr(c, "_fields") \
+                        else tuple(out)
+                return distribute_tensor(c.full_tensor(), mesh,
+                                         list(shardings.placements))
+
+            caches = [relay(c, cs) for c, cs in zip(caches, dec.in_sh[1])]
+            d_logits, caches = lm.make_decode_step(cfg)(
+                p, caches, distribute_tensor(token, mesh, list(
+                    dec.in_sh[2].placements)), s)
+    finally:
+        common.set_strategy(previous)
+    return {"prefill": logits.full_tensor().numpy(),
+            "decode": d_logits.full_tensor().numpy(),
+            "token": token.numpy(),
+            "caches": [t.full_tensor().numpy() for t in _leaves(caches)],
+            "cache_placements": [repr(tuple(t.placements))
+                                 for t in _leaves(caches)]}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _leaves(x)]
+    return [tree]
+
+
+def _zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_like_tree(v) for v in tree]
+    return np.zeros(np.shape(tree), np.float32)
