@@ -432,6 +432,23 @@ Phases, in order; any failure exits non-zero and nothing is swallowed:
    fresh engine's uncounted window; its FLOPs, bytes and bytes per frame
    printed (the counter sees the dispatcher's ops, not the ``ctypes``
    kernel launches, whose counts are recorded);
+   Phase K (the port's static checker, ``repro_torch.analysis``), after
+   phase X. K1: ``python -m repro_torch.analysis --device cuda --json`` in
+   a subprocess started before phase X and run beside it: the AST lint
+   of the port's files, the tick program bodies of a tiny engine
+   (staged, fused, fused over 2 scene pages, and admission priming on one
+   scene and on the pages) recorded op by op on the card, where they
+   launch B1, B3, B5 and B4, and every kernel's launches at the arms'
+   shapes read off ``torch.profiler``'s trace: all 14 rules, 0
+   unsuppressed findings, every program transfer-free. K2: the launch
+   pass's verdict that every launch the trace recorded was held to its
+   plan (grid, block, dynamic shared memory; ``launch_pass.
+   plan_launches``, the Python twins of the C formulas included); what
+   the trace measured of each launch (grid, block, shared memory,
+   registers) joins its kernel's row of the kernels line by launch-count
+   key, and the occupancy estimates are printed on the K2 lines only.
+   K3: a ``GraphProbe`` over each of phase S's steady serving runs (arm
+   D's fused fleet among them): no new tick program, no new capture;
 5. time each kernel and its plain version at the arms' shapes (B2 also
    at the four C5 shapes and arm I's three widths; B1 also on arm A's
    ``bank_interleaved`` table and arm I's ``cicero-dvgo`` block; B3 also
@@ -2010,6 +2027,7 @@ def run_lm_serving_arm(label: str, cfg, params, prompts, slots: int,
     model (no B6 call) skips F2. F2's logit limits are
     ``M_F2_LIMITS``."""
     import torch
+    from repro_torch.utils import tree_bytes
 
     n_attn = attn_layers(cfg)
     fleet = lambda: lm_requests(prompts, cfg.vocab_size, max_new)
@@ -2105,7 +2123,7 @@ def run_lm_serving_arm(label: str, cfg, params, prompts, slots: int,
         "decode_s_per_tick": (wall_warm - prefill_s) / st_warm["ticks"],
         "warm_streams_equal_cold": [r.out for r in warm]
         == [r.out for r in cold],
-        "weight_bytes": _tree_bytes(params),
+        "weight_bytes": tree_bytes(params),
         "kv_cache_bytes": sum(2 * slots * cfg.num_kv_heads * w * cfg.head_dim
                               * 2 for w in widths),
         "max_memory_allocated": peak, "F2": f2,
@@ -2613,6 +2631,7 @@ def run_step_arm(label: str, cfg, params, batch, shape: dict, dev, reset,
     over the prefill and its first ``W_PROFILED_TICKS`` ticks."""
     import torch
     from repro_torch.models import lm
+    from repro_torch.utils import tree_bytes
 
     part_s, clock = {}, [time.perf_counter()]
 
@@ -2712,7 +2731,7 @@ def run_step_arm(label: str, cfg, params, batch, shape: dict, dev, reset,
     return {
         "params": sum(t.numel() for t in _tree_leaves(params)),
         "config_params": cfg.param_count(),
-        "weight_bytes": _tree_bytes(params), **shape,
+        "weight_bytes": tree_bytes(params), **shape,
         "enc_seq_len": cfg.enc_seq_len,
         "image_tokens": (batch["image_embeds"].shape[1]
                          if "image_embeds" in batch else 0),
@@ -2917,10 +2936,6 @@ def float64_loss_and_grads(params, batch, cfg):
     return loss, grads
 
 
-def _tree_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in _tree_leaves(tree))
-
-
 def _lm_batch(dcfg, step: int, dev):
     import torch
     from repro_torch.data.pipeline import make_batch
@@ -3068,6 +3083,7 @@ def l2_full_width(dev, cfg=None, steps: int = L2_STEPS,
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train.trainer import TrainerConfig
+    from repro_torch.utils import tree_bytes
 
     cuda = torch.device(dev).type == "cuda"
     cfg = cfg or registry.get(L_ARCH).with_(num_layers=L2_LAYERS)
@@ -3083,7 +3099,7 @@ def l2_full_width(dev, cfg=None, steps: int = L2_STEPS,
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    state = {"params": _tree_bytes(params), "moments": _tree_bytes(opt),
+    state = {"params": tree_bytes(params), "moments": tree_bytes(opt),
              "allocated_before_bytes": (torch.cuda.memory_allocated()
                                         if cuda else None)}
     rows = []
@@ -4679,6 +4695,125 @@ def print_phase_x(x: dict, smi: str) -> None:
           f"({smi})")
 
 
+K_DEADLINE_S = 300.0  # the script kills phase K1's checker past this
+# the kernels each K1 program body must launch on the card
+K1_PROGRAM_KERNELS = {
+    "render_windows": "gather_trilerp",
+    "render_windows_streaming": "fused_gather_dual",
+    "render_windows_streaming_multi_scene": "fused_gather_dual_per_seg",
+    "prime_reference_select": "gather_trilerp",
+    "prime_reference_select_multi_scene": "gather_trilerp_per_seg"}
+# what the trace measured of each launch, the kernels line's geometry
+# (``shared_memory``: static plus dynamic, as the trace reports it)
+K2_MEASURED = ("grid", "block", "shared_memory", "registers")
+
+
+def k1_start(device: str = "cuda") -> tuple:
+    """Start phase K1's checker, ``python -m repro_torch.analysis --device
+    <device> --json``, in a subprocess: (process, its JSON path, start
+    time). The script starts it before phase X, beside X's ranks."""
+    import os
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_k_")) / "analysis.json"
+    atexit.register(shutil.rmtree, out.parent, True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--device", device,
+         "--json", str(out)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, time.perf_counter()
+
+
+def run_phase_k(device: str = "cuda", deadline_s: float = K_DEADLINE_S,
+                started: tuple = None) -> dict:
+    """Phase K1 and K2: the port's static checker on the card.
+
+    K1 runs ``python -m repro_torch.analysis --device cuda --json`` in a
+    subprocess (``started`` by :func:`k1_start`, else started here): all
+    three passes (AST lint; the tick program bodies of a tiny engine
+    recorded on the card, launching B1, B3, B4 and B5; every kernel's
+    launches at the arms' shapes read off the profiler's trace), 14
+    rules, 0 unsuppressed findings and a transfer-free steady tick. K2
+    reads the launch pass's verdict: every launch the trace recorded was
+    held to its plan (the same grid, block and dynamic shared memory; a
+    mismatch, a plan or a Python twin of a C formula that has drifted, is
+    a ``kernel-launch-coverage`` finding, which K1 already refuses).
+    ``device="cpu"`` rehearses it where there is no card: the plain
+    versions run and the launches are the plans'."""
+    proc, out, t0 = started or k1_start(device)
+    try:
+        stdout, stderr = proc.communicate(timeout=deadline_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("phase K1: the checker passed its deadline")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not out.exists():
+        fail(f"phase K1: the checker exited {proc.returncode}:\n"
+             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    s = json.loads(out.read_text())
+    if s["rules"] != 14 or s["findings"] != 0 \
+            or s["passes"] != ["ast", "program", "launch"] \
+            or s["device"] != device \
+            or s["steady_tick_transfer_free"] is not True:
+        head = {k: v for k, v in s.items() if k not in ("program", "launch")}
+        fail(f"phase K1: {json.dumps(head)}")
+    programs = s["program"]["programs"]
+    for name, kernel in K1_PROGRAM_KERNELS.items():
+        row = programs[name]
+        if not row["transfer_free"] or (
+                device == "cuda" and row["launches"].get(kernel, 0) < 1):
+            fail(f"phase K1 {name}: {row} (must launch {kernel})")
+    lp = s["launch"]
+    source, held = ("trace", len(lp["planned"])) if device == "cuda" \
+        else ("plan", 0)
+    if lp["source"] != source or lp["held_to_plan"] != held \
+            or len(lp["launches"]) != len(lp["planned"]):
+        fail(f"phase K2: {len(lp['launches'])} launches ({lp['source']}), "
+             f"{lp['held_to_plan']} held to their plans, "
+             f"{len(lp['planned'])} planned")
+    rows = [{**{k: rec[k] for k in (
+        "kernel", "entry", "counter", "case", "grid", "block",
+        "dynamic_smem", "static_smem", "registers", "occupancy_pct",
+        "occupancy_model_pct")},
+        "shared_memory": rec["dynamic_smem"] + (rec["static_smem"] or 0)}
+        for rec in lp["launches"]]
+    launches = {}
+    for row in programs.values():
+        for kernel, n in row["launches"].items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    k2_launches = {}
+    for row in rows:
+        k2_launches[row["counter"]] = k2_launches.get(row["counter"], 0) + 1
+    return {"wall_s": wall, "checker_s": s["seconds"],
+            "pass_seconds": s["pass_seconds"], "rules": s["rules"],
+            "findings": s["findings"], "suppressed": s["suppressed"],
+            "steady_tick_transfer_free": s["steady_tick_transfer_free"],
+            "programs": programs, "K1_launches": launches,
+            "K2": rows, "K2_launches": k2_launches,
+            "layouts": lp["layouts"]}
+
+
+def print_phase_k(k: dict, smi: str) -> None:
+    print(f"phase K1: {k['rules']} rules, {k['findings']} findings "
+          f"({k['suppressed']} suppressed), checker {k['checker_s']:.1f} s "
+          f"(by pass {k['pass_seconds']}; {k['wall_s']:.1f} s with its "
+          f"start, beside phase X), steady tick "
+          f"transfer-free {k['steady_tick_transfer_free']}; " + "; ".join(
+              f"{n}: transfer_free {r['transfer_free']}, launches "
+              f"{r['launches']}" for n, r in k["programs"].items())
+          + f" [{smi}]")
+    for row in k["K2"]:
+        print(f"phase K2 {row['kernel']} ({row['case']}): grid "
+              f"{row['grid']}, block {row['block']}, shared memory "
+              f"{row['dynamic_smem']} dynamic + {row['static_smem']} "
+              f"static, {row['registers']} registers a thread, "
+              f"occupancy {row['occupancy_pct']}% (the trace's estimate), "
+              f"{row['occupancy_model_pct']}% (resident warps by the "
+              f"occupancy twin) [{smi}]")
+
+
 def window_spy(renderer) -> list:
     """Record each window the renderer's device engine renders: its pool
     buckets, hole counts and fine counts (device tensors, read after the
@@ -4802,6 +4937,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from repro_torch import api
+    from repro_torch.analysis.graphprobe import GraphProbe
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import streaming
     from repro_torch.core.config import RenderConfig, RenderRequest
@@ -4815,7 +4951,7 @@ def main() -> int:
     from repro_torch.nerf import mlp, models, rays, scenes
     from repro_torch.serve.render_engine import RenderServeEngine, \
         RenderSession
-    from repro_torch.utils import psnr
+    from repro_torch.utils import psnr, tree_bytes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5883,13 +6019,6 @@ def main() -> int:
                 "staged_wall_s": wide[False][1]["wall_s"]}}
 
 
-    def tree_bytes(tree):
-        if isinstance(tree, dict):
-            return sum(tree_bytes(v) for v in tree.values())
-        if isinstance(tree, list):
-            return sum(tree_bytes(v) for v in tree)
-        return tree.numel() * tree.element_size()
-
     def run_lm_arm():
         """Arm F: LM serving (see the module docstring)."""
         cpu = torch.device("cpu")
@@ -6411,19 +6540,20 @@ def main() -> int:
             return ran
 
         serve.step = guarded
+        probe = GraphProbe(eng)  # phase K3: no program, no capture
         try:
             t0 = time.perf_counter()
             m = serve.run(fleet())
             wall = time.perf_counter() - t0
         finally:
             del serve.step
-        if len(eng.tick_programs) != keys or eng.num_captures != caps \
-                or not m["complete"] or steady[0] < 1:
-            fail(f"phase S {label}: keys {keys} -> "
-                 f"{len(eng.tick_programs)}, captures {caps} -> "
-                 f"{eng.num_captures}, {steady[0]} steady ticks")
+        if any(probe.delta().values()) or not m["complete"] \
+                or steady[0] < 1:
+            fail(f"phase S / K3 {label}: {keys} keys and {caps} captures "
+                 f"moved by {probe.delta()}, {steady[0]} steady ticks")
         return {"keys": keys, "captures": caps, "ticks": m["ticks"],
-                "steady_ticks_checked": steady[0], "wall_s": wall}
+                "steady_ticks_checked": steady[0], "wall_s": wall,
+                "graph_probe_delta": probe.delta()}
 
     steady = {"replay": {}, "serving": {}}
     # the arms' renderers and serving engines as they left them, every key
@@ -6526,6 +6656,8 @@ def main() -> int:
     shutil.rmtree(q_tmp, ignore_errors=True)
     phase_done("Q")
     print_phase_q(phase_q, smi)
+    # K1's checker runs beside phase X (its ranks hold the card lightly)
+    k1 = k1_start()
     # X. MoE's expert-parallel branch, the dry-run, the cost counter
     phase_x = {"X1": x1_finish(x1_procs, x_tmp, dev, reset, counts)}
     shutil.rmtree(x_tmp, ignore_errors=True)
@@ -6533,6 +6665,13 @@ def main() -> int:
     phase_x["X3"] = x3_window(dev, cfg_a, reset, counts)
     phase_done("X")
     print_phase_x(phase_x, smi)
+    # K. the static checker on the card (K1, K2); K3 ran in phase S
+    phase_k = run_phase_k(started=k1)
+    phase_k["K3"] = steady["serving"]["D fused"]["graph_probe_delta"]
+    phase_done("K")
+    print_phase_k(phase_k, smi)
+    print(f"phase K3 D fused: steady serving made "
+          f"{json.dumps(phase_k['K3'])} new tick programs / captures")
     for name, arm in arms.items():
         print(f"arm {name}: {json.dumps(arm)}")
     print(f"B1 launches: arm A {arms['A']['launches']['gather_trilerp']} "
@@ -6948,6 +7087,10 @@ def main() -> int:
             fail(f"path {name}: launches {got}, the eager ticks' {want}")
 
     def entry(name, key, source, replaces, err, t, **extra):
+        # phase K2: what the card's trace measured of each launch of this
+        # kernel at the launch pass's shapes
+        geometry = [{k: r[k] for k in ("kernel", "case", *K2_MEASURED)}
+                    for r in phase_k["K2"] if r["counter"] == key]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(c[key] for c in path_launches.values()),
                     launches_per_arm={n: c[key]
@@ -6956,7 +7099,8 @@ def main() -> int:
                     **{k: t[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms",
                                             "shape")},
-                    other_shapes=t[1:], card=card, **extra)
+                    other_shapes=t[1:], card=card,
+                    launch_geometry_k2=geometry, **extra)
 
     line = {"kernels": [
         entry("gather_trilerp_mvoxels_segmented (B1, Gathering Unit)",
@@ -7022,6 +7166,9 @@ def main() -> int:
               f"{B6}.decode_combine", b6_src, b6_rep, errs["B6_combine"],
               t_b6["decode_combine"]),
     ]
+    if sum(len(r["launch_geometry_k2"]) for r in line["kernels"]) \
+            != len(phase_k["K2"]):
+        fail("phase K2: a recorded launch joins no row of the kernels line")
     print(json.dumps(line))
     lm_arm = arms["F"]
     print(json.dumps({"arms_wall": {
@@ -7052,6 +7199,11 @@ def main() -> int:
         "training_L": training_l,
         "phase_Q": phase_q,
         "phase_X": {k: phase_x[k] for k in ("X2", "X3")},
+        "phase_K": {k: phase_k[k] for k in (
+            "wall_s", "checker_s", "pass_seconds", "rules", "findings",
+            "suppressed",
+            "steady_tick_transfer_free", "K1_launches", "K2_launches",
+            "K3", "layouts")},
         "phase_s": phase_s, "total_s": sum(phase_s.values()),
         "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ group (one per device). The reference's legacy-kwarg shims are not ported.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -271,12 +272,50 @@ class RenderConfig:
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
+    def fingerprint(self) -> str:
+        """Stable short digest of every field (the reference's rule: a
+        sha1 of the resolved config's repr, 12 hex digits), usable as a
+        cross-process cache key. Equal configs have equal fingerprints;
+        any field change flips it."""
+        return hashlib.sha1(repr(self.resolved()).encode()).hexdigest()[:12]
+
     def apply_request(self, request: "RenderRequest") -> "RenderConfig":
         """Fold a request's per-session overrides in."""
         kw = {k: getattr(request, k)
               for k in ("window", "hole_cap", "pool_bucket")
               if getattr(request, k) is not None}
         return dataclasses.replace(self, **kw) if kw else self
+
+
+# Fields EXCLUDED from the fingerprint. fingerprint() hashes
+# repr(self.resolved()), so a field escapes it only through repr=False, and
+# any such field must be listed here with a reason, or
+# verify_fingerprint_coverage() refuses to import. Empty, as in the
+# reference: every field reaches the repr, the port's own ones included
+# (``device`` picks the kernels or their plain versions, ``shard`` the
+# sharded tick program; both shape what runs).
+_NON_COMPILE_FIELDS: frozenset = frozenset()
+
+
+def verify_fingerprint_coverage() -> None:
+    """Every ``RenderConfig`` field must reach ``fingerprint()`` (which
+    hashes the dataclass repr) or be allowlisted in
+    ``_NON_COMPILE_FIELDS``: a field with ``repr=False`` that is not
+    allowlisted would escape the fingerprint, and a cache keyed on it could
+    serve a program built for another config. Enforced at import and
+    re-checked by ``repro_torch.analysis``'s program pass."""
+    escaped = [f.name for f in dataclasses.fields(RenderConfig)
+               if not f.repr and f.name not in _NON_COMPILE_FIELDS]
+    if escaped:
+        raise RuntimeError(
+            f"RenderConfig field(s) {escaped} have repr=False and are "
+            "absent from _NON_COMPILE_FIELDS: they would escape "
+            "fingerprint(), and a program cached under it could be served "
+            "for another config. Drop repr=False or allowlist the field "
+            "with a reason in _NON_COMPILE_FIELDS.")
+
+
+verify_fingerprint_coverage()
 
 
 @dataclass(frozen=True, eq=False)  # eq=False: hash by identity (holds poses)

@@ -106,6 +106,12 @@ def mlp_plan(c: int, h: int, dd: int) -> MlpPlan:
     return MlpPlan("runtime", h, RT_ROWS, RT_STAGE_BYTES, hidden)
 
 
+def rt_grid(s: int, plan: MlpPlan, sms: int) -> int:
+    """The run-time-H mode's grid over ``s`` samples: a CTA a tile, at most
+    4 CTAs an SM (2 with global scratch, whose tiles each CTA owns)."""
+    return min(-(-s // plan.tile), (2 if plan.scratch else 4) * sms)
+
+
 def pad_hidden(w1, b1, w2, b2, w_sigma, w_rgb, width: int) -> Tuple:
     """The weights with H zero-padded to ``width`` hidden units: zero
     columns of ``w1``, ``b1``, ``w2`` and ``b2``, zero rows of ``w2`` and
@@ -191,7 +197,7 @@ def fused_nerf_mlp(feats, direnc, w1, b1, w2, b2, w_sigma, w_rgb,
         else:
             sms = torch.cuda.get_device_properties(
                 feats.device).multi_processor_count
-            grid = min(-(-s // plan.tile), (2 if plan.scratch else 4) * sms)
+            grid = rt_grid(s, plan, sms)
             scratch = (torch.empty((grid * plan.scratch,),
                                    dtype=torch.float32, device=feats.device)
                        if plan.scratch else None)

@@ -1,7 +1,11 @@
-"""Small shared utilities: integer rounding, PSNR, device resolution."""
+"""Small shared utilities: integer rounding, PSNR, device resolution, tree
+math over nested dicts / lists / tuples of tensors, deterministic seeds
+(the port of ``repro.utils``; ``shard_map_compat`` and ``jit_with_name``
+are shims over the JAX API and have no twin)."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import zlib
+from typing import Dict, Iterable, Iterator, Sequence, Union
 
 import torch
 
@@ -34,7 +38,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
                            "run the plain PyTorch path on the CPU")
     return torch.device("cuda")
-
 
 
 def _tensors(tree):
@@ -76,3 +79,55 @@ def human_bytes(n: float) -> str:
             return f"{n:.2f} {unit}"
         n /= 1024.0
     return f"{n:.2f} PiB"
+
+
+def human_count(n: float) -> str:
+    """``n`` in decimal units, two decimals (``repro.utils.human_count``)."""
+    for unit in ("", "K", "M", "B", "T"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}"
+        n /= 1000.0
+    return f"{n:.2f}Q"
+
+
+def chunked(seq: Sequence, size: int) -> Iterator[Sequence]:
+    """``seq`` in consecutive slices of ``size`` (the last may be
+    shorter)."""
+    for i in range(0, len(seq), size):
+        yield seq[i:i + size]
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of every tensor leaf of a nested dict / list / tuple."""
+    return int(sum(t.numel() * t.element_size() for t in _tensors(tree)))
+
+
+def tree_count(tree) -> int:
+    """Total number of elements across every tensor leaf."""
+    return int(sum(t.numel() for t in _tensors(tree)))
+
+
+def tree_finite(tree) -> bool:
+    """True iff every tensor leaf is finite (no NaN or Inf). Reads the
+    values back, so it synchronizes with a card."""
+    return all(bool(torch.isfinite(t.float()).all()) for t in _tensors(tree))
+
+
+def fold_seed(seed: int, *names: str) -> int:
+    """An integer seed derived from ``seed`` and string names, stable
+    across processes (the twin of ``repro.utils.fold_rng``: builtin
+    ``hash()`` of a str is randomized by PYTHONHASHSEED, ``zlib.crc32`` is
+    not). Each name folds its crc32 in; the result is in ``[0, 2**63)``."""
+    for name in names:
+        seed = (seed * 0x9E3779B1 + zlib.crc32(name.encode("utf-8"))) \
+            % 2**63
+    return seed
+
+
+def named_generators(seed: int, names: Iterable[str],
+                     device: DeviceLike = "cpu") -> Dict[str, torch.Generator]:
+    """One ``torch.Generator`` per name, seeded with
+    :func:`fold_seed` ``(seed, name)`` (the twin of ``repro.utils.
+    named_keys``)."""
+    return {n: torch.Generator(device=device).manual_seed(fold_seed(seed, n))
+            for n in names}

@@ -25,7 +25,10 @@ from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "lm_noise_floor.py"]
+    ROOT / "chip_smoke.py"] + [
+    ROOT / "scripts" / f"{name}.py" for name in (
+        "lm_noise_floor", "gloo_cuda_probe", "lm_serve_bench",
+        "steady_tick_bench")]
 
 
 def _imported_modules(path):
@@ -193,6 +196,28 @@ def test_dryrun_needs_a_card_or_an_explicit_cpu(monkeypatch, tmp_path):
     dryrun.main(["--arch", "cicero-dvgo", "--out", str(out), "--device",
                  "cpu"])
     assert "device=cpu" in out.read_text()
+
+
+def test_analysis_needs_a_card_or_an_explicit_cpu(monkeypatch, tmp_path):
+    """The checker's program and launch passes run on the card: its CLI
+    raises without one unless given ``--device cpu`` (no quiet fallback),
+    and runs there; the AST pass alone needs no device."""
+    from repro_torch.analysis import cli, launch_pass
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "analysis.json"
+    for skip in ([], ["--skip-pass", "program"], ["--skip-pass", "launch"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--root", str(ROOT), "--json", str(out),
+                      "--skip-pass", "ast", *skip])
+    assert not out.exists()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        launch_pass.recorded_launches("cpu")
+    assert cli.main(["--root", str(ROOT), "--json", str(out), "--skip-pass",
+                     "program", "--skip-pass", "launch"]) == 0
+    assert cli.main(["--root", str(ROOT), "--skip-pass", "ast",
+                     "--skip-pass", "program", "--device", "cpu"]) == 0
+    assert "device" not in out.read_text()  # the AST-only run's summary
 
 
 def test_kernels_are_not_built_at_import():
